@@ -1,0 +1,162 @@
+"""Typed configuration for the PyTorch port (the 2C serving slice).
+
+A copy of the dataclasses of ``mpmc_tpu/config.py`` that the serving path
+reads.  Field names and defaults are identical, so a ``run_meta.json``
+written by either package restores the same model variant here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+
+class Subtask(str, enum.Enum):
+    A = "2A"  # text-only
+    B = "2B"  # image-only
+    C = "2C"  # multimodal
+
+
+class PoolingType(str, enum.Enum):
+    CLS = "cls"
+    NOPOOLING = "nopooling"
+    MAX = "max"
+    MEAN = "mean"
+    ATTENTION = "attention"
+    CNN = "cnn"
+
+
+class FusionMethod(str, enum.Enum):
+    CONCATENATION = "concatenation"
+    MCA = "mca"
+    CROSS_MODAL = "cross_modal"
+    SELF_ATTENTION = "self_attention"
+
+
+@dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    """BERT-family encoder hyperparameters (AraBERT/RoBERTa compatible)."""
+
+    vocab_size: int = 64000           # aubmindlab/bert-base-arabertv2
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    pad_token_id: int = 0
+    # RoBERTa-style position offset: positions start at pad_token_id+1.
+    roberta_style_positions: bool = False
+    gelu_approx: bool = False
+
+    @staticmethod
+    def roberta_base() -> "TextEncoderConfig":
+        return TextEncoderConfig(
+            vocab_size=50265, max_position_embeddings=514,
+            type_vocab_size=1, pad_token_id=1, roberta_style_positions=True,
+            layer_norm_eps=1e-5,
+        )
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "TextEncoderConfig":
+        """Small config for tests/smoke runs."""
+        return TextEncoderConfig(
+            vocab_size=vocab_size, hidden_size=64, num_layers=2, num_heads=4,
+            intermediate_size=128, max_position_embeddings=128,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageEncoderConfig:
+    arch: str = "resnet18"            # resnet18 | tiny_resnet in this port
+    image_size: int = 224
+    feature_dim: int = 512
+    finetune_dim: int = 512
+    finetune_dropout: float = 0.35
+    patch_size: int = 16
+    grayscale: bool = False
+
+    @staticmethod
+    def tiny() -> "ImageEncoderConfig":
+        return ImageEncoderConfig(arch="tiny_resnet", image_size=64,
+                                  feature_dim=64, finetune_dim=64)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    subtask: Subtask = Subtask.C
+    text: Optional[TextEncoderConfig] = dataclasses.field(
+        default_factory=TextEncoderConfig)
+    caption: Optional[TextEncoderConfig] = dataclasses.field(
+        default_factory=TextEncoderConfig.roberta_base)
+    image: Optional[ImageEncoderConfig] = dataclasses.field(
+        default_factory=ImageEncoderConfig)
+    pooling: PoolingType = PoolingType.CLS
+    fusion: FusionMethod = FusionMethod.CONCATENATION
+    proj_dim: int = 512
+    dropout: float = 0.3
+    num_classes: int = 1
+    max_text_len: int = 512
+    max_caption_len: int = 512
+
+    @staticmethod
+    def tiny_2c() -> "ModelConfig":
+        return ModelConfig(
+            subtask=Subtask.C,
+            text=TextEncoderConfig.tiny(),
+            caption=TextEncoderConfig.tiny(),
+            image=ImageEncoderConfig.tiny(),
+            proj_dim=64, max_text_len=32, max_caption_len=16,
+        )
+
+
+def model_config_to_dict(cfg: ModelConfig) -> dict:
+    """JSON-serializable dict of a ModelConfig (the ``run_meta.json`` form)."""
+    d = dataclasses.asdict(cfg)
+
+    def _plain(obj):
+        if isinstance(obj, enum.Enum):
+            return obj.value
+        if isinstance(obj, dict):
+            return {k: _plain(v) for k, v in obj.items()}
+        return obj
+
+    return _plain(d)
+
+
+def model_config_from_dict(d: dict) -> ModelConfig:
+    """Inverse of :func:`model_config_to_dict`."""
+    d = dict(d)
+    for key, cls in (("text", TextEncoderConfig),
+                     ("caption", TextEncoderConfig),
+                     ("image", ImageEncoderConfig)):
+        if d.get(key) is not None:
+            d[key] = cls(**d[key])
+    d["subtask"] = Subtask(d["subtask"])
+    d["pooling"] = PoolingType(d["pooling"])
+    d["fusion"] = FusionMethod(d["fusion"])
+    return ModelConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The data settings the serving path reads."""
+
+    cache_dir: str = ".cache"         # caption cache
+    # Trim token arrays to the shortest multiple of this covering every real
+    # token (``max_*_len`` stays the truncation cap).
+    seq_bucket_multiple: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX package's ``TrainConfig`` that eval reads."""
+
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    seed: int = 42
+    bf16: bool = True

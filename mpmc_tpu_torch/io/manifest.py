@@ -1,0 +1,52 @@
+"""JSON manifest loading (copy of ``mpmc_tpu/io/manifest.py``).
+
+Records carry ``id``, ``img_path``, ``text`` and, for labelled splits,
+``class_label`` in {propaganda, not_propaganda}.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import List, Optional
+
+import numpy as np
+
+L2ID = {"not_propaganda": 0, "propaganda": 1}
+
+
+@dataclasses.dataclass
+class Manifest:
+    """Columnar view of one split of the dataset."""
+
+    ids: List[str]
+    texts: List[str]
+    img_paths: List[str]
+    labels: Optional[np.ndarray]  # int32 [N] or None for unlabelled sets
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+
+def read_manifest(path: str, is_test: bool = False) -> Manifest:
+    """Load a JSON-array manifest; ``is_test=True`` ignores labels."""
+    with open(path, encoding="utf-8") as f:
+        records = json.load(f)
+
+    ids, texts, img_paths, labels = [], [], [], []
+    labelled = True
+    for rec in records:
+        ids.append(str(rec["id"]))
+        texts.append(rec.get("text", ""))
+        img_paths.append(rec.get("img_path", ""))
+        if not is_test and "class_label" in rec:
+            labels.append(L2ID[rec["class_label"]])
+        else:
+            labelled = False
+
+    return Manifest(
+        ids=ids,
+        texts=texts,
+        img_paths=img_paths,
+        labels=np.asarray(labels, dtype=np.int32) if labelled else None,
+    )

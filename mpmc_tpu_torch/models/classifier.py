@@ -1,0 +1,132 @@
+"""The 2C classifier (port of ``ImageEncoderWithHead``, ``_ModalityFC`` and
+``MultimodalClassifier`` in ``mpmc_tpu/models/classifier.py``): text CLS
+features and caption CLS features each through Linear+BN+ReLU, the image
+backbone through its fine-tune MLP, concatenation fusion, and a Linear+BN
+head giving one logit.  Eval only: dropout is the identity and not built.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig
+from mpmc_tpu_torch.models.bert import TextEncoder
+from mpmc_tpu_torch.models.fusion import make_fusion
+from mpmc_tpu_torch.models.norm import BatchNorm
+from mpmc_tpu_torch.models.resnet import ResNet, TinyResNet, resnet18
+
+
+def create_image_backbone(cfg: ImageEncoderConfig) -> ResNet:
+    in_channels = 1 if cfg.grayscale else 3
+    if cfg.arch == "resnet18":
+        return resnet18(in_channels)
+    if cfg.arch == "tiny_resnet":
+        return TinyResNet(in_channels)
+    raise ValueError(f"image arch {cfg.arch!r} is not ported yet")
+
+
+class ImageEncoderWithHead(nn.Module):
+    """Backbone features, then Linear, ReLU, Linear."""
+
+    def __init__(self, cfg: ImageEncoderConfig):
+        super().__init__()
+        self.backbone = create_image_backbone(cfg)
+        self.finetune_fc1 = nn.Linear(self.backbone.feature_dim,
+                                      cfg.finetune_dim)
+        self.finetune_fc2 = nn.Linear(cfg.finetune_dim, cfg.finetune_dim)
+
+    def forward(self, image):
+        return self.finetune_fc2(F.relu(self.finetune_fc1(self.backbone(image))))
+
+
+class _ModalityFC(nn.Module):
+    """Linear(H, proj), BatchNorm, ReLU."""
+
+    def __init__(self, in_dim: int, proj_dim: int):
+        super().__init__()
+        self.fc = nn.Linear(in_dim, proj_dim)
+        self.bn = BatchNorm(proj_dim)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.fc(x)))
+
+
+class MultimodalClassifier(nn.Module):
+    """2C: text + image (+ caption), fusion, single logit ``[B]``.
+
+    The text and caption branches exist when the config has them (the JAX
+    package decides at call time, which a torch module cannot)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        dims = []
+        if cfg.text is not None:
+            self.text_model = TextEncoder(cfg.text)
+            self.text_fc = _ModalityFC(cfg.text.hidden_size, cfg.proj_dim)
+            dims.append(cfg.proj_dim)
+        self.image_model = ImageEncoderWithHead(cfg.image)
+        dims.append(cfg.image.finetune_dim)
+        if cfg.caption is not None:
+            self.caption_text_model = TextEncoder(cfg.caption)
+            self.caption_text_fc = _ModalityFC(cfg.caption.hidden_size,
+                                               cfg.proj_dim)
+            dims.append(cfg.proj_dim)
+        self.fusion = make_fusion(cfg.fusion, cfg.proj_dim, dims)
+        self.output_fc = nn.Linear(cfg.proj_dim, 1)
+        self.output_bn = BatchNorm(1)
+
+    def forward(self, text_ids: Optional[torch.Tensor],
+                text_mask: Optional[torch.Tensor], image: torch.Tensor,
+                caption_ids: Optional[torch.Tensor] = None,
+                caption_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        feats = []
+        if self.cfg.text is not None:
+            hidden = self.text_model(text_ids, text_mask)
+            feats.append(self.text_fc(hidden[:, 0]))   # CLS pooling
+        feats.append(self.image_model(image))
+        if self.cfg.caption is not None:
+            if caption_ids is None:
+                raise ValueError("this model has a caption branch: pass "
+                                 "caption_ids and caption_mask")
+            cap_hidden = self.caption_text_model(caption_ids, caption_mask)
+            feats.append(self.caption_text_fc(cap_hidden[:, 0]))
+        logit = self.output_bn(self.output_fc(self.fusion(*feats)))
+        return logit[:, 0]
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights drawn from ``generator``: normal(0, 0.02) for linear
+    and embedding weights (BERT's initializer range), He-normal for convs,
+    zero biases, unit norm scales, running statistics (0, 1)."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)):
+            nn.init.normal_(mod.weight, 0.0, 0.02, generator=generator)
+            if getattr(mod, "bias", None) is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Conv2d):
+            nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                                    nonlinearity="relu", generator=generator)
+        elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+
+
+def build_model(cfg: ModelConfig, device: torch.device,
+                seed: Optional[int] = None) -> MultimodalClassifier:
+    """The classifier on ``device`` in eval mode; with ``seed``, random
+    weights from a generator seeded with it (otherwise the caller loads a
+    state_dict)."""
+    with torch.device(device):
+        model = MultimodalClassifier(cfg)
+    if seed is not None:
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    return model.eval()

@@ -1,0 +1,74 @@
+"""Weight bridge: the JAX package's ``MultimodalClassifier`` variables to the
+port's ``state_dict``.
+
+Module names are the same on both sides, so keys map by path; layouts are
+the inverse of the JAX package's converters (``models/hf_convert.py``,
+``models/vision_convert.py``):
+
+* Dense kernel ``[in, out]`` -> Linear weight ``[out, in]``;
+* DenseGeneral q/k/v kernel ``[H, heads, hd]`` -> ``[heads*hd, H]`` (bias
+  ``[heads, hd]`` -> ``[heads*hd]``), ``out`` kernel ``[heads, hd, H]`` ->
+  ``[H, heads*hd]``;
+* conv kernel HWIO -> OIHW;
+* LayerNorm / BatchNorm ``scale`` -> ``weight``, batch stats ``mean`` /
+  ``var`` -> ``running_mean`` / ``running_var``; ``embedding`` -> ``weight``.
+
+Flax names the fusion module itself (``make_fusion`` passes no name):
+``ConcatAttention3_0`` or ``ConcatAttention_0`` becomes ``fusion``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+_MODULE_RENAME = {"ConcatAttention3_0": "fusion", "ConcatAttention_0": "fusion"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _param(path: Tuple[str, ...], name: str, x: np.ndarray
+           ) -> Tuple[str, np.ndarray]:
+    parent = path[-1] if path else ""
+    if name == "embedding" or name == "scale":
+        return "weight", x
+    if name == "bias":
+        return "bias", x.reshape(-1)          # q/k/v bias [heads, hd]
+    if name != "kernel":
+        raise KeyError(f"unknown parameter {'/'.join(path + (name,))}")
+    if x.ndim == 2:
+        return "weight", x.T
+    if x.ndim == 3 and parent == "out":       # [heads, hd, H]
+        return "weight", x.reshape(-1, x.shape[-1]).T
+    if x.ndim == 3:                           # q/k/v [H, heads, hd]
+        return "weight", x.reshape(x.shape[0], -1).T
+    if x.ndim == 4:                           # conv HWIO
+        return "weight", x.transpose(3, 2, 0, 1)
+    raise ValueError(f"unexpected kernel shape {x.shape} at {path}")
+
+
+def from_jax_variables(params: Mapping,
+                       batch_stats: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Nested dicts of numpy arrays (flax ``params`` and ``batch_stats``) to
+    the port's ``state_dict`` (f32 tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, path: Tuple[str, ...], stats: bool):
+        for name, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (_MODULE_RENAME.get(name, name),), stats)
+                continue
+            x = np.array(val, dtype=np.float32)
+            if stats:
+                leaf = _STATS[name]
+            else:
+                leaf, x = _param(path, name, x)
+            sd[".".join(path + (leaf,))] = torch.from_numpy(
+                np.ascontiguousarray(x))
+
+    walk(params, (), False)
+    if batch_stats:
+        walk(batch_stats, (), True)
+    return sd

@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries go to ``_build/`` inside the
+package, named by a hash of the source, so an edited source is rebuilt and
+a stale library is never loaded.  Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def build(names: Sequence[str]) -> Dict[str, str]:
+    """Compile the named ``csrc/<name>.cu`` sources that have no current
+    library, one ``nvcc`` process per source, all started together.
+    Returns each library's ``ptxas`` report (registers, spills) or "cached".
+    Raises with the compiler's output if a build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    reports = {}
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            reports[name] = "cached"
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+             os.path.join(CSRC_DIR, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu (rc={proc.returncode}):"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(_lib_path(name))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,28 @@
+"""Sigmoid focal loss (port of ``mpmc_tpu/ops/losses.py``), the formula of
+torchvision's ``sigmoid_focal_loss``: alpha on the positive class, 1-alpha
+on the negative, ``FL = alpha_t * (1 - p_t)^gamma * BCE``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       alpha: float = 0.25, gamma: float = 2.0,
+                       reduction: str = "mean") -> torch.Tensor:
+    targets = targets.to(logits.dtype)
+    p = torch.sigmoid(logits)
+    # Numerically stable BCE-with-logits, written as the JAX package does.
+    ce = F.relu(logits) - logits * targets + torch.log1p(
+        torch.exp(-torch.abs(logits)))
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+        loss = alpha_t * loss
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss

@@ -1,0 +1,130 @@
+"""Port attention (mpmc_tpu_torch/ops/attention.py) against the JAX
+package's Pallas forward kernel run in TPU interpret mode, and against its
+XLA path.  Inputs come from a numpy seed; both sides run in f32."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mpmc_tpu.ops.attention import _attention_xla, _fwd_pallas
+from mpmc_tpu_torch.ops import attention as A
+
+# f32 on both sides: the two differ only in summation order and in where
+# the 1/sqrt(D) scale is applied (q in the TPU kernel, the f32 scores here).
+TOL = 1e-5
+
+
+def _case(mode, B=2, Sq=16, Sk=16, H=2, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+    if mode == "padding":
+        mask = np.ones((B, Sk), np.float32)
+        mask[0, Sk // 2:] = 0
+        mask[1, :] = 0              # every query row of sample 1 fully masked
+    elif mode == "segments":
+        mask = np.zeros((B, Sk), np.float32)
+        mask[0, :5], mask[0, 5:12] = 1, 2          # tail: segment 0 padding
+        mask[1, :9], mask[1, 9:] = 3, 1
+    else:
+        mask = None
+    return q, k, v, mask
+
+
+CASES = [("padding", {}), ("segments", {}), ("none", {"Sk": 8}),
+         ("padding", {"Sq": 8, "Sk": 24, "D": 8})]
+
+
+@pytest.mark.parametrize("mode,shape", CASES,
+                         ids=["padding", "segments", "none-cross", "padding-d8"])
+def test_plain_attention_matches_interpreted_pallas_kernel(mode, shape):
+    q, k, v, mask = _case(mode, **shape)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    with pltpu.force_tpu_interpret_mode():
+        want_out, want_lse = _fwd_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if mask is None else jnp.asarray(mask), mode, scale)
+    got_out, got_lse = A.attention_forward_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if mask is None else torch.from_numpy(mask), mode)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                               atol=TOL, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=TOL, rtol=TOL)
+    # Fully masked query rows (every row of padding sample 1, the segment-0
+    # tail of segments sample 0): the uniform average of all of V and
+    # lse = -1e9, neither NaN nor zero from skipped keys.
+    dead = {"padding": (1, slice(None)), "segments": (0, mask is not None
+                                                      and mask[0] == 0)}
+    if mode in dead:
+        b, rows = dead[mode]
+        uniform = np.broadcast_to(v[b].mean(0), got_out.numpy()[b][rows].shape)
+        np.testing.assert_allclose(got_out.numpy()[b][rows], uniform, atol=TOL)
+        assert np.all(got_lse.numpy()[b][:, rows] == np.float32(-1e9))
+
+
+@pytest.mark.parametrize("mode,shape", CASES,
+                         ids=["padding", "segments", "none-cross", "padding-d8"])
+def test_plain_attention_matches_xla_path(mode, shape):
+    q, k, v, mask = _case(mode, seed=1, **shape)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jm = None if mask is None else jnp.asarray(mask)
+    want = _attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jm if mode == "padding" else None, scale,
+                          segments=jm if mode == "segments" else None)
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = A.dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        tm if mode == "padding" else None,
+        segments=tm if mode == "segments" else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=0)
+
+
+def test_plain_attention_rounds_e_to_the_input_dtype():
+    """bf16: e is rounded before e.V, the row sum uses the unrounded e."""
+    q, k, v, mask = _case("padding", seed=2)
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out, _ = A.attention_forward_reference(qb, kb, vb, torch.from_numpy(mask))
+    s = torch.einsum("bqhd,bkhd->bhqk", qb.float(), kb.float()) / 4.0
+    s = s + ((1.0 - torch.from_numpy(mask)) * -1e9)[:, None, None, :]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    want = (torch.einsum("bhqk,bkhd->bqhd", e.bfloat16().float(), vb.float())
+            / e.sum(-1).permute(0, 2, 1)[..., None]).bfloat16()
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, want)
+
+
+def test_wrapper_checks_shapes_and_never_falls_back():
+    q, k, v, mask = _case("padding")
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    with pytest.raises(ValueError, match="self-attention"):
+        A.attention_forward(tq, tk[:, :8], tv[:, :8],
+                            torch.ones(2, 8), "segments")
+    with pytest.raises(ValueError, match="mask"):
+        A.attention_forward(tq, tk, tv, torch.ones(2, 5), "padding")
+    with pytest.raises(ValueError, match="CUDA"):
+        A.attention_forward_cuda(tq, tk, tv, torch.from_numpy(mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mode,shape", CASES + [("padding", {"D": 128}),
+                                                ("none", {"Sq": 130, "D": 40})])
+def test_cuda_kernel_matches_plain_version(mode, shape, dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    q, k, v, mask = _case(mode, **shape)
+    args = [torch.from_numpy(x).cuda().to(dtype) for x in (q, k, v)]
+    m = None if mask is None else torch.from_numpy(mask).cuda()
+    before = A.launch_counts["attention_fwd"]
+    out, lse = A.attention_forward_cuda(*args, m, mode)
+    torch.cuda.synchronize()
+    assert A.launch_counts["attention_fwd"] == before + 1
+    ref_out, ref_lse = A.attention_forward_reference(*args, m, mode)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
