@@ -1,17 +1,30 @@
-"""Host-side text preparation shared by the port's entry points (copy of
-the serving half of ``mpmc_tpu/cli/experiments.py``): corpus vocabulary,
-tokenization and sequence-length bucketing."""
+"""The port's experiment drivers (port of ``mpmc_tpu/cli/experiments.py``):
+corpus vocabulary, tokenization and sequence-length bucketing shared by
+the entry points, and the 2C training driver ``run_subtask_2c`` over
+``_run_folds`` (one device; packed when ``pack_rows > 0``; the images, and
+unpacked every array, resident on the device)."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from mpmc_tpu_torch.io.manifest import Manifest
+from mpmc_tpu_torch.config import (Subtask, TrainConfig,
+                                   model_config_to_dict)
+from mpmc_tpu_torch.cv.kfold import stratified_kfold
+from mpmc_tpu_torch.image.decode import decode_batch
+from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
+from mpmc_tpu_torch.models.captioner import precompute_captions
 from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
 from mpmc_tpu_torch.text.wordpiece import WordPieceTokenizer
+
+log = logging.getLogger(__name__)
 
 
 def corpus_wordpiece_vocab(texts, max_words: int = 30000) -> Dict[str, int]:
@@ -59,3 +72,231 @@ def bucket_trim(data: Dict[str, np.ndarray], ids_key: str, mask_key: str,
     """In-place trim of one (ids, mask) pair to ``length`` columns."""
     data[ids_key] = np.ascontiguousarray(data[ids_key][:, :length])
     data[mask_key] = np.ascontiguousarray(data[mask_key][:, :length])
+
+
+# ---------------------------------------------------------------------------
+# 2C training
+# ---------------------------------------------------------------------------
+
+def _select(data: Dict[str, np.ndarray], idx) -> Dict[str, np.ndarray]:
+    return {k: v[idx] for k, v in data.items()}
+
+
+def _persist_vocab(tok: WordPieceTokenizer, cfg: TrainConfig, out_dir: str,
+                   filename: str = "vocab.txt") -> None:
+    """Save the training vocab next to the outputs and the checkpoints, so
+    ``predict`` restores the exact token ids."""
+    for d in [out_dir] + ([cfg.checkpoint_dir] if cfg.checkpoint_dir else []):
+        os.makedirs(d, exist_ok=True)
+        tok.save(os.path.join(d, filename))
+
+
+def _persist_run_meta(cfg: TrainConfig, mcfg, kind: str, out_dir: str,
+                      data: Dict[str, np.ndarray]) -> None:
+    """``run_meta.json`` next to the outputs and checkpoints: the resolved
+    model config and the training bucket lengths, which ``predict
+    --checkpoint`` reads to rebuild the trained variant."""
+    meta = {
+        "kind": kind,
+        "subtask": mcfg.subtask.value,
+        "model": model_config_to_dict(mcfg),
+        "augment": True,
+        "grayscale": False,
+        "eval_transform_only": False,
+        "binary_head": False,
+        "text_len": (int(data["text_ids"].shape[1])
+                     if "text_ids" in data else None),
+        "caption_len": (int(data["caption_ids"].shape[1])
+                        if "caption_ids" in data else None),
+        "pipeline_stages": 1,
+    }
+    for d in [out_dir] + ([cfg.checkpoint_dir] if cfg.checkpoint_dir else []):
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "run_meta.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+
+
+@dataclasses.dataclass
+class FoldRun:
+    """What one fold trains with: the model (packed form when packing), the
+    packing plan (None unpacked), the train and eval steps."""
+
+    model: torch.nn.Module
+    plan: object
+    train_step: Callable
+    eval_step: Callable
+    steps_per_epoch: int
+
+
+def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
+               tr_idx: np.ndarray, store: Dict[str, torch.Tensor],
+               device: torch.device, fold: int,
+               augment: Optional[Callable] = None) -> FoldRun:
+    """Model, plan and steps of fold ``fold`` over its train rows ``tr_idx``
+    of the resident ``store``: random weights from ``cfg.seed`` (the same
+    for every fold, as the JAX package initializes), dropout and
+    augmentation from a generator seeded with ``cfg.seed + fold``."""
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.train.packed import PackedMultimodalPlan
+    from mpmc_tpu_torch.train.step import build_train_step, make_eval_step
+
+    bs = cfg.data.batch_size
+    packing = cfg.data.pack_rows > 0
+    plan = None
+    if packing:
+        plan = PackedMultimodalPlan(train_d, batch_size=bs, abs_idx=tr_idx,
+                                    resident_images=True)
+        steps_per_epoch = plan.steps_per_epoch
+    else:
+        steps_per_epoch = (len(tr_idx) + bs - 1) // bs
+    model = build_model(cfg.model, device, seed=cfg.seed, packed=packing)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + fold)
+    train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
+                                  store, generator, augment)
+    eval_step = make_eval_step(model, cfg, cast_in_place=False)
+    return FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
+
+
+def resident_store(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """The arrays that stay on the device for the whole run: the images,
+    and unpacked every array (batches then carry only row indices)."""
+    packing = cfg.data.pack_rows > 0
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in full_data.items() if k == "image" or not packing}
+
+
+def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
+               ids: List[str], test_data: Optional[Dict[str, np.ndarray]],
+               test_ids: Optional[List[str]], out_dir: str, name: str,
+               device: torch.device, folds: Optional[List[int]] = None,
+               augment: Optional[Callable] = None) -> List:
+    """Train the selected stratified folds one after another on ``device``.
+    Packed (``cfg.data.pack_rows > 0``): ``PackedMultimodalPlan`` batches
+    with the images resident on the device; unpacked: every array resident
+    and batches of row indices.  Each fold writes its TSVs under
+    ``out_dir`` and, with ``cfg.checkpoint_dir``, its best-test-F1 weights
+    as ``<checkpoint_dir>/fold_<k>/model.pt``, and its per-step losses and
+    evals as ``<out_dir>/<name>_train_metrics_fold_<k>.json``."""
+    from mpmc_tpu_torch.train.loop import fit
+
+    os.makedirs(out_dir, exist_ok=True)
+    splits = stratified_kfold(full_data["label"], cfg.data.num_folds,
+                              cfg.data.fold_seed)
+    store = resident_store(cfg, full_data, device)
+    results = []
+    for k, (tr_idx, va_idx) in enumerate(splits):
+        if folds is not None and k not in folds:
+            continue
+        log.info("=== fold %d/%d ===", k, cfg.data.num_folds)
+        train_d = _select(full_data, tr_idx)
+        val_d = _select(full_data, va_idx)
+        t_data = test_data if test_data is not None else val_d
+        t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
+        run = build_fold(cfg, train_d, tr_idx, store, device, k, augment)
+        on_best = None
+        if cfg.checkpoint_dir:
+            fold_dir = os.path.join(cfg.checkpoint_dir, f"fold_{k}")
+            os.makedirs(fold_dir, exist_ok=True)
+
+            def on_best(step, fold_dir=fold_dir, model=run.model):
+                torch.save(model.state_dict(),
+                           os.path.join(fold_dir, "model.pt"))
+                log.info("checkpoint at step %d -> %s", step, fold_dir)
+        prefix = os.path.join(out_dir, f"{name}_{cfg.team_name}")
+        res = fit(run.train_step, run.eval_step, cfg, train_d, device,
+                  test_data=t_data, val_data=val_d, test_ids=t_ids, fold=k,
+                  tsv_prefix=prefix, packed_plan=run.plan, train_rows=tr_idx,
+                  on_best=on_best)
+        with open(os.path.join(out_dir, f"{name}_train_metrics_fold_{k}.json"),
+                  "w") as f:
+            json.dump({"fold": k, "n_train": len(tr_idx),
+                       "n_val": len(va_idx), "n_test": len(t_ids),
+                       "steps_per_epoch": run.steps_per_epoch,
+                       "row_budgets": (list(run.plan.row_budgets)
+                                       if run.plan else None),
+                       "steps": res.steps, "evals": res.history}, f,
+                      indent=1)
+        results.append(res)
+        log.info("fold %d best test macro-F1: %.4f", k, res.best_macro_f1)
+    return results
+
+
+@dataclasses.dataclass
+class Prepared2C:
+    """The 2C run's resolved config (vocab sizes filled in), tokenized and
+    bucketed train and dev arrays, and their ids."""
+
+    cfg: TrainConfig
+    data: Dict[str, np.ndarray]
+    test: Dict[str, np.ndarray]
+    train_ids: List[str]
+    dev_ids: List[str]
+
+
+def prepare_2c(cfg: TrainConfig, out_dir: str) -> Prepared2C:
+    """Manifests, corpus vocabularies (text over the train texts, captions
+    over both splits, saved under ``out_dir`` and the checkpoint dir),
+    decoded images, placeholder captions, and text and caption lengths
+    bucketed jointly over both splits."""
+    train = read_manifest(cfg.data.train_manifest)
+    dev = read_manifest(cfg.data.dev_manifest)
+    tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
+                          None)
+    _persist_vocab(tok, cfg, out_dir)
+    mcfg = dataclasses.replace(
+        cfg.model, subtask=Subtask.C, num_classes=1,
+        text=dataclasses.replace(cfg.model.text,
+                                 vocab_size=max(tok.vocab.values()) + 1))
+    size = mcfg.image.image_size
+    imgs = {"train": decode_batch(train.img_paths, size, False,
+                                  cfg.data.image_root),
+            "dev": decode_batch(dev.img_paths, size, False,
+                                cfg.data.image_root)}
+    caps = {"train": precompute_captions(train.img_paths,
+                                         cache_dir=cfg.data.cache_dir),
+            "dev": precompute_captions(dev.img_paths,
+                                       cache_dir=cfg.data.cache_dir)}
+    cap_tok = build_tokenizer(caps["train"] + caps["dev"], None)
+    _persist_vocab(cap_tok, cfg, out_dir, "caption_vocab.txt")
+    mcfg = dataclasses.replace(mcfg, caption=dataclasses.replace(
+        mcfg.caption, vocab_size=max(cap_tok.vocab.values()) + 1))
+    cfg = dataclasses.replace(cfg, model=mcfg)
+
+    def prep(split: Manifest, key: str) -> Dict[str, np.ndarray]:
+        ids_arr, mask_arr = prepare_text(split, tok, mcfg.max_text_len)
+        d = {"text_ids": ids_arr, "text_mask": mask_arr, "image": imgs[key]}
+        d["caption_ids"], d["caption_mask"] = cap_tok.encode_batch(
+            caps[key], mcfg.max_caption_len)
+        if split.labels is not None:
+            d["label"] = split.labels
+        return d
+
+    data = prep(train, "train")
+    test = prep(dev, "dev")
+    mult = cfg.data.seq_bucket_multiple
+    if mult:
+        for ids_key, mask_key, cap in (
+                ("text_ids", "text_mask", mcfg.max_text_len),
+                ("caption_ids", "caption_mask", mcfg.max_caption_len)):
+            length = bucket_seq_len([data[mask_key], test[mask_key]], mult,
+                                    cap)
+            for d in (data, test):
+                bucket_trim(d, ids_key, mask_key, length)
+            log.info("%s bucketed to %d tokens (cap %d)", ids_key, length,
+                     cap)
+    return Prepared2C(cfg, data, test, train.ids, dev.ids)
+
+
+def run_subtask_2c(cfg: TrainConfig, device: torch.device,
+                   out_dir: str = "outputs/2c",
+                   folds: Optional[List[int]] = None,
+                   augment: Optional[Callable] = None) -> List:
+    """The 2C fine-tune: stratified folds over the train manifest, the dev
+    manifest as the test split, focal loss, placeholder captions."""
+    prep = prepare_2c(cfg, out_dir)
+    _persist_run_meta(prep.cfg, prep.cfg.model, "multimodal", out_dir,
+                      prep.data)
+    return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,
+                      prep.dev_ids, out_dir, "task2C", device, folds,
+                      augment=augment)

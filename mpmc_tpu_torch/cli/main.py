@@ -3,6 +3,18 @@
   python -m mpmc_tpu_torch.cli.main predict --subtask 2c --manifest M \\
       --out pred.tsv [--probs-out probs.tsv] [--checkpoint DIR] [--tiny] \\
       [--device cuda|cpu] [--batch-size 16]
+  python -m mpmc_tpu_torch.cli.main train --subtask 2c -tr TRAIN -te DEV \\
+      [--recipe fast|reference] [--fold K] [--epochs N] \\
+      [--checkpoint-dir DIR] [--out-dir DIR] [--tiny] [--device cuda|cpu]
+
+``train`` follows the JAX package's ``_cmd_train`` for 2C: stratified folds
+over the train manifest, the dev manifest as the test split, and per fold
+the best-test-F1 TSVs and, with ``--checkpoint-dir``, ``fold_<k>/model.pt``
+next to ``run_meta.json`` and the vocab files, which ``predict --checkpoint
+DIR/fold_<k>`` reads.  ``--recipe fast`` (the default) packs the text and
+caption tokens (``--pack-rows 8``), keeps the Adam first moment in bf16 and
+gives the word embeddings factored RMS; ``--recipe reference`` turns all
+three off.  An explicitly passed flag wins over its recipe value.
 
 ``predict`` follows the JAX package's ``_cmd_predict`` for the multimodal
 (2C) model: the trained variant and bucket lengths come from the
@@ -23,7 +35,7 @@ import logging
 import os
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -193,6 +205,48 @@ def _cmd_predict(args) -> int:
     return 0
 
 
+def _resolve_recipe(args) -> None:
+    """Fill the recipe-controlled flags that were left unset, as the JAX
+    package's ``_resolve_recipe`` does for the flags the port takes."""
+    fast = args.recipe == "fast"
+    if args.embedding_optimizer is None:
+        args.embedding_optimizer = "factored" if fast else "adam"
+    if args.adam_mu_dtype is None and fast:
+        args.adam_mu_dtype = "bfloat16"
+    if args.pack_rows is None:
+        args.pack_rows = 8 if fast else 0
+
+
+def train_config(args) -> Tuple[TrainConfig, torch.device]:
+    """The ``TrainConfig`` and device of a parsed ``train`` command line;
+    raises when CUDA is asked for and absent."""
+    device = resolve_device(args.device)
+    _resolve_recipe(args)
+    data = DataConfig(train_manifest=args.train_file_path,
+                      dev_manifest=args.dev_file_path,
+                      image_root=args.image_root,
+                      batch_size=args.batch_size, num_folds=args.num_folds,
+                      cache_dir=args.cache_dir, pack_rows=args.pack_rows)
+    model = ModelConfig.tiny_2c() if args.tiny else ModelConfig()
+    cfg = TrainConfig(model=model, data=data, epochs=args.epochs,
+                      learning_rate=args.lr, seed=args.seed,
+                      bf16=device.type == "cuda",
+                      checkpoint_dir=args.checkpoint_dir,
+                      adam_mu_dtype=args.adam_mu_dtype,
+                      embedding_optimizer=args.embedding_optimizer)
+    return cfg, device
+
+
+def _cmd_train(args) -> int:
+    from mpmc_tpu_torch.cli.experiments import run_subtask_2c
+    cfg, device = train_config(args)
+    folds = [args.fold] if args.fold is not None else None
+    results = run_subtask_2c(cfg, device, out_dir=args.out_dir, folds=folds)
+    for k, r in zip(folds or range(args.num_folds), results):
+        print(f"fold {k}: best macro-F1 {r.best_macro_f1:.4f}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="mpmc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -214,6 +268,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_predict)
+
+    p = sub.add_parser("train", help="fine-tune the 2C model over "
+                                     "stratified folds")
+    p.add_argument("--subtask", choices=["2c"], required=True)
+    p.add_argument("--recipe", choices=["fast", "reference"], default="fast",
+                   help="fast (default): packed text and caption rows, bf16 "
+                        "Adam first moment, factored-RMS word embeddings; "
+                        "reference: unpacked, f32 Adam everywhere")
+    p.add_argument("--train-file-path", "-tr", required=True)
+    p.add_argument("--dev-file-path", "-te", required=True)
+    p.add_argument("--image-root", default=".")
+    p.add_argument("--out-dir", "-o", default="outputs")
+    p.add_argument("--fold", type=int, default=None)
+    p.add_argument("--num-folds", type=int, default=5)
+    p.add_argument("--epochs", type=int, default=8)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--pack-rows", type=int, default=None,
+                   help="> 0 packs each batch's text and caption tokens "
+                        "(recipe default: 8 fast, 0 reference)")
+    p.add_argument("--embedding-optimizer", choices=["factored", "adam"],
+                   default=None)
+    p.add_argument("--adam-mu-dtype", choices=["bfloat16", "float32"],
+                   default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--cache-dir", default=".cache")
+    p.add_argument("--tiny", action="store_true",
+                   help="the tiny_2c config")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.set_defaults(fn=_cmd_train)
     return ap
 
 

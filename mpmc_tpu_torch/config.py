@@ -1,7 +1,7 @@
-"""Typed configuration for the PyTorch port (the 2C serving slice).
+"""Typed configuration for the PyTorch port (2C serving and training).
 
-A copy of the dataclasses of ``mpmc_tpu/config.py`` that the serving path
-reads.  Field names and defaults are identical, so a ``run_meta.json``
+A copy of the dataclasses and fields of ``mpmc_tpu/config.py`` that the
+port reads.  Field names and defaults are identical, so a ``run_meta.json``
 written by either package restores the same model variant here.
 """
 
@@ -144,19 +144,46 @@ def model_config_from_dict(d: dict) -> ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data settings the serving path reads."""
+    """The data settings the port reads."""
 
+    train_manifest: str = "data/arabic_memes_propaganda_araieval_24_train.json"
+    dev_manifest: str = "data/arabic_memes_propaganda_araieval_24_dev.json"
+    image_root: str = "."
+    batch_size: int = 16
+    num_folds: int = 5                # 2C: 5 folds over train
+    fold_seed: int = 42
     cache_dir: str = ".cache"         # caption cache
     # Trim token arrays to the shortest multiple of this covering every real
     # token (``max_*_len`` stays the truncation cap).
     seq_bucket_multiple: int = 64
+    # > 0: 2C training packs each batch's text and caption tokens into
+    # segment-masked rows (``train/packed.py``); eval stays unpacked.
+    pack_rows: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's ``TrainConfig`` that eval reads."""
+    """The fields of the JAX package's ``TrainConfig`` that 2C training and
+    eval read."""
 
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
+    learning_rate: float = 1e-5
+    encoder_lr_scale: float = 0.8     # text/image encoders at 0.8 * lr
+    warmup_fraction: float = 0.1      # linear warmup over 10% of steps
+    grad_clip_norm: float = 1.0
+    epochs: int = 8
     seed: int = 42
+    eval_per_epoch: int = 2           # mid-epoch evals per epoch
     bf16: bool = True
+    run_id: str = "mpmc_tpu"
+    team_name: str = "kevinmathew"
+    checkpoint_dir: Optional[str] = None
+    # Adam first-moment dtype ("bfloat16" under the fast recipe); None keeps
+    # it f32.
+    adam_mu_dtype: Optional[str] = None
+    # "adam", or "factored": factored-RMS (Adafactor's second moment, no
+    # first moment) for the word-embedding tables.
+    embedding_optimizer: str = "adam"

@@ -4,8 +4,10 @@ Post-LayerNorm transformer encoder with learned absolute positions; the
 attention core is :func:`mpmc_tpu_torch.ops.attention.dot_product_attention`
 (the CUDA kernel on the card).  Module and parameter names follow the JAX
 package's tree (``word_embeddings``, ``layer_{i}.attention.query`` ...) so
-``models/convert.py`` maps one onto the other by name.  Eval only: dropout
-is the identity at inference and is not built.
+``models/convert.py`` maps one onto the other by name.  Dropout follows
+the JAX package: after the embedding LayerNorm and after each attention
+and FFN output (``hidden_dropout``, ``attention_dropout``), active only in
+training mode.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpmc_tpu_torch.config import TextEncoderConfig
+from mpmc_tpu_torch.models.norm import Dropout
 from mpmc_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -30,6 +33,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.key = nn.Linear(cfg.hidden_size, width)
         self.value = nn.Linear(cfg.hidden_size, width)
         self.out = nn.Linear(width, cfg.hidden_size)
+        self.dropout = Dropout(cfg.attention_dropout)
 
     def forward(self, x, mask, segments=None):
         B, S, _ = x.shape
@@ -38,7 +42,7 @@ class MultiHeadSelfAttention(nn.Module):
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
         ctx = dot_product_attention(q, k, v, mask, segments=segments)
-        return self.out(ctx.reshape(B, S, -1))
+        return self.dropout(self.out(ctx.reshape(B, S, -1)))
 
 
 class EncoderLayer(nn.Module):
@@ -50,12 +54,13 @@ class EncoderLayer(nn.Module):
         self.intermediate = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.output_ln = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, mask, segments=None):
         # Post-LN (BERT-style): sublayer, residual, LayerNorm.
         x = self.attention_ln(x + self.attention(x, mask, segments))
         h = F.gelu(self.intermediate(x), approximate=self.gelu_approx)
-        return self.output_ln(x + self.output(h))
+        return self.output_ln(x + self.dropout(self.output(h)))
 
 
 class TextEncoder(nn.Module):
@@ -72,6 +77,7 @@ class TextEncoder(nn.Module):
             self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
                                                       cfg.hidden_size)
         self.embeddings_ln = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.embed_dropout = Dropout(cfg.hidden_dropout)
         for i in range(cfg.num_layers):
             setattr(self, f"layer_{i}", EncoderLayer(cfg))
         # Kept so checkpoints carry it; computed only when asked for.
@@ -80,7 +86,7 @@ class TextEncoder(nn.Module):
     def embed(self, input_ids, attention_mask,
               token_type_ids: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None):
-        """word + position (+ type) embeddings, then LayerNorm.
+        """word + position (+ type) embeddings, LayerNorm, dropout.
 
         ``positions`` overrides the position ids with 0-based per-sample
         offsets (sequence packing); the RoBERTa offset applies on top."""
@@ -101,7 +107,7 @@ class TextEncoder(nn.Module):
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids)
-        return self.embeddings_ln(x)
+        return self.embed_dropout(self.embeddings_ln(x))
 
     def forward(self, input_ids, attention_mask,
                 token_type_ids: Optional[torch.Tensor] = None,

@@ -1,13 +1,15 @@
-"""The 2C classifier (port of ``ImageEncoderWithHead``, ``_ModalityFC`` and
-``MultimodalClassifier`` in ``mpmc_tpu/models/classifier.py``): text CLS
-features and caption CLS features each through Linear+BN+ReLU, the image
-backbone through its fine-tune MLP, concatenation fusion, and a Linear+BN
-head giving one logit.  Eval only: dropout is the identity and not built.
+"""The 2C classifier (port of ``ImageEncoderWithHead``, ``_ModalityFC``,
+``MultimodalClassifier`` and ``PackedMultimodalClassifier`` in
+``mpmc_tpu/models/classifier.py``): text CLS features and caption CLS
+features each through Dropout+Linear+BN+ReLU, the image backbone through
+its fine-tune MLP (with dropout), concatenation fusion, and a Linear+BN
+head giving one logit.  ``model.train()`` is the JAX package's
+``train=True``: batch statistics in every BatchNorm and active dropout.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,8 +18,9 @@ from torch import nn
 from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig
 from mpmc_tpu_torch.models.bert import TextEncoder
 from mpmc_tpu_torch.models.fusion import make_fusion
-from mpmc_tpu_torch.models.norm import BatchNorm
+from mpmc_tpu_torch.models.norm import BatchNorm, Dropout
 from mpmc_tpu_torch.models.resnet import ResNet, TinyResNet, resnet18
+from mpmc_tpu_torch.ops.packing import unpack_cls
 
 
 def create_image_backbone(cfg: ImageEncoderConfig) -> ResNet:
@@ -30,29 +33,32 @@ def create_image_backbone(cfg: ImageEncoderConfig) -> ResNet:
 
 
 class ImageEncoderWithHead(nn.Module):
-    """Backbone features, then Linear, ReLU, Linear."""
+    """Backbone features, then Linear, ReLU, Dropout, Linear."""
 
     def __init__(self, cfg: ImageEncoderConfig):
         super().__init__()
         self.backbone = create_image_backbone(cfg)
         self.finetune_fc1 = nn.Linear(self.backbone.feature_dim,
                                       cfg.finetune_dim)
+        self.dropout = Dropout(cfg.finetune_dropout)
         self.finetune_fc2 = nn.Linear(cfg.finetune_dim, cfg.finetune_dim)
 
     def forward(self, image):
-        return self.finetune_fc2(F.relu(self.finetune_fc1(self.backbone(image))))
+        h = F.relu(self.finetune_fc1(self.backbone(image)))
+        return self.finetune_fc2(self.dropout(h))
 
 
 class _ModalityFC(nn.Module):
-    """Linear(H, proj), BatchNorm, ReLU."""
+    """Dropout, Linear(H, proj), BatchNorm, ReLU."""
 
-    def __init__(self, in_dim: int, proj_dim: int):
+    def __init__(self, in_dim: int, proj_dim: int, dropout: float):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.fc = nn.Linear(in_dim, proj_dim)
         self.bn = BatchNorm(proj_dim)
 
     def forward(self, x):
-        return F.relu(self.bn(self.fc(x)))
+        return F.relu(self.bn(self.fc(self.dropout(x))))
 
 
 class MultimodalClassifier(nn.Module):
@@ -67,14 +73,15 @@ class MultimodalClassifier(nn.Module):
         dims = []
         if cfg.text is not None:
             self.text_model = TextEncoder(cfg.text)
-            self.text_fc = _ModalityFC(cfg.text.hidden_size, cfg.proj_dim)
+            self.text_fc = _ModalityFC(cfg.text.hidden_size, cfg.proj_dim,
+                                       cfg.dropout)
             dims.append(cfg.proj_dim)
         self.image_model = ImageEncoderWithHead(cfg.image)
         dims.append(cfg.image.finetune_dim)
         if cfg.caption is not None:
             self.caption_text_model = TextEncoder(cfg.caption)
             self.caption_text_fc = _ModalityFC(cfg.caption.hidden_size,
-                                               cfg.proj_dim)
+                                               cfg.proj_dim, cfg.dropout)
             dims.append(cfg.proj_dim)
         self.fusion = make_fusion(cfg.fusion, cfg.proj_dim, dims)
         self.output_fc = nn.Linear(cfg.proj_dim, 1)
@@ -95,8 +102,48 @@ class MultimodalClassifier(nn.Module):
                                  "caption_ids and caption_mask")
             cap_hidden = self.caption_text_model(caption_ids, caption_mask)
             feats.append(self.caption_text_fc(cap_hidden[:, 0]))
+        return self._head(feats)
+
+    def _head(self, feats) -> torch.Tensor:
         logit = self.output_bn(self.output_fc(self.fusion(*feats)))
         return logit[:, 0]
+
+
+class PackedMultimodalClassifier(MultimodalClassifier):
+    """``MultimodalClassifier`` with packed text and caption branches
+    (``ops/packing.py``): several samples per row under segment-masked
+    attention with restarting positions, each sample's CLS gathered back to
+    sample order before the modality FCs, so fusion, BatchNorm and the head
+    see exactly the unpacked batch.  The same modules and parameters as
+    ``MultimodalClassifier``; only ``forward`` differs.
+
+    ``text_packed`` / ``caption_packed`` hold ``ids``, ``segments``,
+    ``positions`` ``[R, P]`` and the per-sample ``row_of``, ``start_of``
+    ``[B]`` aligned with ``image``'s batch axis."""
+
+    def forward(self, text_packed: Optional[Dict[str, torch.Tensor]],
+                image: torch.Tensor,
+                caption_packed: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        feats = []
+        if self.cfg.text is not None:
+            feats.append(self.text_fc(self._packed_cls(self.text_model,
+                                                       text_packed)))
+        feats.append(self.image_model(image))
+        if self.cfg.caption is not None:
+            if caption_packed is None:
+                raise ValueError("this model has a caption branch: pass "
+                                 "caption_packed")
+            feats.append(self.caption_text_fc(self._packed_cls(
+                self.caption_text_model, caption_packed)))
+        return self._head(feats)
+
+    @staticmethod
+    def _packed_cls(encoder, packed):
+        seg = packed["segments"]
+        hidden = encoder(packed["ids"], (seg > 0).to(torch.int32),
+                         segments=seg, positions=packed["positions"])
+        return unpack_cls(hidden, packed)
 
 
 @torch.no_grad()
@@ -121,12 +168,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: ModelConfig, device: torch.device,
-                seed: Optional[int] = None) -> MultimodalClassifier:
-    """The classifier on ``device`` in eval mode; with ``seed``, random
-    weights from a generator seeded with it (otherwise the caller loads a
-    state_dict)."""
+                seed: Optional[int] = None,
+                packed: bool = False) -> MultimodalClassifier:
+    """The classifier (``packed``: its packed form) on ``device`` in eval
+    mode; with ``seed``, random weights from a generator seeded with it
+    (otherwise the caller loads a state_dict)."""
     with torch.device(device):
-        model = MultimodalClassifier(cfg)
+        model = (PackedMultimodalClassifier if packed
+                 else MultimodalClassifier)(cfg)
     if seed is not None:
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
     return model.eval()

@@ -4,7 +4,8 @@
 Images arrive in the JAX package's ``[B, H, W, C]`` layout and are viewed as
 NCHW for the convolutions.  Convolutions and max-pool are plain
 ``torch.nn.functional`` ops, as the JAX package leaves them to XLA.
-BatchNorm uses the running statistics (eval).
+BatchNorm (``models/norm.py``) uses the running statistics in eval mode and
+the batch statistics, updating the running ones, in training mode.
 """
 
 from __future__ import annotations

@@ -1,14 +1,18 @@
-"""Attention core: the hand-written CUDA kernel and its plain PyTorch twin.
+"""Attention core: the hand-written CUDA kernels and their plain PyTorch
+twins, forward and backward.
 
-Port of ``mpmc_tpu/ops/attention.py``'s forward.  Layout at the API is the
+Port of ``mpmc_tpu/ops/attention.py``'s forward, backward and custom VJP.
+Layout at the API is the
 JAX package's: q ``[B, Sq, H, D]``, k/v ``[B, Sk, H, D]``, a key-padding
 mask ``[B, Sk]`` with 1 = attend, or ``[B, S]`` segment ids (0 = padding)
 for packed self-attention.  Masking is the reference's additive -1e9 bias,
 never -inf and never skipped keys, so a fully masked query row gives the
 uniform average of V.
 
-A CPU tensor runs :func:`attention_forward_reference`; a CUDA tensor
-launches the kernel of ``csrc/attention_fwd.cu`` or raises.
+A CPU tensor runs the plain versions (:func:`attention_forward_reference`,
+:func:`attention_backward_reference`); a CUDA tensor launches the kernels of
+``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` or raises.
+:class:`AttentionFunction` joins the two for autograd.
 """
 
 from __future__ import annotations
@@ -25,10 +29,7 @@ MODES = {"none": 0, "padding": 1, "segments": 2}
 MAX_SEQ = 512
 MAX_HEAD_DIM = 128
 
-# Kernel launches by name.  Each wrapper adds one where it launches its
-# kernel; a run zeroes the counts before its main path and reads them after
-# to show that the path went through the kernels.
-launch_counts = {"attention_fwd": 0}
+launch_counts = build.launch_counts
 
 
 def _bias(mask: Optional[torch.Tensor], mode: str) -> Optional[torch.Tensor]:
@@ -88,6 +89,29 @@ def _check(q, k, v, mask, mode):
         raise ValueError(f"{mode} mode needs a [B, Sk] = [{B}, {Sk}] mask")
 
 
+def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
+    """What both kernels take: one CUDA device, f32 or bf16, D and S in
+    range (``tensors`` starts with q and k)."""
+    q, k = tensors[0], tensors[1]
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{who} needs its tensors on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"kernel takes float32 or bfloat16 tensors of one "
+                         f"type, got {[t.dtype for t in tensors]}")
+    D, Sq, Sk = q.shape[-1], q.shape[1], k.shape[1]
+    if D > MAX_HEAD_DIM or Sq > MAX_SEQ or Sk > MAX_SEQ:
+        raise ValueError(f"kernel takes D <= {MAX_HEAD_DIM} and Sq, Sk <= "
+                         f"{MAX_SEQ}, got D={D}, Sq={Sq}, Sk={Sk}")
+
+
+def _mask_f32(q: torch.Tensor, mask: Optional[torch.Tensor],
+              mode: str) -> Optional[torch.Tensor]:
+    if mode == "none":
+        return None
+    return mask.to(device=q.device, dtype=torch.float32).contiguous()
+
+
 def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: Optional[torch.Tensor] = None,
                            mode: str = "padding"
@@ -96,23 +120,12 @@ def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`attention_forward_reference`.  Raises on anything the kernel does
     not take and on a launch error."""
     _check(q, k, v, mask, mode)
+    _check_cuda("attention_forward_cuda", q, k, v)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("attention_forward_cuda needs q, k, v on one CUDA "
-                         "device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            k.dtype == q.dtype and v.dtype == q.dtype):
-        raise ValueError(f"kernel takes float32 or bfloat16 q/k/v, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D > MAX_HEAD_DIM or Sq > MAX_SEQ or Sk > MAX_SEQ:
-        raise ValueError(f"kernel takes D <= {MAX_HEAD_DIM} and Sq, Sk <= "
-                         f"{MAX_SEQ}, got D={D}, Sq={Sq}, Sk={Sk}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("kernel needs the head dim of q, k, v contiguous")
-    mask_f = None
-    if mode != "none":
-        mask_f = mask.to(device=q.device, dtype=torch.float32).contiguous()
+    mask_f = _mask_f32(q, mask, mode)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -129,9 +142,7 @@ def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             1.0 / (D ** 0.5), stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_fwd launch failed: CUDA error {rc} "
-                           f"({lib.mpmc_cuda_error_string(rc).decode()})")
+    build.check_launch(lib, "attention_fwd", rc)
     launch_counts["attention_fwd"] += 1
     return out, lse
 
@@ -143,8 +154,6 @@ def _library() -> ctypes.CDLL:
         lib.mpmc_attention_fwd.argtypes = (
             [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, p])
         lib.mpmc_attention_fwd.restype = i
-        lib.mpmc_cuda_error_string.argtypes = [i]
-        lib.mpmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -162,6 +171,128 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"no attention path for device {q.device}")
 
 
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor,
+                                 mask: Optional[torch.Tensor], mode: str,
+                                 out: torch.Tensor, lse: torch.Tensor,
+                                 dout: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Plain version of the backward kernel, step by step as the TPU kernel
+    ``_bwd_kernel`` rounds: ``qs = q * (1/sqrt(D))`` in the input dtype
+    (the scale rounded to it first), f32 scores plus the bias, ``P`` from
+    the saved ``lse`` (padding, none) or from the exact row max and sum
+    (segments), ``dV = round(P)^T dO``, ``delta = sum(dO * out)`` over the
+    saved ``out``, ``dS = round(P * (dP - delta))``, ``dQ = dS K * scale``,
+    ``dK = dS^T qs``.  Returns ``(dq, dk, dv)`` in the input dtype."""
+    dtype = q.dtype
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    f32 = torch.float32
+    qs = q * torch.tensor(scale, dtype=dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.to(f32), k.to(f32))
+    bias = _bias(mask, mode)
+    if bias is not None:
+        s = s + bias
+    if mode == "segments":
+        e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        p = e / torch.sum(e, dim=-1, keepdim=True)
+    else:
+        p = torch.exp(s - lse[..., None])
+    do32 = dout.to(f32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).to(f32), do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.to(f32))
+    delta = torch.sum(do32 * out.to(f32), dim=-1).permute(0, 2, 1)
+    ds = (p * (dp - delta[..., None])).to(dtype).to(f32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f32)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs.to(f32))
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: Optional[torch.Tensor],
+                            mode: str, out: torch.Tensor, lse: torch.Tensor,
+                            dout: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Launch ``csrc/attention_bwd.cu`` on CUDA tensors; same contract as
+    :func:`attention_backward_reference`.  Raises on anything the kernel
+    does not take and on a launch error."""
+    _check(q, k, v, mask, mode)
+    _check_cuda("attention_backward_cuda", q, k, v, out, dout)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(
+            q.shape) or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"out and dout must be {tuple(q.shape)} and lse "
+                         f"{(B, H, Sq)}, got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)}")
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError("lse must be float32 on the device of q")
+    # The kernel reads [B, S, H, D] in place with contiguous strides.
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    mask_f = _mask_f32(q, mask, mode)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta, row_m, row_l = (torch.empty((B, H, Sq), dtype=torch.float32,
+                                       device=q.device) for _ in range(3))
+    lib = _library_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.mpmc_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask_f.data_ptr() if mask_f is not None else None,
+            out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), row_m.data_ptr(), row_l.data_ptr(),
+            0 if q.dtype == torch.float32 else 1, MODES[mode],
+            B, H, Sq, Sk, D, 1.0 / (D ** 0.5), stream)
+    build.check_launch(lib, "attention_bwd", rc)
+    launch_counts["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _library_bwd() -> ctypes.CDLL:
+    lib = build.library("attention_bwd")
+    if lib.mpmc_attention_bwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mpmc_attention_bwd.argtypes = (
+            [p] * 13 + [i] * 7 + [ctypes.c_float, p])
+        lib.mpmc_attention_bwd.restype = i
+    return lib
+
+
+def attention_backward(q, k, v, mask, mode, out, lse, dout):
+    """``(dq, dk, dv)``: the plain version for CPU tensors, the kernel for
+    CUDA tensors."""
+    if q.device.type == "cpu":
+        _check(q, k, v, mask, mode)
+        return attention_backward_reference(q, k, v, mask, mode, out, lse,
+                                            dout)
+    if q.device.type == "cuda":
+        return attention_backward_cuda(q, k, v, mask, mode, out, lse, dout)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Attention with its hand-written backward (the JAX package's
+    ``_attention_pallas`` custom VJP): the forward saves ``(q, k, v, mask,
+    out, lse)`` and the backward rebuilds the gradients from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, mode):
+        out, lse = attention_forward(q, k, v, mask, mode)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.mode = mode
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, mask, ctx.mode, out, lse,
+                                        dout)
+        return dq, dk, dv, None, None
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           segments: Optional[torch.Tensor] = None
@@ -170,9 +301,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     mask: ``[B, Sk]`` (1 = attend) or None.  segments: ``[B, S]`` ids
     (0 = padding) for packed self-attention rows: token i attends token j
-    iff both carry the same non-zero id; supersedes ``mask``."""
+    iff both carry the same non-zero id; supersedes ``mask``.  When a
+    gradient is wanted the call goes through :class:`AttentionFunction`."""
     if segments is not None:
-        return attention_forward(q, k, v, segments, "segments")[0]
-    if mask is not None:
-        return attention_forward(q, k, v, mask, "padding")[0]
-    return attention_forward(q, k, v, None, "none")[0]
+        mask, mode = segments, "segments"
+    else:
+        mode = "none" if mask is None else "padding"
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, mask, mode)
+    return attention_forward(q, k, v, mask, mode)[0]

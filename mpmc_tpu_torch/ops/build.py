@@ -26,6 +26,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+# Kernel launches by name.  Each wrapper adds one where it launches its
+# kernel and nowhere else; a run zeroes the counts before its main path and
+# reads them after to show that the path went through the kernels.
+launch_counts: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0,
+                                 "image_normalize": 0}
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -81,5 +87,14 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(_lib_path(name))
+            lib.mpmc_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mpmc_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.mpmc_cuda_error_string(rc).decode()})")

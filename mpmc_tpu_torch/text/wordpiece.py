@@ -134,6 +134,16 @@ class WordPieceTokenizer:
     def from_file(cls, vocab_path: str, **kw) -> "WordPieceTokenizer":
         return cls(load_vocab(vocab_path), **kw)
 
+    def save(self, vocab_path: str) -> None:
+        """Write the vocab one token per line (line index = id), the file
+        :meth:`from_file` reads."""
+        items = sorted(self.vocab.items(), key=lambda kv: kv[1])
+        for i, (_, vid) in enumerate(items):
+            if i != vid:
+                raise ValueError("vocab ids must be contiguous to save")
+        with open(vocab_path, "w", encoding="utf-8") as f:
+            f.write("\n".join(tok for tok, _ in items) + "\n")
+
     def _wordpiece(self, word: str) -> List[int]:
         if len(word) > self.max_chars_per_word:
             return [self.unk_id]

@@ -1,33 +1,52 @@
-"""Batched evaluation over host arrays (port of ``batch_iter`` and
-``run_eval`` in ``mpmc_tpu/train/loop.py``)."""
+"""Training and batched evaluation over host arrays (port of
+``batch_iter``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Tuple
+import logging
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mpmc_tpu_torch.config import TrainConfig
+from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
 from mpmc_tpu_torch.train.metrics import (accuracy_score, macro_f1,
                                           optimal_threshold_youden)
 from mpmc_tpu_torch.train.step import EvalStep
 
+log = logging.getLogger(__name__)
 
-def batch_iter(data: Dict[str, np.ndarray], batch_size: int
+LOG_EVERY = 10          # steps between loss logs (and reads of the losses)
+
+
+def batch_iter(data: Dict[str, np.ndarray], batch_size: int,
+               shuffle: bool = False,
+               rng: Optional[np.random.Generator] = None,
+               with_valid: bool = False,
                ) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
     """Yield ``(batch, n_valid)`` with every batch of ``batch_size`` rows.
 
     The short final batch is padded by replicating real rows (wrap-around
     over the index order), not with zero rows, so every row the model sees
-    is a real sample; ``n_valid`` says how many rows are new."""
+    is a real sample; ``n_valid`` says how many rows are new.  ``shuffle``
+    draws the order from ``rng``; ``with_valid`` adds a float32 ``valid``
+    [B] that is 0 on the replicated rows."""
     n = len(next(iter(data.values())))
     idx = np.arange(n)
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
     for start in range(0, n, batch_size):
         take = idx[start:start + batch_size]
         full = (np.concatenate([take, np.resize(idx, batch_size - len(take))])
                 if len(take) < batch_size else take)
-        yield {k: v[full] for k, v in data.items()}, len(take)
+        batch = {k: v[full] for k, v in data.items()}
+        if with_valid:
+            batch["valid"] = (np.arange(batch_size)
+                              < len(take)).astype(np.float32)
+        yield batch, len(take)
 
 
 @dataclasses.dataclass
@@ -60,3 +79,123 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
     pred = (probs > thr).astype(int)
     return EvalResult(float(losses.mean()), accuracy_score(labels, pred),
                       macro_f1(labels, pred), thr, probs)
+
+
+@dataclasses.dataclass
+class FitResult:
+    best_macro_f1: float
+    history: List[Dict]            # one entry per eval
+    steps: List[Dict[str, float]]  # per step: loss, grad_norm
+
+
+def _to_device(batch: Dict[str, np.ndarray], device: torch.device
+               ) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
+        eval_step: EvalStep, cfg: TrainConfig,
+        train_data: Dict[str, np.ndarray], device: torch.device,
+        test_data: Optional[Dict[str, np.ndarray]] = None,
+        val_data: Optional[Dict[str, np.ndarray]] = None,
+        test_ids: Optional[List[str]] = None,
+        fold: int = 0,
+        tsv_prefix: Optional[str] = None,
+        packed_plan=None,
+        train_rows: Optional[np.ndarray] = None,
+        on_best: Optional[Callable[[int], None]] = None) -> FitResult:
+    """The epoch loop with the reference's cadence, on one device: eval of
+    the test (and val) split ``cfg.eval_per_epoch`` times per epoch and at
+    its end, and on a new best test macro-F1 the label and probability
+    TSVs (labels at that eval's Youden threshold) and ``on_best(step)``
+    (the checkpoint).
+
+    Batches are the packed plan's (``packed_plan``) or, unpacked, the
+    shuffled ``train_rows`` of the device-resident store as ``idx``; the
+    order comes from ``np.random.default_rng(cfg.seed + fold)`` as in the
+    JAX package.  Losses and grad norms are read back at each log or eval
+    point; a non-finite loss raises ``FloatingPointError``."""
+    bs = cfg.data.batch_size
+    n_train = len(train_data["label"])
+    if packed_plan is not None:
+        steps_per_epoch = packed_plan.steps_per_epoch
+    else:
+        steps_per_epoch = (n_train + bs - 1) // bs
+        if train_rows is None:
+            train_rows = np.arange(n_train)
+    check_interval = max(steps_per_epoch // max(cfg.eval_per_epoch, 1), 1)
+    data_rng = np.random.default_rng(cfg.seed + fold)
+    run_id = f"{cfg.team_name}_{cfg.run_id}"
+    best_f1 = -1.0
+    history: List[Dict] = []
+    steps: List[Dict[str, float]] = []
+    pending: List[Tuple[int, int, Dict]] = []
+    step_count = 0
+
+    def flush():
+        if not pending:
+            return
+        vals = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
+                            for _, _, m in pending]).cpu().numpy()
+        for (ep, bi_, _), (loss, gnorm) in zip(pending, vals):
+            if not np.isfinite(loss):
+                pending.clear()
+                raise FloatingPointError(
+                    f"non-finite loss at epoch {ep} batch {bi_} "
+                    f"(grad_norm={gnorm:.3e})")
+            steps.append({"loss": float(loss), "grad_norm": float(gnorm)})
+        pending.clear()
+
+    for epoch in range(cfg.epochs):
+        t0 = time.time()
+        first = len(steps)
+        if packed_plan is not None:
+            it = packed_plan.epoch_iter(data_rng)
+        else:
+            it = batch_iter({"idx": train_rows.astype(np.int64)}, bs,
+                            shuffle=True, rng=data_rng, with_valid=True)
+        bi = 0
+        for batch, _ in it:
+            metrics = train_step(_to_device(batch, device))
+            bi += 1
+            step_count += 1
+            pending.append((epoch, bi, metrics))
+            if bi % LOG_EVERY == 0:
+                flush()
+                log.info("TRAIN | Epoch [%d] | Batch [%d/%d] | Loss: %.4f | "
+                         "Grad Norm: %.4f", epoch, bi, steps_per_epoch,
+                         np.mean([m["loss"] for m in steps[-LOG_EVERY:]]),
+                         steps[-1]["grad_norm"])
+            if test_data is None or not (bi % check_interval == 0
+                                         or bi == steps_per_epoch):
+                continue
+            flush()
+            t_res = run_eval(eval_step, test_data, bs, device)
+            history.append({"epoch": epoch, "batch": bi, "step": step_count,
+                            "test_f1": t_res.macro_f1,
+                            "test_loss": t_res.loss})
+            log.info(" TEST | Epoch [%d] | Batch [%d/%d] | Loss: %.4f | "
+                     "Acc: %.4f | F1: %.4f | thresh: %.4f", epoch, bi,
+                     steps_per_epoch, t_res.loss, t_res.accuracy,
+                     t_res.macro_f1, t_res.threshold)
+            if val_data is not None:
+                v_res = run_eval(eval_step, val_data, bs, device)
+                log.info("  VAL | Epoch [%d] | F1: %.4f", epoch,
+                         v_res.macro_f1)
+            if t_res.macro_f1 > best_f1:
+                best_f1 = t_res.macro_f1
+                if tsv_prefix and test_ids is not None:
+                    pred = (t_res.probs > t_res.threshold).astype(int)
+                    write_label_tsv(f"{tsv_prefix}.tsv", test_ids, pred,
+                                    run_id)
+                    write_prob_tsv(f"{tsv_prefix}_probs_fold_{fold}.tsv",
+                                   test_ids, pred, t_res.probs, run_id)
+                if on_best is not None:
+                    on_best(step_count)
+        flush()
+        losses = [m["loss"] for m in steps[first:]]
+        log.info("TRAIN | Epoch [%d] done in %.1fs | loss %.4f", epoch,
+                 time.time() - t0, float(np.mean(losses)) if losses
+                 else float("nan"))
+    return FitResult(best_f1, history, steps)

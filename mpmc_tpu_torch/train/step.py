@@ -1,44 +1,79 @@
-"""The eval step (port of ``_build_eval_fn`` in ``mpmc_tpu/train/step.py``
-for the single-logit 2C model).
+"""Train and eval steps (port of ``mpmc_tpu/train/step.py`` for the
+single-logit 2C model): the bf16 policy, the valid-weighted focal loss, the
+global-norm clip, grouped Adam with the fast recipe's bf16 first moment and
+factored-RMS word embeddings, and the linear-warmup schedule.
 
-Precision policy under ``bf16``: every floating parameter runs in bf16
-while BatchNorm running statistics stay f32, and the image is cast to bf16
-after normalization, as the JAX package's eval does.  The port casts the
-model's parameters once, in place (the JAX package casts a copy on every
-call); this halves the weights' device memory for serving.
+Precision policy under ``bf16``: the master parameters stay f32; every step
+runs the model on bf16 copies (``torch.func.functional_call``), so the
+gradients arrive in f32, while BatchNorm statistics stay f32.  The image is
+cast to bf16 after preprocessing, as the JAX package's steps do.
+
+The optimizer is written out by hand on tensors, following optax 0.2.6
+(``scale_by_adam``, ``scale_by_factored_rms``, ``clip_by_global_norm``,
+``multi_transform``) rounding for rounding, including the bf16 first moment
+whose decay product is taken in bf16.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mpmc_tpu_torch.config import TrainConfig
-from mpmc_tpu_torch.image.augment import eval_preprocess
+from mpmc_tpu_torch.image.augment import eval_preprocess, train_augment
+from mpmc_tpu_torch.models.classifier import (MultimodalClassifier,
+                                              PackedMultimodalClassifier)
+from mpmc_tpu_torch.models.norm import set_dropout_generator
 from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss
+from mpmc_tpu_torch.train.packed import packed_model_inputs
 
 EvalStep = Callable[[Dict[str, torch.Tensor]],
                     Tuple[torch.Tensor, torch.Tensor]]
+Augment = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
+
+
+def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.bf16 else torch.float32
 
 
 def make_eval_step(model: nn.Module, cfg: TrainConfig,
-                   grayscale: bool = False) -> EvalStep:
+                   grayscale: bool = False,
+                   cast_in_place: bool = True) -> EvalStep:
     """``step(batch) -> (probs [B], per-sample focal loss [B])``.  The batch
     holds ``text_ids``, ``text_mask``, uint8 ``image [B,H,W,C]``,
     ``caption_ids``, ``caption_mask`` and optionally ``label``; the loss is
-    zero without labels."""
-    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-    for p in model.parameters():
-        p.data = p.data.to(dtype)
-    model.eval()
+    zero without labels.  Eval always runs the unpacked forward.
+
+    ``cast_in_place`` (serving) casts the model's parameters to the compute
+    dtype once, which halves their device memory.  Otherwise (a model that
+    is still training) every call runs on copies in the compute dtype and
+    leaves the model as it was."""
+    dtype = _compute_dtype(cfg)
+    if cast_in_place:
+        for p in model.parameters():
+            p.data = p.data.to(dtype)
+        run = model
+    else:
+        with torch.device("meta"):
+            skeleton = MultimodalClassifier(model.cfg).eval()
+
+        def run(*args):
+            weights = {n: p.detach().to(dtype)
+                       for n, p in model.named_parameters()}
+            weights.update(model.named_buffers())
+            return functional_call(skeleton, weights, args)
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]):
+        model.eval()
         image = eval_preprocess(batch["image"], grayscale=grayscale).to(dtype)
-        logits = model(batch.get("text_ids"), batch.get("text_mask"), image,
-                       batch.get("caption_ids"), batch.get("caption_mask"))
+        logits = run(batch.get("text_ids"), batch.get("text_mask"), image,
+                     batch.get("caption_ids"), batch.get("caption_mask"))
         logits = logits.to(torch.float32)
         probs = torch.sigmoid(logits)
         if "label" in batch:
@@ -50,3 +85,285 @@ def make_eval_step(model: nn.Module, cfg: TrainConfig,
         return probs, loss
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+# ---------------------------------------------------------------------------
+
+def linear_warmup_schedule(base_lr: float, warmup_steps: int,
+                           total_steps: int) -> Callable[[int], float]:
+    """HF ``get_linear_schedule_with_warmup`` in f32: 0 -> lr over
+    ``warmup_steps``, then linear decay to 0 at ``total_steps``."""
+    warmup_steps = max(warmup_steps, 0)
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        s = f32(step)
+        warm = s / f32(max(warmup_steps, 1))
+        decay = max(f32(0.0), (f32(total_steps) - s)
+                    / f32(max(total_steps - warmup_steps, 1)))
+        return float(f32(base_lr) * (warm if step < warmup_steps else decay))
+
+    return schedule
+
+
+def param_group(name: str) -> str:
+    """The reference's grouping: any parameter under ``text_model``,
+    ``caption_text_model`` or ``image_model`` is ``encoder`` (0.8x lr); the
+    fusion and the heads are ``head``."""
+    if "text_model" in name or "image_model" in name:
+        return "encoder"
+    return "head"
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's rule: factor over the two largest dims when the second
+    largest has at least 128 entries; ``(second largest, largest)``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Optimizer:
+    """``clip_by_global_norm(grad_clip_norm)`` then, per group, Adam at the
+    head or encoder schedule, or (``embed``: ``word_embeddings`` under
+    ``embedding_optimizer="factored"``) factored RMS with decay 0.8 and
+    epsilon 1e-30 at the encoder schedule.  Updates the parameters in
+    place; parameters without a gradient take a zero one."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+    RMS_DECAY, RMS_EPS = 0.8, 1e-30
+
+    def __init__(self, cfg: TrainConfig, total_steps: int,
+                 params: Dict[str, torch.Tensor]):
+        if cfg.embedding_optimizer not in ("adam", "factored"):
+            raise ValueError(f"embedding_optimizer "
+                             f"{cfg.embedding_optimizer!r} is not ported")
+        warmup = int(cfg.warmup_fraction * total_steps)
+        self.schedules = {
+            "head": linear_warmup_schedule(cfg.learning_rate, warmup,
+                                           total_steps),
+            "encoder": linear_warmup_schedule(
+                cfg.learning_rate * cfg.encoder_lr_scale, warmup,
+                total_steps)}
+        self.schedules["embed"] = self.schedules["encoder"]
+        self.clip = cfg.grad_clip_norm
+        mu_dtype = (getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype
+                    else None)
+        self.params = params
+        self.count = 0
+        self.label: Dict[str, str] = {}
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, p in params.items():
+            if (cfg.embedding_optimizer == "factored"
+                    and "word_embeddings" in name):
+                self.label[name] = "embed"
+                dims = _factored_dims(p.shape)
+                if dims is None:
+                    self.state[name] = {"v": torch.zeros_like(p)}
+                else:
+                    d1, d0 = dims
+                    self.state[name] = {
+                        "v_row": p.new_zeros(np.delete(p.shape, d0).tolist()),
+                        "v_col": p.new_zeros(np.delete(p.shape, d1).tolist())}
+            else:
+                self.label[name] = param_group(name)
+                self.state[name] = {
+                    "mu": torch.zeros_like(p, dtype=mu_dtype or p.dtype),
+                    "nu": torch.zeros_like(p)}
+
+    @staticmethod
+    def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+        """``sqrt(sum over tensors of sum(g * g))``, as optax."""
+        sums = torch._foreach_norm(torch._foreach_mul(grads, grads), 1)
+        return torch.sqrt(torch.stack(sums).sum())
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor], grad_norm: torch.Tensor
+             ) -> None:
+        """One update from f32 ``grads`` and their pre-clip global norm.
+        The tensors of each group go through multi-tensor (``_foreach``)
+        ops, a few launches per group; reading the norm to decide the clip
+        is the step's one wait on the device."""
+        c = self.count
+        names = list(self.params)
+        g_list = [grads[n] for n in names]
+        if not float(grad_norm) < self.clip:       # optax: keep if below
+            g_list = torch._foreach_div(g_list, grad_norm)
+            torch._foreach_mul_(g_list, self.clip)
+        g = dict(zip(names, g_list))
+        for label, schedule in self.schedules.items():
+            group = [n for n in names if self.label[n] == label]
+            if not group:
+                continue
+            lr = -schedule(c)
+            params = [self.params[n] for n in group]
+            if label == "embed":
+                updates = [self._factored_rms(g[n], self.state[n], c)
+                           for n in group]
+            else:
+                updates = self._adam([g[n] for n in group],
+                                     [self.state[n] for n in group], c)
+            torch._foreach_mul_(updates, lr)
+            torch._foreach_add_(params, updates)
+        self.count = c + 1
+
+    def _adam(self, g, states, c):
+        mu = [st["mu"] for st in states]
+        nu = [st["nu"] for st in states]
+        # The decay product is taken in the moment's dtype (bf16 under the
+        # fast recipe), as JAX multiplies a bf16 array by a Python float;
+        # it is widened into f32 scratch so that every list op below has
+        # one dtype (mixed-dtype lists leave the multi-tensor kernels).
+        decayed = torch._foreach_mul(mu, torch.tensor(self.B1,
+                                                      dtype=mu[0].dtype))
+        if mu[0].dtype != torch.float32:
+            wide = [st.setdefault("mu_f32", torch.empty_like(g_))
+                    for st, g_ in zip(states, g)]
+            torch._foreach_copy_(wide, decayed)
+            decayed = wide
+        mu_new = torch._foreach_mul(g, 1 - self.B1)
+        torch._foreach_add_(mu_new, decayed)
+        nu_new = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu_new, 1 - self.B2)
+        torch._foreach_add_(nu_new, torch._foreach_mul(nu, self.B2))
+        t = np.float32(c + 1)
+        bc1 = float(np.float32(1) - np.float32(self.B1) ** t)
+        bc2 = float(np.float32(1) - np.float32(self.B2) ** t)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu_new, bc2))
+        torch._foreach_add_(denom, self.EPS)
+        updates = torch._foreach_div(torch._foreach_div(mu_new, bc1), denom)
+        torch._foreach_copy_(mu, mu_new)           # rounds to mu's dtype
+        for st, v in zip(states, nu_new):
+            st["nu"] = v
+        return updates
+
+    def _factored_rms(self, g, st, c):
+        decay = np.float32(1) - np.float32(c + 1) ** np.float32(
+            -self.RMS_DECAY)
+        keep, new = float(decay), float(np.float32(1) - decay)
+        grad_sqr = g * g + self.RMS_EPS
+        dims = _factored_dims(g.shape)
+        if dims is None:
+            st["v"] = keep * st["v"] + new * grad_sqr
+            return g * st["v"] ** -0.5
+        d1, d0 = dims
+        st["v_row"] = keep * st["v_row"] + new * grad_sqr.mean(dim=d0)
+        st["v_col"] = keep * st["v_col"] + new * grad_sqr.mean(dim=d1)
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+        row_factor = (st["v_row"] / row_col_mean) ** -0.5
+        col_factor = st["v_col"] ** -0.5
+        return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
+                      valid: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
+    """Focal loss over the valid rows: ``sum(vec * w) / max(sum(w), 1e-9)``
+    (the replicated rows of a short last batch carry zero weight)."""
+    vec = sigmoid_focal_loss(outputs.to(torch.float32),
+                             labels.to(torch.float32),
+                             alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
+                             reduction="none")
+    w = valid.to(torch.float32)
+    return torch.sum(vec * w) / torch.clamp(torch.sum(w), min=1e-9)
+
+
+def gather_batch(batch: Dict[str, torch.Tensor],
+                 store: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Assemble a batch on the device: ``img_idx`` selects image rows of the
+    resident store (packed batches), ``idx`` selects rows of every array of
+    the store (unpacked batches)."""
+    b = dict(batch)
+    if "img_idx" in b:
+        b["image"] = store["image"].index_select(0, b.pop("img_idx").long())
+    if "idx" in b:
+        idx = b.pop("idx").long()
+        b.update({k: v.index_select(0, idx) for k, v in store.items()})
+    return b
+
+
+@dataclasses.dataclass
+class TrainStep:
+    """One optimizer step on ``model`` per call: ``step(batch) -> {"loss",
+    "grad_norm"}`` (0-dim device tensors; the norm is the pre-clip one).
+
+    Under ``bf16`` the model runs on bf16 copies of the f32 masters, kept
+    as leaves of their own and refreshed from the masters after every
+    update; their bf16 gradients widen to f32 exactly, so the optimizer
+    sees what the JAX package's cast-inside-the-loss gives."""
+
+    model: MultimodalClassifier
+    cfg: TrainConfig
+    optimizer: Optimizer
+    store: Dict[str, torch.Tensor]
+    generator: torch.Generator
+    augment: Augment = train_augment
+
+    def __post_init__(self):
+        set_dropout_generator(self.model, self.generator)
+        self.dtype = _compute_dtype(self.cfg)
+        masters = list(self.optimizer.params.values())
+        self.compute = None
+        if self.dtype != torch.float32:
+            self.compute = {n: p.detach().to(self.dtype).requires_grad_()
+                            for n, p in self.optimizer.params.items()}
+            self.grads = [torch.empty_like(p) for p in masters]
+
+    def __call__(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        b = gather_batch(batch, self.store)
+        image = self.augment(b["image"], self.generator).to(self.dtype)
+        if isinstance(self.model, PackedMultimodalClassifier):
+            text, caption = packed_model_inputs(b)
+            args = (text, image, caption)
+        else:
+            args = (b.get("text_ids"), b.get("text_mask"), image,
+                    b.get("caption_ids"), b.get("caption_mask"))
+        self.model.train()
+        params = self.optimizer.params
+        if self.compute is None:
+            leaves = list(params.values())
+            outputs = self.model(*args)
+        else:
+            leaves = list(self.compute.values())
+            outputs = functional_call(self.model, self.compute, args)
+        loss = loss_from_outputs(outputs, b["label"], b["valid"], self.cfg)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))]
+        if self.compute is not None:
+            torch._foreach_copy_(self.grads, grads)   # bf16 -> f32, exact
+            grads = self.grads
+        grad_norm = Optimizer.global_norm(grads)
+        self.optimizer.step(dict(zip(params, grads)), grad_norm)
+        if self.compute is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(leaves, list(params.values()))
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+
+def build_train_step(model: MultimodalClassifier, cfg: TrainConfig,
+                     total_steps: int, store: Dict[str, torch.Tensor],
+                     generator: torch.Generator,
+                     augment: Optional[Augment] = None) -> TrainStep:
+    """The train step over ``model``'s parameters (kept f32 as masters),
+    with the optimizer for ``total_steps`` steps.  ``store`` holds the
+    device-resident arrays that batches index; ``augment(images_u8,
+    generator)`` turns uint8 pixels into the model's f32 input
+    (default: :func:`train_augment`)."""
+    for p in model.parameters():
+        if p.dtype != torch.float32:
+            raise ValueError("training needs f32 master parameters")
+    optimizer = Optimizer(cfg, total_steps, dict(model.named_parameters()))
+    return TrainStep(model, cfg, optimizer, store, generator,
+                     augment or train_augment)
+

@@ -1,0 +1,198 @@
+"""Port attention backward (mpmc_tpu_torch/ops/attention.py) against the JAX
+package's Pallas backward kernel run in TPU interpret mode and against
+``jax.vjp`` of its XLA path; autograd through ``dot_product_attention``.
+Inputs come from a numpy seed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mpmc_tpu.ops.attention import _attention_xla, _bwd_pallas, _fwd_pallas
+from mpmc_tpu_torch.ops import attention as A
+
+# f32 on both sides: the two sum in different orders.
+TOL = 1e-5
+# bf16: both round P and dS to bf16 at the same points (on the CPU the two
+# agree exactly at these sizes), but a different f32 summation order, as on
+# the card, can put a value on the other side of a bf16 rounding boundary;
+# one bf16 ulp of a P or dS entry, or of an output near 2-4, is up to
+# 1.6e-2 here (|q|, |k|, |v|, |dO| ~ 1, sums of 8 to 130 terms).
+TOL_BF16 = 3e-2
+
+
+def _case(mode, B=2, Sq=16, Sk=16, H=2, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+            for _ in range(2))
+    if mode == "padding":
+        mask = np.ones((B, Sk), np.float32)
+        mask[0, Sk // 2:] = 0
+        mask[1, :] = 0              # every query row of sample 1 fully masked
+    elif mode == "segments":
+        mask = np.zeros((B, Sk), np.float32)
+        mask[0, :5], mask[0, 5:12] = 1, 2          # tail: segment-0 rows
+        mask[1, :9], mask[1, 9:] = 3, 1
+    else:
+        mask = None
+    return q, k, v, mask, do
+
+
+CASES = [("padding", {}), ("padding", {"Sq": 8, "Sk": 24}), ("none", {}),
+         ("none", {"Sk": 8}), ("segments", {})]
+IDS = ["padding", "padding-cross", "none", "none-cross", "segments"]
+
+
+def _jax_fwd_bwd(q, k, v, mask, do, mode, dtype):
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(dtype) for x in (q, k, v, do))
+    jm = None if mask is None else jnp.asarray(mask)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _fwd_pallas(jq, jk, jv, jm, mode, scale)
+        dq, dk, dv, _ = _bwd_pallas(mode, scale, (jq, jk, jv, jm, out, lse),
+                                    jdo)
+    return out, lse, (dq, dk, dv)
+
+
+def _torch(x, dtype=torch.float32):
+    return torch.from_numpy(np.array(x.astype(jnp.float32))).to(dtype)
+
+
+@pytest.mark.parametrize("mode,shape", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_interpreted_pallas_kernel(mode, shape,
+                                                          dtype):
+    q, k, v, mask, do = _case(mode, **shape)
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdtype = getattr(torch, dtype)
+    out, lse, want = _jax_fwd_bwd(q, k, v, mask, do, mode, jdtype)
+    # Both sides get the same q, k, v, out, lse and dO.
+    got = A.attention_backward_reference(
+        *(torch.from_numpy(x).to(tdtype) for x in (q, k, v)),
+        None if mask is None else torch.from_numpy(mask), mode,
+        _torch(out, tdtype), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(do).to(tdtype))
+    tol = TOL if dtype == "float32" else TOL_BF16
+    for g, w in zip(got, want):
+        assert g.dtype == tdtype
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("mode,shape", CASES, ids=IDS)
+def test_autograd_through_dot_product_attention(mode, shape):
+    """The gradient reaches q, k and v through AttentionFunction and equals
+    the plain backward on the forward's own out and lse."""
+    q, k, v, mask, do = _case(mode, seed=1, **shape)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    out = A.dot_product_attention(
+        tq, tk, tv, tm if mode == "padding" else None,
+        segments=tm if mode == "segments" else None)
+    out.backward(torch.from_numpy(do))
+    ref_out, lse = A.attention_forward_reference(tq.detach(), tk.detach(),
+                                                 tv.detach(), tm, mode)
+    assert torch.equal(out.detach(), ref_out)
+    want = A.attention_backward_reference(tq.detach(), tk.detach(),
+                                          tv.detach(), tm, mode, ref_out,
+                                          lse, torch.from_numpy(do))
+    for t, w in zip((tq, tk, tv), want):
+        assert t.grad is not None
+        assert torch.equal(t.grad, w)
+    # No graph under inference mode: predict's forward stays as it was.
+    with torch.inference_mode():
+        assert not A.dot_product_attention(tq, tk, tv, None).requires_grad
+
+
+@pytest.mark.parametrize("mode,shape", CASES, ids=IDS)
+def test_backward_matches_jax_grad_of_xla_path(mode, shape):
+    """In f32 the kernel's gradients are those of the plain softmax
+    attention, wherever a query row is not fully masked (there the padding
+    mode's exp(s - lse) differs from a softmax by design, as on the TPU;
+    the cotangent of those rows is zero here).  Segment-0 rows of packed
+    rows take part: segments mode recomputes their softmax exactly."""
+    q, k, v, mask, do = _case(mode, seed=2, **shape)
+    if mode == "padding":
+        do[mask.sum(1) == 0] = 0.0
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def f(q_, k_, v_):
+        return _attention_xla(q_, k_, v_, jm if mode == "padding" else None,
+                              scale, segments=jm if mode == "segments"
+                              else None)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    out = A.dot_product_attention(
+        tq, tk, tv, tm if mode == "padding" else None,
+        segments=tm if mode == "segments" else None)
+    out.backward(torch.from_numpy(do))
+    for t, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=0)
+
+
+def test_backward_wrapper_checks_and_never_falls_back():
+    q, k, v, mask, do = _case("padding")
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = A.attention_forward_reference(tq, tk, tv,
+                                             torch.from_numpy(mask))
+    with pytest.raises(ValueError, match="CUDA"):
+        A.attention_backward_cuda(tq, tk, tv, torch.from_numpy(mask),
+                                  "padding", out, lse, tdo)
+    with pytest.raises(ValueError, match="self-attention"):
+        A.attention_backward(tq, tk[:, :8], tv[:, :8], torch.ones(2, 8),
+                             "segments", out, lse, tdo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("mode,shape", CASES + [
+    ("padding", {"D": 128}), ("none", {"Sq": 130, "Sk": 70, "D": 40}),
+    ("segments", {"Sq": 128, "Sk": 128, "D": 64})])
+def test_cuda_backward_matches_plain_version(mode, shape, dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    q, k, v, mask, do = _case(mode, **shape)
+    if mode == "segments" and shape.get("Sq") == 128:
+        mask = np.repeat(np.arange(1, 9), 16)[None].repeat(2, 0)
+        mask[:, 100:] = 0
+        mask = mask.astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).cuda().to(dtype)
+                       for x in (q, k, v, do))
+    tm = None if mask is None else torch.from_numpy(mask).cuda()
+    out, lse = A.attention_forward_cuda(tq, tk, tv, tm, mode)
+    before = A.launch_counts["attention_bwd"]
+    got = A.attention_backward_cuda(tq, tk, tv, tm, mode, out, lse, tdo)
+    torch.cuda.synchronize()
+    assert A.launch_counts["attention_bwd"] == before + 1
+    want = A.attention_backward_reference(tq, tk, tv, tm, mode, out, lse,
+                                          tdo)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_launches_the_backward_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    q, k, v, mask, do = _case("segments")
+    tq, tk, tv = (torch.from_numpy(x).cuda().requires_grad_()
+                  for x in (q, k, v))
+    before = dict(A.launch_counts)
+    out = A.dot_product_attention(tq, tk, tv,
+                                  segments=torch.from_numpy(mask).cuda())
+    out.backward(torch.from_numpy(do).cuda())
+    torch.cuda.synchronize()
+    assert A.launch_counts["attention_fwd"] == before["attention_fwd"] + 1
+    assert A.launch_counts["attention_bwd"] == before["attention_bwd"] + 1
+    assert tq.grad is not None and torch.isfinite(tq.grad).all()

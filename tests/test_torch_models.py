@@ -255,3 +255,37 @@ def test_metrics_and_batching_match_jax():
         assert gn == jn
         for key in data:
             np.testing.assert_array_equal(gb[key], jb[key])
+
+
+def test_bridge_carries_the_packed_classifier_tree():
+    """The JAX package's PackedMultimodalClassifier has the plain model's
+    parameter tree; the bridge loads it into the port's packed model."""
+    from mpmc_tpu.models.classifier import PackedMultimodalClassifier as JP
+    from mpmc_tpu.ops.packing import pack_sequences as j_pack
+    from mpmc_tpu_torch.models.classifier import PackedMultimodalClassifier
+    t_ids, t_mask, image, c_ids, c_mask = _tiny_2c_inputs(14)
+
+    def packed(ids, mask):
+        p = j_pack(ids, mask, ids.shape[1])
+        return {k: jnp.asarray(v) for k, v in p.asdict().items()}
+
+    jm = JP(JModelConfig.tiny_2c())
+    variables = jm.init(jax.random.key(15), packed(t_ids, t_mask), image,
+                        packed(c_ids, c_mask))
+    plain = JClassifier(JModelConfig.tiny_2c()).init(
+        jax.random.key(15), t_ids, t_mask, image, c_ids, c_mask)
+    assert (jax.tree_util.tree_structure(_np_tree(variables))
+            == jax.tree_util.tree_structure(_np_tree(plain)))
+    stats = _random_stats(variables["batch_stats"], 16)
+    tm = PackedMultimodalClassifier(ModelConfig.tiny_2c())
+    tm.load_state_dict(from_jax_variables(_np_tree(variables["params"]),
+                                          stats), strict=True)
+    want = jm.apply({"params": variables["params"], "batch_stats": stats},
+                    packed(t_ids, t_mask), image, packed(c_ids, c_mask))
+    tp = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          j_pack(t_ids, t_mask, 32).asdict().items()}
+    cp = {k: torch.from_numpy(np.asarray(v)) for k, v in
+          j_pack(c_ids, c_mask, 16).asdict().items()}
+    with torch.no_grad():
+        got = tm.eval()(tp, torch.from_numpy(image), cp)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)

@@ -158,3 +158,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
         main(["predict", "--subtask", "2c", "--tiny", "--manifest",
               manifest_path, "--out", str(tmp_path / "p.tsv")])
     assert not (tmp_path / "p.tsv").exists()
+    train = ["train", "--subtask", "2c", "-tr", manifest_path, "-te",
+             manifest_path, "--tiny", "--out-dir", str(tmp_path / "out")]
+    assert build_parser().parse_args(train).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(train)
+    assert not (tmp_path / "out").exists()
+    # Flags the port does not take are refused, not ignored.
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(train + ["--scan-steps", "8"])
