@@ -27,10 +27,16 @@ toolkit.  Phases, each of which raises on failure:
    dropout 0 and TF32 off: loss, grad norm, augmented image, and the
    parameters and batch statistics after the optimizer step.
 
-Phase 2 also holds the attention backward kernel (padding with a fully
-masked sample, segments with id-0 rows, none with Sq != Sk; bf16 and f32;
-text and caption shapes) and the fused image kernel ([16,224,224,3], both
-flip values) against their plain versions, and times them.
+Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
+attention library with ``cuobjdump -sass``.  Phase 2 also holds the
+attention backward kernel (padding with a fully masked sample, segments with
+id-0 rows, none with Sq != Sk; bf16 and f32; the main paths' shapes, text
+buckets of 256 and 512, D = 128 and D = 8), with two runs bit-equal, and the
+fused image kernel ([16,224,224,3], both flip values) against their plain
+versions, and times them beside SDPA (forward, backward alone, and the
+pair).  Phase 5 also checks that the profiled steps launch one backward
+kernel, 24 times a step, and times SDPA at the packed shapes with a
+[B,1,S,S] bias built from the segment ids.
 
 Prints the card's name and power limit, each phase's result, a ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -42,6 +48,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -57,6 +65,13 @@ N_MEMES = 128
 BATCH = 16
 N_TRAIN, N_DEV = 160, 64             # phase 5 manifests: fold 0 trains 128
 IMAGE_SHAPE = (16, 224, 224, 3)      # the train step's image batch
+# Shapes beyond the main paths, held against the plain versions in phase 2:
+# text buckets of 256 and 512 (real manifests), D = 128, and D = 8 with a
+# ragged Sq (name, [B, Sq, H, D], mode, Sk override).
+LONG_CASES = [("long-256", (4, 256, 12, 64), "padding", None),
+              ("long-512", (2, 512, 12, 64), "segments", None),
+              ("d128", (4, 128, 6, 128), "padding", None),
+              ("d8", (4, 100, 12, 8), "none", 300)]
 ARABIC_LETTERS = "ابتثجحخدذرزسشصضطظعغفقكلمنهوي"
 
 
@@ -73,11 +88,13 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def graph_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
+def graph_ms(torch, fn, reps: int = 20, trials: int = 5,
+             stream=None) -> float:
     """Median device time of ``fn`` in ms: ``reps`` calls captured in a CUDA
     graph, replayed ``trials`` times between CUDA events (the host's
-    per-call overhead is not in the number)."""
-    stream = torch.cuda.Stream()
+    per-call overhead is not in the number).  ``stream``: warm up and
+    capture on it (a backward alone must run on its forward's stream)."""
+    stream = stream or torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(3):
@@ -85,7 +102,7 @@ def graph_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -100,6 +117,35 @@ def graph_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return sorted(times)[len(times) // 2]
+
+
+def kernel_name(line: str) -> str:
+    """``attention_bwd_fused_kernel<64>`` from a line naming a mangled
+    kernel (the name follows its length, the template argument ILi64E)."""
+    m = re.search(r"\d((?:attention|image)_[a-z0-9_]*?kernel)(?:ILi(\d+)E)?",
+                  line)
+    if not m:
+        return line.strip()[-60:]
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def tensor_core_instructions(lib_path: str):
+    """(HMMA and HGMMA, all) SASS instructions per kernel of the library,
+    or None where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, "?"
+    for line in sass.splitlines():
+        if "Function : " in line:
+            kernel = kernel_name(line)
+            counts[kernel] = [0, 0]
+        elif kernel in counts and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[kernel][1] += 1
+            counts[kernel][0] += bool(re.search(r"\bHG?MMA\.", line))
+    return counts
 
 
 def attention_inputs(torch, shape, mode, dtype, gen, sk=None):
@@ -140,11 +186,13 @@ def phase_kernels(torch):
     import torch.nn.functional as F
     from mpmc_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (name, shape, mode, Sk override)
+    # (name, shape, mode, Sk override); the main paths' shapes, then the
+    # long buckets of real manifests (several key blocks), D = 128 and a
+    # ragged D = 8 case.
     cases = [("text", TEXT_SHAPE, "padding", None),
              ("caption", CAPTION_SHAPE, "padding", None),
              ("packed-text", TEXT_SHAPE, "segments", None),
-             ("cross", TEXT_SHAPE, "none", CAPTION_SHAPE[1])]
+             ("cross", TEXT_SHAPE, "none", CAPTION_SHAPE[1])] + LONG_CASES
     tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-3)}
     timed = {}
     err_main = 0.0
@@ -164,7 +212,7 @@ def phase_kernels(torch):
             check(bool(torch.isfinite(out.float()).all()), f"{tag}: non-finite")
             check(err <= tol[dtype][0] and lerr <= tol[dtype][1],
                   f"{tag}: kernel disagrees with the plain version")
-            if mode == "padding" and dtype == torch.bfloat16:
+            if name in ("text", "caption") and dtype == torch.bfloat16:
                 err_main = max(err_main, err)
                 timed[name] = (q, k, v, mask)
     results = {}
@@ -372,18 +420,45 @@ def backward_bound_ms(q, k, mode) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels_bwd(torch):
-    """Attention backward kernel vs plain version on the card, one autograd
-    round trip, and timings at the text and caption shapes."""
+def sdpa_times(torch, q, k, v, bias, do):
+    """SDPA with an additive bias on the port's inputs ([B,S,H,D] viewed as
+    [B,H,S,D]): forward, backward alone (autograd.grad of a forward made
+    outside the graph, retain_graph) and the forward+backward pair, ms."""
     import torch.nn.functional as F
+    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    do_t = do.transpose(1, 2)
+    fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        *leaves, attn_mask=bias))
+    pair = graph_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, attn_mask=bias), leaves,
+        do_t))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    bwd = graph_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do_t, retain_graph=True), stream=stream)
+    return fwd, bwd, pair
+
+
+def segment_bias(seg, dtype):
+    """The kernels' segments-mode bias as a [B, 1, S, S] SDPA mask."""
+    allow = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
+    return ((1.0 - allow.float()) * -1e9).to(dtype)[:, None]
+
+
+def phase_kernels_bwd(torch):
+    """Attention backward kernel vs plain version on the card, two runs
+    bit-equal, one autograd round trip, and timings at the text and caption
+    shapes beside SDPA's."""
     from mpmc_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [("text", TEXT_SHAPE, "padding", None),
              ("caption", CAPTION_SHAPE, "padding", None),
              ("packed-text", TEXT_SHAPE, "segments", None),
              ("packed-caption", CAPTION_SHAPE, "segments", None),
-             ("cross", TEXT_SHAPE, "none", CAPTION_SHAPE[1])]
-    # (atol, rtol): f32 sums of up to 128 terms in another order (a fully
+             ("cross", TEXT_SHAPE, "none", CAPTION_SHAPE[1])] + LONG_CASES
+    # (atol, rtol): f32 sums of up to 512 terms in another order (a fully
     # masked padding sample has P = exp(s - lse) ~ 1 on every key, so its
     # sums reach ~10); bf16 adds one rounding of P or dS to bf16 (an ulp is
     # 2^-8 relative) flipped by that order.
@@ -396,24 +471,28 @@ def phase_kernels_bwd(torch):
             do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
             out, lse = A.attention_forward_cuda(q, k, v, mask, mode)
             got = A.attention_backward_cuda(q, k, v, mask, mode, out, lse, do)
+            again = A.attention_backward_cuda(q, k, v, mask, mode, out, lse,
+                                              do)
             torch.cuda.synchronize()
             want = A.attention_backward_reference(q, k, v, mask, mode, out,
                                                   lse, do)
             tag = f"{name} {mode} {tuple(q.shape)}x{k.shape[1]} {dtype}"
             errs = []
-            for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            for g_name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
                 err, ok = within(g, w, *tol[dtype])
                 errs.append(err)
                 check(bool(torch.isfinite(g.float()).all()),
                       f"{tag}: non-finite {g_name}")
                 check(ok, f"{tag}: {g_name} disagrees with the plain version "
                           f"(max |diff| {err:.3g})")
+                check(torch.equal(g, g2), f"{tag}: two runs of the backward "
+                                          f"differ in {g_name}")
             print(f"  attention_bwd {tag}: max|dq,dk,dv - plain| "
                   f"{max(errs):.3g} (tol {tol[dtype][0]} + "
-                  f"{tol[dtype][1]}|plain|)")
+                  f"{tol[dtype][1]}|plain|); a second run bit-equal")
             if dtype == torch.bfloat16:
                 err_main = max(err_main, max(errs))
-                if mode == "padding":
+                if name in ("text", "caption"):
                     timed[name] = (q, k, v, mask, out, lse, do)
     # One autograd round trip through AttentionFunction.
     q, k, v, mask = attention_inputs(torch, TEXT_SHAPE, "segments",
@@ -442,23 +521,21 @@ def phase_kernels_bwd(torch):
         pair_ms = graph_ms(torch, lambda: torch.autograd.grad(
             A.dot_product_attention(*leaves, mask), leaves, do))
         bias = ((1.0 - mask) * -1e9).to(q.dtype)[:, None, None, :]
-        t_leaves = [x.detach().transpose(1, 2).requires_grad_()
-                    for x in (q, k, v)]
-        do_t = do.transpose(1, 2)
-        library_ms = graph_ms(torch, lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*t_leaves, attn_mask=bias),
-            t_leaves, do_t))
+        _, library_ms, library_pair_ms = sdpa_times(torch, q, k, v, bias, do)
         bound_ms, bound_by = backward_bound_ms(q, k, "padding")
         results[name] = dict(shape=list(q.shape), dtype=str(q.dtype),
                              ms=ms, plain_ms=plain_ms,
                              fwd_bwd_pair_ms=pair_ms,
                              library_ms=library_ms,
-                             library="sdpa forward+backward (autograd)",
+                             library="sdpa backward alone (autograd.grad of "
+                                     "a forward outside the graph)",
+                             library_pair_ms=library_pair_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
         print(f"  attention_bwd {name} {tuple(q.shape)} bf16 padding: kernel "
-              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
-              f"ms ({bound_by}); forward+backward: port {pair_ms:.5f} ms, "
-              f"sdpa {library_ms:.5f} ms")
+              f"{ms:.5f} ms, sdpa backward alone {library_ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+              f"forward+backward: port {pair_ms:.5f} ms, sdpa "
+              f"{library_pair_ms:.5f} ms")
     return results, err_main
 
 
@@ -651,6 +728,16 @@ def phase_warm_train(torch, argv):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+    ours = sorted((e for e in events if "attention_" in e.key
+                   or "image_normalize" in e.key), key=lambda e: e.key)
+    print("  this port's kernels in the profile (3 steps):")
+    for e in ours:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:100]}")
+    bwd = [(e.key, e.count) for e in ours if "attention_bwd" in e.key]
+    check(len(bwd) == 1 and bwd[0][1] == 24 * 3,
+          f"the backward should be one kernel launched 24 times a step at "
+          f"S <= 128, got {bwd}")
     # Where the host's time goes (Python's profiler, 3 more steps).
     import cProfile
     import pstats
@@ -684,13 +771,26 @@ def phase_warm_train(torch, argv):
             q, k, v, seg, "segments"))
         plain_ms = graph_ms(torch, lambda: A.attention_backward_reference(
             q, k, v, seg, "segments", out, lse, do))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        pair_ms = graph_ms(torch, lambda: torch.autograd.grad(
+            A.dot_product_attention(*leaves, segments=seg), leaves, do))
+        sdpa_fwd, sdpa_bwd, sdpa_pair = sdpa_times(
+            torch, q, k, v, segment_bias(seg, q.dtype), do)
         bound_ms, bound_by = backward_bound_ms(q, k, "segments")
+        fwd_bound_ms, _ = attention_bound_ms(q, k, "segments")
         shapes[name] = dict(shape=[rows, S, 12, 64], mode="segments",
                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, fwd_ms=fwd_ms)
+                            bound_by=bound_by, fwd_ms=fwd_ms,
+                            fwd_bound_ms=fwd_bound_ms,
+                            fwd_bwd_pair_ms=pair_ms, library_fwd_ms=sdpa_fwd,
+                            library_ms=sdpa_bwd, library_pair_ms=sdpa_pair)
         print(f"  attention at the packed {name} shape [{rows},{S},12,64] "
-              f"bf16 segments: backward {ms:.5f} ms (plain {plain_ms:.5f}, "
-              f"bound {bound_ms:.5f} {bound_by}), forward {fwd_ms:.5f} ms")
+              f"bf16 segments: backward {ms:.5f} ms (sdpa backward alone "
+              f"{sdpa_bwd:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} "
+              f"{bound_by}), forward {fwd_ms:.5f} ms (sdpa {sdpa_fwd:.5f}, "
+              f"bound {fwd_bound_ms:.5f}), forward+backward {pair_ms:.5f} ms "
+              f"(sdpa {sdpa_pair:.5f}); sdpa with a [B,1,S,S] bias from the "
+              f"segment ids")
     del run
     torch.cuda.empty_cache()
     return shapes, warm
@@ -798,9 +898,26 @@ def main() -> int:
     reports = build.build(names)
     print(f"phase 1 build: {names} in {time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
+        kernel = name
         for line in report.splitlines():
+            if "Compiling entry function" in line:
+                kernel = kernel_name(line)
             if "Used" in line or "spill" in line and " 0 bytes spill" not in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {kernel}: {line.strip()}")
+    tensor_core = {}
+    for name in ("attention_fwd", "attention_bwd"):
+        counts = tensor_core_instructions(build._lib_path(name))
+        if counts is None:
+            tensor_core[name] = None
+            print(f"  {name}: tensor-core instructions not measured "
+                  f"(no cuobjdump)")
+            continue
+        tensor_core[name] = sum(mma for mma, _ in counts.values())
+        print(f"  {name}: {tensor_core[name]} tensor-core instructions "
+              f"(HMMA/HGMMA in cuobjdump -sass); per kernel, of all its "
+              f"instructions: " + ", ".join(
+                  f"{k} {mma}/{n}" for k, (mma, n) in sorted(counts.items())))
+        check(tensor_core[name] > 0, f"{name}: no tensor-core instruction")
 
     print("phase 2 kernels vs plain versions on the card:")
     timings, err_main = phase_kernels(torch)
@@ -834,10 +951,14 @@ def main() -> int:
         "bound_ms": text["bound_ms"], "bound_by": text["bound_by"],
         "library_ms": text["library_ms"], "shape": text["shape"],
         "dtype": text["dtype"], "caption_shape": timings["caption"],
+        "tensor_core_instructions": tensor_core["attention_fwd"],
         "launches_by_path": {"predict": launches["attention_fwd"],
                              "train": train_launches["attention_fwd"]},
-        "packed_train_shapes": {k: {"shape": v["shape"], "ms": v["fwd_ms"]}
-                                for k, v in packed_shapes.items()}}, {
+        "packed_train_shapes": {
+            k: {"shape": v["shape"], "ms": v["fwd_ms"],
+                "library_ms": v["library_fwd_ms"],
+                "bound_ms": v["fwd_bound_ms"]}
+            for k, v in packed_shapes.items()}}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "mpmc_tpu/ops/attention.py:182",
@@ -845,7 +966,11 @@ def main() -> int:
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"], "library": bwd["library"],
-        "fwd_bwd_pair_ms": bwd["fwd_bwd_pair_ms"], "shape": bwd["shape"],
+        "fwd_bwd_pair_ms": bwd["fwd_bwd_pair_ms"],
+        "library_pair_ms": bwd["library_pair_ms"],
+        "launches_per_call": 1,
+        "tensor_core_instructions": tensor_core["attention_bwd"],
+        "shape": bwd["shape"],
         "dtype": bwd["dtype"], "caption_shape": bwd_timings["caption"],
         "packed_train_shapes": packed_shapes}, {
         "name": "image_normalize", "route": "cuda",

@@ -11,7 +11,9 @@ uniform average of V.
 
 A CPU tensor runs the plain versions (:func:`attention_forward_reference`,
 :func:`attention_backward_reference`); a CUDA tensor launches the kernels of
-``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` or raises.
+``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` or raises: bf16 on
+the tensor cores (one backward launch at Sq, Sk <= 128), f32 on the CUDA
+cores.
 :class:`AttentionFunction` joins the two for autograd.
 """
 
@@ -105,6 +107,23 @@ def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
                          f"{MAX_SEQ}, got D={D}, Sq={Sq}, Sk={Sk}")
 
 
+def _check_bf16_layout(who: str, *tensors: torch.Tensor) -> None:
+    """What the bf16 tensor-core kernels take on top of :func:`_check_cuda`:
+    D a multiple of 8, and every row of q, k, v (and, for the backward,
+    out and dO) starting on a 16-byte boundary, for ``cp.async``.  f32 runs
+    on the CUDA-core kernels, which take any D and stride."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    D = tensors[0].shape[-1]
+    if D % 8:
+        raise ValueError(f"{who}: bf16 kernel needs D % 8 == 0, got D={D}")
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{who}: bf16 kernel needs 16-byte aligned "
+                             f"rows, got a tensor at {t.data_ptr():#x} with "
+                             f"strides {t.stride()}")
+
+
 def _mask_f32(q: torch.Tensor, mask: Optional[torch.Tensor],
               mode: str) -> Optional[torch.Tensor]:
     if mode == "none":
@@ -125,6 +144,7 @@ def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk = k.shape[1]
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("kernel needs the head dim of q, k, v contiguous")
+    _check_bf16_layout("attention_forward_cuda", q, k, v)
     mask_f = _mask_f32(q, mask, mode)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -231,6 +251,7 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     # The kernel reads [B, S, H, D] in place with contiguous strides.
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
     lse = lse.contiguous()
+    _check_bf16_layout("attention_backward_cuda", q, k, v, out, dout)
     mask_f = _mask_f32(q, mask, mode)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta, row_m, row_l = (torch.empty((B, H, Sq), dtype=torch.float32,

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``_build/`` inside the
-package, named by a hash of the source, so an edited source is rebuilt and
-a stale library is never loaded.  Nothing is built at import time.
+package, named by a hash of the source and of the shared ``csrc/*.cuh``
+headers, so an edited source or header is rebuilt and a stale library is
+never loaded.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -42,8 +43,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    of every shared ``csrc/*.cuh`` header it may include, and of the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

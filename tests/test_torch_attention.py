@@ -10,6 +10,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mpmc_tpu.ops.attention import _attention_xla, _fwd_pallas
 from mpmc_tpu_torch.ops import attention as A
+from mpmc_tpu_torch.ops import build
 
 # f32 on both sides: the two differ only in summation order and in where
 # the 1/sqrt(D) scale is applied (q in the TPU kernel, the f32 scores here).
@@ -24,11 +25,11 @@ def _case(mode, B=2, Sq=16, Sk=16, H=2, D=16, seed=0):
     if mode == "padding":
         mask = np.ones((B, Sk), np.float32)
         mask[0, Sk // 2:] = 0
-        mask[1, :] = 0              # every query row of sample 1 fully masked
+        mask[1:, :] = 0             # every query row of sample 1 fully masked
     elif mode == "segments":
         mask = np.zeros((B, Sk), np.float32)
         mask[0, :5], mask[0, 5:12] = 1, 2          # tail: segment 0 padding
-        mask[1, :9], mask[1, 9:] = 3, 1
+        mask[1:, :9], mask[1:, 9:] = 3, 1
     else:
         mask = None
     return q, k, v, mask
@@ -36,10 +37,26 @@ def _case(mode, B=2, Sq=16, Sk=16, H=2, D=16, seed=0):
 
 CASES = [("padding", {}), ("segments", {}), ("none", {"Sk": 8}),
          ("padding", {"Sq": 8, "Sk": 24, "D": 8})]
+# The long buckets (real manifests reach S = 512), which the bf16 kernel
+# walks in several key blocks: B = H = 1 keeps interpret mode quick.
+LONG = [("padding", {"B": 1, "H": 1, "Sq": 256, "Sk": 256, "D": 8}),
+        ("segments", {"B": 1, "H": 1, "Sq": 256, "Sk": 256, "D": 8}),
+        ("none", {"B": 1, "H": 1, "Sq": 40, "Sk": 256, "D": 16})]
+LONG_IDS = ["padding-256", "segments-256", "none-40x256"]
+# The card: the long buckets, D from 8 to 128, ragged Sq, a fully masked
+# padding sample (sample 1) and a segment-0 tail (segments sample 0).
+CUDA_CASES = CASES + [
+    ("padding", {"D": 128}), ("none", {"Sq": 130, "D": 40}),
+    ("padding", {"Sk": 256}), ("padding", {"Sq": 24, "Sk": 512, "D": 32}),
+    ("segments", {"Sq": 256, "Sk": 256, "D": 64}),
+    ("segments", {"Sq": 512, "Sk": 512, "D": 128}),
+    ("none", {"Sq": 24, "Sk": 130, "D": 8}),
+    ("padding", {"Sq": 100, "Sk": 128, "D": 32})]
 
 
-@pytest.mark.parametrize("mode,shape", CASES,
-                         ids=["padding", "segments", "none-cross", "padding-d8"])
+@pytest.mark.parametrize("mode,shape", CASES + LONG,
+                         ids=["padding", "segments", "none-cross",
+                              "padding-d8"] + LONG_IDS)
 def test_plain_attention_matches_interpreted_pallas_kernel(mode, shape):
     q, k, v, mask = _case(mode, **shape)
     scale = 1.0 / np.sqrt(q.shape[-1])
@@ -59,7 +76,7 @@ def test_plain_attention_matches_interpreted_pallas_kernel(mode, shape):
     # lse = -1e9, neither NaN nor zero from skipped keys.
     dead = {"padding": (1, slice(None)), "segments": (0, mask is not None
                                                       and mask[0] == 0)}
-    if mode in dead:
+    if mode in dead and dead[mode][0] < q.shape[0]:
         b, rows = dead[mode]
         uniform = np.broadcast_to(v[b].mean(0), got_out.numpy()[b][rows].shape)
         np.testing.assert_allclose(got_out.numpy()[b][rows], uniform, atol=TOL)
@@ -110,11 +127,43 @@ def test_wrapper_checks_shapes_and_never_falls_back():
         A.attention_forward_cuda(tq, tk, tv, torch.from_numpy(mask))
 
 
+def test_bf16_layout_check_raises_on_what_cp_async_cannot_copy():
+    """The bf16 kernels copy 16-byte chunks: D % 8 == 0 and 16-byte
+    aligned rows, or the wrapper raises (f32 takes any layout)."""
+    x = torch.zeros(2, 8, 2, 16, dtype=torch.bfloat16)
+    A._check_bf16_layout("t", x, x, x)
+    with pytest.raises(ValueError, match="D % 8"):
+        y = torch.zeros(2, 8, 2, 12, dtype=torch.bfloat16)
+        A._check_bf16_layout("t", y, y, y)
+    flat = torch.zeros(2 * 8 * 2 * 16 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 8, 2, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        A._check_bf16_layout("t", x, shifted, x)
+    wide = torch.zeros(2, 8, 2, 20, dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="16-byte"):
+        A._check_bf16_layout("t", wide, x, x)
+    A._check_bf16_layout("t", *(t.float() for t in (x, shifted, wide)))
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header gives a new library name, so the kernel
+    that includes it is rebuilt (no nvcc needed to check the name)."""
+    (tmp_path / "k.cu").write_text('#include "tiles.cuh"\n')
+    (tmp_path / "tiles.cuh").write_text("// first\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    first = build._lib_path("k")
+    assert build._lib_path("k") == first
+    (tmp_path / "tiles.cuh").write_text("// second\n")
+    second = build._lib_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "tiles.cuh"\n// edited\n')
+    assert build._lib_path("k") not in (first, second)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("mode,shape", CASES + [("padding", {"D": 128}),
-                                                ("none", {"Sq": 130, "D": 40})])
+@pytest.mark.parametrize("mode,shape", CUDA_CASES)
 def test_cuda_kernel_matches_plain_version(mode, shape, dtype, atol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
