@@ -25,7 +25,16 @@ toolkit.  Phases, each of which raises on failure:
 6. one packed train step in f32 on the card (kernels) and on the CPU (plain
    versions) from the same weights, batch and augmentation draws, with
    dropout 0 and TF32 off: loss, grad norm, augmented image, and the
-   parameters and batch statistics after the optimizer step.
+   parameters and batch statistics after the optimizer step;
+7. drive ``predict`` for the other kinds at full width on phase 3's
+   manifest, launch counts zeroed before and read after, then warm:
+   2A (AraBERT-base shape, attention pooling, 2 classes), 2B (ResNet-18 at
+   224x224; ResNet-50 with BinaryHead) and the simple 2C baseline
+   (distilbert-multilingual shape, ResNet-50's 1000 logits); compare each
+   new model class card vs CPU in f32 (TF32 off) on a few memes; and run
+   ``combine``, ``check`` and ``score`` over the probability TSVs of
+   phases 3 and 7 against a synthetic labelled manifest, the ensemble and
+   its score recomputed in plain numpy.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -305,8 +314,10 @@ def phase_predict(torch, work: str):
     return argv, launches
 
 
-def phase_warm_eval(torch, argv):
-    """The eval pass again on a warm model: memes/s of the serving loop."""
+def warm_eval(torch, argv):
+    """The eval pass of a ``predict`` command line again on a warm model:
+    (memes/s, median of 3 passes after one untimed; the prepared inputs;
+    the step)."""
     from mpmc_tpu_torch.cli.main import build_parser, load_model, prepare_inputs
     from mpmc_tpu_torch.config import TrainConfig
     from mpmc_tpu_torch.train.loop import run_eval
@@ -314,8 +325,8 @@ def phase_warm_eval(torch, argv):
     args = build_parser().parse_args(argv)
     inputs = prepare_inputs(args)
     cfg = TrainConfig(bf16=True)
-    model = load_model(args, inputs.model_cfg, torch.device("cuda"), cfg.seed)
-    step = make_eval_step(model, cfg)
+    model = load_model(args, inputs.variant, torch.device("cuda"), cfg.seed)
+    step = make_eval_step(model, cfg, grayscale=inputs.variant.grayscale)
     run_eval(step, inputs.data, BATCH, torch.device("cuda"))
     times = []
     for _ in range(3):
@@ -324,16 +335,18 @@ def phase_warm_eval(torch, argv):
         run_eval(step, inputs.data, BATCH, torch.device("cuda"))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    t = sorted(times)[1]
-    print(f"  warm eval pass: {N_MEMES} memes in {t:.4f} s (median of 3) = "
-          f"{N_MEMES / t:.2f} memes/s, text {inputs.data['text_ids'].shape}, "
-          f"caption {inputs.data['caption_ids'].shape}")
-    # Where the device time of one warm pass goes.
+    return N_MEMES / sorted(times)[1], inputs, step
+
+
+def profile_pass(torch, step, data, top: int):
+    """Where the device time of one warm eval pass goes: wall and kernel
+    ms, and the ``top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
+    from mpmc_tpu_torch.train.loop import run_eval
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_eval(step, inputs.data, BATCH, torch.device("cuda"))
+        run_eval(step, data, BATCH, torch.device("cuda"))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
@@ -341,10 +354,22 @@ def phase_warm_eval(torch, argv):
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"  profiled pass: {wall_us / 1e3:.3f} ms wall, kernels "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} % of wall; "
-          f"device idle otherwise, counting no overlap)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+          f"device idle otherwise, counting no overlap) in "
+          f"{sum(e.count for e in events)} launches")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
+
+
+def phase_warm_eval(torch, argv):
+    """The 2C eval pass again on a warm model: memes/s of the serving loop,
+    and a device profile of one pass."""
+    memes_s, inputs, step = warm_eval(torch, argv)
+    print(f"  warm eval pass: {N_MEMES} memes at {memes_s:.2f} memes/s "
+          f"(median of 3), text {inputs.data['text_ids'].shape}, "
+          f"caption {inputs.data['caption_ids'].shape}")
+    profile_pass(torch, step, inputs.data, 10)
     check(inputs.data["text_ids"].shape[1] == TEXT_SHAPE[1]
           and inputs.data["caption_ids"].shape[1] == CAPTION_SHAPE[1],
           "bucket lengths differ from the path's shapes")
@@ -360,8 +385,8 @@ def phase_card_vs_cpu(torch, inputs):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     batch = {k: torch.from_numpy(v[:BATCH]) for k, v in inputs.data.items()}
-    gpu = build_model(inputs.model_cfg, torch.device("cuda"), seed=7)
-    cpu = build_model(inputs.model_cfg, torch.device("cpu"))
+    gpu = build_model(inputs.variant.model_cfg, torch.device("cuda"), seed=7)
+    cpu = build_model(inputs.variant.model_cfg, torch.device("cpu"))
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
 
     # The random head gives logits of order 1e-4 (the softmax gate over
@@ -878,6 +903,217 @@ def phase_train_card_vs_cpu(torch, argv):
     torch.cuda.empty_cache()
 
 
+# Phase 7: the other predict kinds at full width (name, flags, attention
+# forward launches per batch: one per encoder layer).
+OTHER_KINDS = [
+    ("predict_2a", ["--subtask", "2a"], 12),
+    ("predict_2b", ["--subtask", "2b"], 0),
+    ("predict_2b_resnet50", ["--subtask", "2b", "--image-arch", "resnet50",
+                             "--binary-head"], 0),
+    ("predict_simple", ["--subtask", "2c", "--simple"], 6),
+]
+# Phase 7 (d): each new model class, card vs CPU in f32 on a few memes.
+KIND_CHECKS = [
+    ("TextClassifier (AraBERT-base shape, attention pooling)",
+     ["--subtask", "2a"], 12),
+    ("ImageClassifier (ResNet-18, Linear head)", ["--subtask", "2b"], 0),
+    ("ImageClassifier (SE-ResNeXt-50 32x4d, BinaryHead)",
+     ["--subtask", "2b", "--image-arch", "seresnext50_32x4d",
+      "--binary-head"], 0),
+    ("SimpleMultimodalClassifier (distilbert shape, ResNet-50 logits)",
+     ["--subtask", "2c", "--simple"], 6),
+]
+KIND_MEMES = 3
+
+
+def predict_argv(work: str, manifest: str, name: str, flags):
+    out = os.path.join(work, f"{name}.tsv")
+    probs_out = os.path.join(work, f"{name}_probs.tsv")
+    return ["predict", *flags, "--manifest", manifest, "--out", out,
+            "--probs-out", probs_out, "--image-root", work, "--batch-size",
+            str(BATCH), "--device", "cuda", "--run-id", name]
+
+
+def phase_other_kinds(torch, work: str):
+    """``predict`` for 2A, 2B (ResNet-18; ResNet-50 with BinaryHead) and the
+    simple 2C model through the command line on phase 3's manifest, every
+    launch count zeroed before and read after; then the warm eval pass and
+    its device profile."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.io.tsv import check_format
+    from mpmc_tpu_torch.ops import build
+    manifest = os.path.join(work, "memes.json")
+    n_batches = math.ceil(N_MEMES / BATCH)
+    results = {}
+    for name, flags, per_batch in OTHER_KINDS:
+        argv = predict_argv(work, manifest, name, flags)
+        for key in build.launch_counts:
+            build.launch_counts[key] = 0
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.launch_counts)
+        check(rc == 0, f"{name}: predict returned {rc}")
+        check(launches == {"attention_fwd": per_batch * n_batches,
+                           "attention_bwd": 0, "image_normalize": 0},
+              f"{name}: launches {launches}, expected attention_fwd "
+              f"{per_batch} x {n_batches} batches and nothing else")
+        probs = read_probs(argv[argv.index("--probs-out") + 1])
+        check(len(probs) == N_MEMES and all(0.0 <= p <= 1.0 for p in probs),
+              f"{name}: missing, non-finite or out-of-range probabilities")
+        check(check_format(argv[argv.index("--out") + 1]),
+              f"{name}: the label TSV fails check_format")
+        memes_s, inputs, step = warm_eval(torch, argv)
+        shapes = {k: list(v.shape) for k, v in inputs.data.items()}
+        print(f"  {name} ({' '.join(flags)}), {N_MEMES} memes, batch {BATCH}, "
+              f"bf16: rc 0, {wall:.3f} s wall (model build and first-call "
+              f"set-up included), attention_fwd launches "
+              f"{launches['attention_fwd']} = {per_batch} x {n_batches}, "
+              f"probs in [{min(probs):.4f}, {max(probs):.4f}], TSV passes "
+              f"check_format; inputs {shapes}")
+        print(f"  warm eval pass: {memes_s:.2f} memes/s (median of 3)")
+        wall_ms, busy_ms = profile_pass(torch, step, inputs.data, 5)
+        results[name] = dict(launches=launches["attention_fwd"],
+                             memes_s=memes_s, wall_s=wall,
+                             profiled_wall_ms=wall_ms,
+                             profiled_kernel_ms=busy_ms,
+                             probs=argv[argv.index("--probs-out") + 1],
+                             labels=argv[argv.index("--out") + 1])
+        del step, inputs
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_kinds_card_vs_cpu(torch, work: str):
+    """Each new model class at full width, same weights, on the card
+    (kernels) and the CPU (plain versions) in f32 with TF32 off, on the
+    first memes of phase 3's manifest: logits within 1e-4 of the largest
+    CPU logit (and absolutely below 1)."""
+    from mpmc_tpu_torch.cli.main import build_parser, prepare_inputs
+    from mpmc_tpu_torch.image.augment import eval_preprocess
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    manifest = os.path.join(work, "memes.json")
+    for label, flags, launches in KIND_CHECKS:
+        args = build_parser().parse_args(
+            predict_argv(work, manifest, "cmp", flags))
+        inputs = prepare_inputs(args)
+        v = inputs.variant
+        gpu = build_model(v.model_cfg, torch.device("cuda"), seed=7,
+                          kind=v.kind, binary_head=v.binary_head)
+        cpu = build_model(v.model_cfg, torch.device("cpu"), kind=v.kind,
+                          binary_head=v.binary_head)
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+        batch = {k: torch.from_numpy(a[:KIND_MEMES])
+                 for k, a in inputs.data.items()}
+
+        def run(model, device):
+            b = {k: t.to(device) for k, t in batch.items()}
+            xs = [eval_preprocess(b["image"]) if key == "image" else b[key]
+                  for key in model.inputs]
+            with torch.inference_mode():
+                return model(*xs).float().cpu()
+
+        before = A.launch_counts["attention_fwd"]
+        on_card = run(gpu, torch.device("cuda"))
+        check(A.launch_counts["attention_fwd"] - before == launches,
+              f"{label}: the card forward launched attention_fwd "
+              f"{A.launch_counts['attention_fwd'] - before} times, expected "
+              f"{launches}")
+        on_cpu = run(cpu, torch.device("cpu"))
+        err = (on_card - on_cpu).abs().max().item()
+        scale = max(1.0, on_cpu.abs().max().item())
+        print(f"  f32 {label}, logits {tuple(on_cpu.shape)}: card vs CPU max "
+              f"abs diff {err:.3g} (tol 1e-4 x max(1, max |logit| = "
+              f"{on_cpu.abs().max().item():.4g}))")
+        check(bool(torch.isfinite(on_card).all()),
+              f"{label}: non-finite logits on the card")
+        check(err <= 1e-4 * scale, f"{label}: card and CPU disagree in f32")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+
+def _capture(cli_main, argv):
+    """(rc, stdout) of one command of the port's command line."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    print("    " + buf.getvalue().strip().replace("\n", "\n    "))
+    return rc, buf.getvalue()
+
+
+def phase_submission(work: str, prob_files, label_files):
+    """``combine`` over the probability TSVs this run wrote (family-balanced
+    by run id, the threshold that maximizes macro-F1), then ``check`` and ``score`` against a synthetic labelled
+    manifest of the same memes; the ensemble's labels and the score are
+    recomputed here in plain numpy."""
+    import numpy as np
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    with open(os.path.join(work, "memes.json"), encoding="utf-8") as f:
+        rows = json.load(f)
+    rng = np.random.default_rng(5)
+    for row in rows:
+        row["class_label"] = ("propaganda" if rng.random() < 0.35
+                              else "not_propaganda")
+    gold = os.path.join(work, "gold.json")
+    with open(gold, "w", encoding="utf-8") as f:
+        json.dump(rows, f, ensure_ascii=False)
+    ens = os.path.join(work, "ensemble.tsv")
+    rc, _ = _capture(cli_main, ["combine", "--files", *prob_files, "--gold",
+                                gold, "--out", ens, "--group-by-run-id",
+                                "--metric", "macro"])
+    check(rc == 0, f"combine returned {rc}")
+    rc, out = _capture(cli_main, ["check", "-p", ens, *label_files])
+    check(rc == 0 and out.strip() == "OK", "check refused a TSV")
+    rc, out = _capture(cli_main, ["score", "-g", gold, "-p", ens])
+    check(rc == 0 and out.startswith("acc: "), f"score returned {rc}")
+    f1 = float(out.strip().rsplit("F1:", 1)[1])
+
+    # The same ensemble in plain numpy: family means, their mean, the
+    # macro-F1 threshold scan over 100 points, labels at prob > t.
+    y = np.array([r["class_label"] == "propaganda" for r in rows], int)
+    ids = [r["id"] for r in rows]
+    families = {}
+    for path in prob_files:
+        with open(path) as f:
+            next(f)
+            cols = [line.rstrip("\n").split("\t") for line in f]
+        check([c[0] for c in cols] == ids, f"{path}: ids out of order")
+        families.setdefault(cols[0][3], []).append(
+            [float(c[2]) for c in cols])
+    avg = np.mean([np.mean(m, axis=0) for m in families.values()], axis=0)
+
+    def f1_of(pred, cls):
+        tp = np.sum((pred == cls) & (y == cls))
+        p, r = tp / max(np.sum(pred == cls), 1), tp / max(np.sum(y == cls), 1)
+        return 2 * p * r / (p + r) if p + r else 0.0
+
+    def macro_of(pred):
+        return (f1_of(pred, 0) + f1_of(pred, 1)) / 2
+
+    grid = np.linspace(0, 1, 100)
+    t = grid[int(np.argmax([macro_of((avg > g).astype(int)) for g in grid]))]
+    want = (avg > t).astype(int)
+    with open(ens) as f:
+        check(next(f) == "id\tlabel\trun_id\n", "ensemble TSV header")
+        got = [line.rstrip("\n").split("\t") for line in f]
+    check([g[0] for g in got] == ids
+          and [g[1] == "propaganda" for g in got] == list(want.astype(bool))
+          and all(g[2] == "ensemble" for g in got),
+          "the ensemble's labels differ from the plain recomputation")
+    macro = macro_of(want)
+    check(abs(f1 - macro) <= 1e-12, f"score F1 {f1} != plain {macro}")
+    print(f"  combine over {len(prob_files)} probability TSVs in "
+          f"{len(families)} run-id families, threshold {t:.4f}: labels equal "
+          f"the plain recomputation; check OK; score macro-F1 {f1} equals "
+          f"the plain {macro}")
+
+
 T_START = time.perf_counter()
 
 
@@ -938,6 +1174,14 @@ def main() -> int:
             packed_shapes, warm_ms = phase_warm_train(torch, train_argv)
             print("phase 6 packed train step, card vs CPU in f32:")
             phase_train_card_vs_cpu(torch, train_argv)
+            print("phase 7 full-width predict for 2A, 2B and simple 2C:")
+            kinds = phase_other_kinds(torch, work)
+            phase_kinds_card_vs_cpu(torch, work)
+            phase_submission(
+                work, [os.path.join(work, "probs.tsv")]
+                + [r["probs"] for r in kinds.values()],
+                [os.path.join(work, "pred.tsv")]
+                + [r["labels"] for r in kinds.values()])
         finally:
             os.chdir(cwd)
 
@@ -952,8 +1196,11 @@ def main() -> int:
         "library_ms": text["library_ms"], "shape": text["shape"],
         "dtype": text["dtype"], "caption_shape": timings["caption"],
         "tensor_core_instructions": tensor_core["attention_fwd"],
-        "launches_by_path": {"predict": launches["attention_fwd"],
-                             "train": train_launches["attention_fwd"]},
+        "launches_by_path": {
+            "predict": launches["attention_fwd"],
+            "train": train_launches["attention_fwd"],
+            "predict_2a": kinds["predict_2a"]["launches"],
+            "predict_simple": kinds["predict_simple"]["launches"]},
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
                 "library_ms": v["library_fwd_ms"],
@@ -983,6 +1230,10 @@ def main() -> int:
         "library": "none: no single PyTorch call flips, scales, clips and "
                    "normalizes",
         "shape": image["shape"], "dtype": image["dtype"]}]
+    print(json.dumps({"predict_kinds": {
+        k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
+                              "profiled_wall_ms", "profiled_kernel_ms")}
+        for k, v in kinds.items()}}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median); "
           f"whole run {time.perf_counter() - T_START:.1f} s")
     print(card)

@@ -92,18 +92,22 @@ def _persist_vocab(tok: WordPieceTokenizer, cfg: TrainConfig, out_dir: str,
 
 
 def _persist_run_meta(cfg: TrainConfig, mcfg, kind: str, out_dir: str,
-                      data: Dict[str, np.ndarray]) -> None:
-    """``run_meta.json`` next to the outputs and checkpoints: the resolved
-    model config and the training bucket lengths, which ``predict
-    --checkpoint`` reads to rebuild the trained variant."""
+                      data: Dict[str, np.ndarray], *, augment: bool,
+                      grayscale: bool = False,
+                      eval_transform_only: bool = False,
+                      binary_head: bool = False) -> None:
+    """``run_meta.json`` next to the outputs and checkpoints: the model kind
+    (``text``, ``image``, ``simple`` or ``multimodal``), the resolved model
+    config, the preprocessing mode and the training bucket lengths, which
+    ``predict --checkpoint`` reads to rebuild the trained variant."""
     meta = {
         "kind": kind,
         "subtask": mcfg.subtask.value,
         "model": model_config_to_dict(mcfg),
-        "augment": True,
-        "grayscale": False,
-        "eval_transform_only": False,
-        "binary_head": False,
+        "augment": augment,
+        "grayscale": grayscale,
+        "eval_transform_only": eval_transform_only,
+        "binary_head": binary_head,
         "text_len": (int(data["text_ids"].shape[1])
                      if "text_ids" in data else None),
         "caption_len": (int(data["caption_ids"].shape[1])
@@ -296,7 +300,7 @@ def run_subtask_2c(cfg: TrainConfig, device: torch.device,
     manifest as the test split, focal loss, placeholder captions."""
     prep = prepare_2c(cfg, out_dir)
     _persist_run_meta(prep.cfg, prep.cfg.model, "multimodal", out_dir,
-                      prep.data)
+                      prep.data, augment=True)
     return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,
                       prep.dev_ids, out_dir, "task2C", device, folds,
                       augment=augment)

@@ -1,11 +1,18 @@
 """Command line of the PyTorch port.
 
-  python -m mpmc_tpu_torch.cli.main predict --subtask 2c --manifest M \\
-      --out pred.tsv [--probs-out probs.tsv] [--checkpoint DIR] [--tiny] \\
-      [--device cuda|cpu] [--batch-size 16]
+  python -m mpmc_tpu_torch.cli.main predict --subtask 2a|2b|2c --manifest M \\
+      --out pred.tsv [--probs-out probs.tsv] [--checkpoint DIR] \\
+      [--small] [--tiny] [--simple] [--image-arch A] [--image-size N] \\
+      [--binary-head] [--device cuda|cpu] [--batch-size 16]
   python -m mpmc_tpu_torch.cli.main train --subtask 2c -tr TRAIN -te DEV \\
       [--recipe fast|reference] [--fold K] [--epochs N] \\
       [--checkpoint-dir DIR] [--out-dir DIR] [--tiny] [--device cuda|cpu]
+  python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
+  python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
+  python -m mpmc_tpu_torch.cli.main combine --files f0.tsv .. --gold G \\
+      [--out ens.tsv] [--metric binary|macro|youden] [--average prob|logit] \\
+      [--group-by-run-id] [--scan-family-weight] [--per-member]
+  python -m mpmc_tpu_torch.cli.main analyze -g gold.json -p pred.tsv
 
 ``train`` follows the JAX package's ``_cmd_train`` for 2C: stratified folds
 over the train manifest, the dev manifest as the test split, and per fold
@@ -16,14 +23,22 @@ caption tokens (``--pack-rows 8``), keeps the Adam first moment in bf16 and
 gives the word embeddings factored RMS; ``--recipe reference`` turns all
 three off.  An explicitly passed flag wins over its recipe value.
 
-``predict`` follows the JAX package's ``_cmd_predict`` for the multimodal
-(2C) model: the trained variant and bucket lengths come from the
-``run_meta.json`` next to a checkpoint, whose ``vocab.txt`` and
-``caption_vocab.txt`` are then required; without a checkpoint the model
-runs on random weights from a seeded generator and corpus vocabularies.
-A port checkpoint is the model's ``state_dict`` saved as ``model.pt`` in
-the checkpoint directory.  The model runs on CUDA unless ``--device cpu``
-is passed; the CUDA path computes in bf16, the CPU path in f32.
+``predict`` follows the JAX package's ``_cmd_predict`` for every model
+kind: ``text`` (2A), ``image`` (2B), ``simple`` (2C ``--simple``, the
+organizers' baseline) and ``multimodal`` (2C).  The trained variant and
+bucket lengths come from the ``run_meta.json`` next to a checkpoint, whose
+``vocab.txt`` (and for the multimodal kind ``caption_vocab.txt``) are then
+required; without one the variant comes from the flags, and without a
+checkpoint the model runs on random weights from a seeded generator and
+corpus vocabularies.  A port checkpoint is the model's ``state_dict`` saved
+as ``model.pt`` in the checkpoint directory.  The model runs on CUDA unless
+``--device cpu`` is passed; the CUDA path computes in bf16, the CPU path in
+f32.
+
+``check``, ``score``, ``combine`` and ``analyze`` are the JAX package's
+submission tools: the official format check, the official scorer, the fold
+ensemble (its label TSV carries the run id ``ensemble``) and the error
+report.
 """
 
 from __future__ import annotations
@@ -42,8 +57,9 @@ import torch
 
 from mpmc_tpu_torch.cli.experiments import (build_tokenizer, bucket_seq_len,
                                             bucket_trim, prepare_text)
-from mpmc_tpu_torch.config import (DataConfig, ModelConfig, TextEncoderConfig,
-                                   TrainConfig, model_config_from_dict)
+from mpmc_tpu_torch.config import (DataConfig, ModelConfig, PoolingType,
+                                   TextEncoderConfig, TrainConfig,
+                                   model_config_from_dict)
 from mpmc_tpu_torch.image.decode import decode_batch
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
@@ -53,6 +69,8 @@ from mpmc_tpu_torch.train.loop import run_eval
 from mpmc_tpu_torch.train.step import make_eval_step
 
 log = logging.getLogger(__name__)
+
+KIND_OF_SUBTASK = {"2a": "text", "2b": "image", "2c": "multimodal"}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -71,16 +89,76 @@ def _ckpt_dirs(checkpoint: Optional[str]) -> List[str]:
 
 
 @dataclasses.dataclass
+class Variant:
+    """The trained model variant ``predict`` rebuilds."""
+
+    model_cfg: ModelConfig
+    kind: str                      # text | image | simple | multimodal
+    grayscale: bool
+    binary_head: bool
+    text_len: Optional[int]        # training bucket lengths, when known
+    caption_len: Optional[int]
+
+
+def resolve_variant(args, meta: Optional[dict]) -> Variant:
+    """The variant from ``run_meta.json`` when there is one, else from the
+    flags, as the JAX package's ``_cmd_predict`` resolves it: ``--small``
+    (2A), ``--tiny``, ``--simple`` (2C), then 2A gets attention pooling and
+    2 classes, 2B 2 classes, and ``--image-arch`` / ``--image-size`` swap
+    the backbone or its resolution."""
+    if meta is not None:
+        return Variant(model_config_from_dict(meta["model"]), meta["kind"],
+                       meta.get("grayscale", False),
+                       meta.get("binary_head", False), meta.get("text_len"),
+                       meta.get("caption_len"))
+    if args.checkpoint:
+        log.warning("no run_meta.json next to %s — rebuilding the model from "
+                    "CLI flags; pass the same variant flags used at train "
+                    "time", args.checkpoint)
+    simple = args.simple and args.subtask == "2c"
+    if args.small and args.subtask == "2a":
+        cfg = ModelConfig.small_2a()
+    elif args.tiny:
+        cfg = ModelConfig.tiny_2c()
+    elif simple:
+        cfg = ModelConfig.simple_2c()
+    else:
+        cfg = ModelConfig()
+    if args.subtask == "2a":
+        cfg = dataclasses.replace(cfg, pooling=PoolingType.ATTENTION,
+                                  num_classes=2)
+    if args.subtask == "2b":
+        cfg = dataclasses.replace(cfg, num_classes=2)
+    if simple:
+        # What ``run_subtask_2c(simple=True)`` trains from the preset; the
+        # JAX package's predict skips this, so its --simple --tiny model has
+        # one logit and a caption config that no trained checkpoint has.
+        cfg = dataclasses.replace(cfg, num_classes=max(cfg.num_classes, 2),
+                                  caption=None)
+    if args.image_arch or args.image_size:
+        if cfg.image is None:
+            raise SystemExit("--image-arch / --image-size need a model with "
+                             "an image branch")
+        cfg = dataclasses.replace(cfg, image=dataclasses.replace(
+            cfg.image, arch=args.image_arch or cfg.image.arch,
+            image_size=args.image_size or cfg.image.image_size))
+    kind = "simple" if simple else KIND_OF_SUBTASK[args.subtask]
+    grayscale = cfg.image.grayscale if cfg.image else False
+    return Variant(cfg, kind, grayscale, args.binary_head, None, None)
+
+
+@dataclasses.dataclass
 class PredictInputs:
     manifest: Manifest
-    model_cfg: ModelConfig
-    grayscale: bool
+    variant: Variant
     data: Dict[str, np.ndarray]   # host arrays, one row per meme
 
 
 def prepare_inputs(args) -> PredictInputs:
     """Manifest, resolved model variant and the tokenized, bucketed,
-    decoded host arrays of a ``predict`` invocation."""
+    decoded host arrays of a ``predict`` invocation: text for every kind
+    but ``image``, images for every kind but ``text``, captions for the
+    ``multimodal`` kind only."""
     manifest = read_manifest(args.manifest, is_test=True)
     meta = None
     for d in _ckpt_dirs(args.checkpoint):
@@ -89,20 +167,8 @@ def prepare_inputs(args) -> PredictInputs:
             with open(cand) as f:
                 meta = json.load(f)
             break
-    if meta is not None:
-        if meta["kind"] != "multimodal":
-            raise SystemExit(f"checkpoint kind {meta['kind']!r} is not "
-                             "ported yet (only the 2C multimodal model)")
-        model_cfg = model_config_from_dict(meta["model"])
-        grayscale = meta.get("grayscale", False)
-        text_len, caption_len = meta.get("text_len"), meta.get("caption_len")
-    else:
-        if args.checkpoint:
-            log.warning("no run_meta.json next to %s — rebuilding the model "
-                        "from CLI flags", args.checkpoint)
-        model_cfg = ModelConfig.tiny_2c() if args.tiny else ModelConfig()
-        grayscale = model_cfg.image.grayscale
-        text_len = caption_len = None
+    variant = resolve_variant(args, meta)
+    model_cfg, kind = variant.model_cfg, variant.kind
     data_cfg = DataConfig()
 
     def required_vocab(flag_value, filename, what):
@@ -133,25 +199,29 @@ def prepare_inputs(args) -> PredictInputs:
         return dataclasses.replace(enc_cfg, vocab_size=size)
 
     def bucket(masks_key, ids_key, trained_len, cap):
-        """Trim to the training bucket length, else to this manifest's."""
+        """Trim to the training bucket length, else to this manifest's.
+        The simple model pools the last position, so its result depends on
+        this length exactly."""
         length = trained_len if trained_len is not None else bucket_seq_len(
             [data[masks_key]], data_cfg.seq_bucket_multiple, cap)
         if length < cap:
             bucket_trim(data, ids_key, masks_key, length)
 
     data: Dict[str, np.ndarray] = {}
-    if model_cfg.text is not None:
+    if model_cfg.text is not None and kind != "image":
         tok = build_tokenizer(manifest.texts,
                               required_vocab(args.vocab, "vocab.txt", ""))
         model_cfg = dataclasses.replace(
             model_cfg, text=fit_vocab(tok, model_cfg.text, "text"))
         data["text_ids"], data["text_mask"] = prepare_text(
             manifest, tok, model_cfg.max_text_len)
-        bucket("text_mask", "text_ids", text_len, model_cfg.max_text_len)
-    data["image"] = decode_batch(manifest.img_paths,
-                                 model_cfg.image.image_size, grayscale,
-                                 args.image_root)
-    if model_cfg.caption is not None:
+        bucket("text_mask", "text_ids", variant.text_len,
+               model_cfg.max_text_len)
+    if kind != "text":
+        data["image"] = decode_batch(manifest.img_paths,
+                                     model_cfg.image.image_size,
+                                     variant.grayscale, args.image_root)
+    if kind == "multimodal" and model_cfg.caption is not None:
         caps = precompute_captions(manifest.img_paths,
                                    cache_dir=data_cfg.cache_dir)
         cap_tok = build_tokenizer(
@@ -162,21 +232,25 @@ def prepare_inputs(args) -> PredictInputs:
             caption=fit_vocab(cap_tok, model_cfg.caption, "caption"))
         data["caption_ids"], data["caption_mask"] = cap_tok.encode_batch(
             caps, model_cfg.max_caption_len)
-        bucket("caption_mask", "caption_ids", caption_len,
+        bucket("caption_mask", "caption_ids", variant.caption_len,
                model_cfg.max_caption_len)
-    return PredictInputs(manifest, model_cfg, grayscale, data)
+    variant = dataclasses.replace(variant, model_cfg=model_cfg)
+    return PredictInputs(manifest, variant, data)
 
 
-def load_model(args, model_cfg: ModelConfig, device: torch.device,
+def load_model(args, variant: Variant, device: torch.device,
                seed: int) -> torch.nn.Module:
     """The checkpoint's weights (``model.pt``), or random weights from
     ``seed`` when there is no checkpoint."""
+    build = dict(kind=variant.kind, binary_head=variant.binary_head)
     if not args.checkpoint:
-        return build_model(model_cfg, device, seed)
+        return build_model(variant.model_cfg, device, seed, **build)
     path = os.path.join(args.checkpoint, "model.pt")
     if not os.path.exists(path):
-        raise SystemExit(f"no model.pt under {args.checkpoint}")
-    model = build_model(model_cfg, device)
+        raise SystemExit(f"no model.pt under {args.checkpoint} — did you "
+                         f"mean a fold subdir (e.g. {args.checkpoint}/"
+                         f"fold_0)?")
+    model = build_model(variant.model_cfg, device, **build)
     model.load_state_dict(torch.load(path, map_location=device,
                                      weights_only=True))
     return model
@@ -187,8 +261,8 @@ def _cmd_predict(args) -> int:
     inputs = prepare_inputs(args)
     n = len(inputs.manifest)
     cfg = TrainConfig(bf16=device.type == "cuda")
-    model = load_model(args, inputs.model_cfg, device, cfg.seed)
-    step = make_eval_step(model, cfg, grayscale=inputs.grayscale)
+    model = load_model(args, inputs.variant, device, cfg.seed)
+    step = make_eval_step(model, cfg, grayscale=inputs.variant.grayscale)
     t0 = time.perf_counter()
     probs = run_eval(step, inputs.data, args.batch_size, device).probs
     seconds = time.perf_counter() - t0
@@ -200,8 +274,90 @@ def _cmd_predict(args) -> int:
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"wrote {args.out} ({n} predictions)")
-    print(f"predict: {n} memes, eval {seconds:.4f} s, "
-          f"{n / seconds:.2f} memes/s on {where}")
+    print(f"predict: {inputs.variant.kind} model, {n} memes, eval "
+          f"{seconds:.4f} s, {n / seconds:.2f} memes/s on {where}")
+    return 0
+
+
+def _cmd_check(args) -> int:
+    from mpmc_tpu_torch.io.tsv import check_format
+    ok = all(check_format(p) for p in args.pred_files_path)
+    print("OK" if ok else "FORMAT ERROR")
+    return 0 if ok else 1
+
+
+def _cmd_score(args) -> int:
+    from mpmc_tpu_torch.io.scorer import evaluate, validate_files
+    if not validate_files(args.pred_file_path):
+        return 1
+    acc, p, r, f1 = evaluate(args.gold_file_path, args.pred_file_path)
+    print(f"acc: {acc}, P:{p}, R:{r}, F1:{f1}")
+    return 0
+
+
+def _cmd_combine(args) -> int:
+    from mpmc_tpu_torch.cv.ensemble import (average_probability,
+                                            family_weight_scan,
+                                            group_average, majority_voting,
+                                            threshold_optimization)
+    from mpmc_tpu_torch.io.scorer import read_gold
+    from mpmc_tpu_torch.io.tsv import read_prob_predictions, read_run_id
+    folds, run_ids = [], []
+    for path in args.files:
+        ids, _, probs = read_prob_predictions(path)
+        folds.append(dict(zip(ids, probs)))
+        run_ids.append(read_run_id(path))
+    gold = {}
+    for g in args.gold:
+        gold.update(read_gold(g))
+    if args.per_member:
+        for path, f in zip(args.files, folds):
+            _, thr, f1 = threshold_optimization(f, gold, metric=args.metric)
+            print(f"  member {path}: {args.metric}-F1 {f1:.4f} "
+                  f"(threshold {thr:.3f})")
+    if args.group_by_run_id or args.scan_family_weight:
+        families = group_average(folds, run_ids, space=args.average)
+        print(f"families: { {g: run_ids.count(g) for g in families} }")
+        if args.scan_family_weight:
+            if len(families) != 2:
+                print(f"--scan-family-weight needs exactly 2 run-id "
+                      f"families, got {len(families)}")
+                return 1
+            (ga, gb) = families.values()
+            avg, w, _ = family_weight_scan(ga, gb, gold, metric=args.metric,
+                                           space=args.average)
+            names = list(families)
+            print(f"family blend: {w:.2f}*{names[0]} + {1-w:.2f}*{names[1]}")
+        else:
+            avg = average_probability(list(families.values()),
+                                      space=args.average)
+    else:
+        avg = average_probability(folds, space=args.average)
+    labels, thr, f1 = threshold_optimization(avg, gold, metric=args.metric)
+    mv = majority_voting(folds)
+    agree = sum(labels[i] == mv[i] for i in labels) / len(labels)
+    print(f"avg-prob + threshold {thr:.3f}: {args.metric}-F1 {f1:.4f} "
+          f"(majority-vote agreement {agree:.1%})")
+    if args.out:
+        ids = list(labels)
+        write_label_tsv(args.out, ids,
+                        [1 if labels[i] == "propaganda" else 0 for i in ids],
+                        "ensemble")
+        print(f"wrote {args.out}")
+    return 0
+
+
+def _cmd_analyze(args) -> int:
+    from mpmc_tpu_torch.analysis import (misclassified, per_class_report,
+                                         word_frequencies)
+    rep = per_class_report(args.pred_file_path, args.gold_file_path)
+    print(json.dumps(rep, indent=2, default=float))
+    mis = misclassified(args.pred_file_path, args.gold_file_path)
+    print(f"misclassified: {len(mis)}/{rep['n']}")
+    if args.top_words:
+        print("top words among misclassified (normalized):")
+        for word, count in word_frequencies(mis, top_k=args.top_words):
+            print(f"  {count:4d}  {word}")
     return 0
 
 
@@ -250,9 +406,21 @@ def _cmd_train(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="mpmc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("predict", help="run a manifest through the 2C model "
-                                       "and write the submission TSV")
-    p.add_argument("--subtask", choices=["2c"], required=True)
+    p = sub.add_parser("check", help="check label TSVs against the "
+                                     "official format")
+    p.add_argument("--pred-files-path", "-p", nargs="+", required=True)
+    p.set_defaults(fn=_cmd_check)
+
+    p = sub.add_parser("score", help="the official scorer: accuracy, "
+                                     "weighted P and R, macro-F1")
+    p.add_argument("--gold-file-path", "-g", required=True)
+    p.add_argument("--pred-file-path", "-p", required=True)
+    p.set_defaults(fn=_cmd_score)
+
+    p = sub.add_parser("predict", help="run a manifest through a 2A, 2B or "
+                                       "2C model and write the submission "
+                                       "TSV")
+    p.add_argument("--subtask", choices=["2a", "2b", "2c"], required=True)
     p.add_argument("--manifest", required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--probs-out", default=None)
@@ -265,9 +433,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--run-id", default="mpmc_tpu_torch")
     p.add_argument("--tiny", action="store_true",
                    help="the tiny_2c config (when no run_meta.json)")
+    p.add_argument("--small", action="store_true",
+                   help="2A: the small_2a config (when no run_meta.json)")
+    p.add_argument("--simple", action="store_true",
+                   help="2C: the organizers' simple baseline (C28), "
+                        "distilbert + resnet50 logits, no captions")
+    p.add_argument("--image-arch", default=None,
+                   help="image backbone (resnet18, resnet50, "
+                        "resnext50_32x4d, seresnext50_32x4d, tiny_resnet) "
+                        "when no run_meta.json")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="input resolution when no run_meta.json")
+    p.add_argument("--binary-head", action="store_true",
+                   help="2B: the l2-normalized scaled BinaryHead (when no "
+                        "run_meta.json)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_predict)
+
+    p = sub.add_parser("combine", help="ensemble per-fold probability TSVs")
+    p.add_argument("--files", nargs="+", required=True)
+    p.add_argument("--gold", nargs="+", required=True,
+                   help="gold manifest(s); several are merged by id")
+    p.add_argument("--out", default=None)
+    p.add_argument("--metric", choices=["binary", "macro", "youden"],
+                   default="binary",
+                   help="threshold rule: binary or macro F1 over a "
+                        "100-point scan, or the ROC Youden threshold")
+    p.add_argument("--per-member", action="store_true",
+                   help="print each member's own threshold-optimized F1")
+    p.add_argument("--average", choices=["prob", "logit"], default="prob",
+                   help="average probabilities or log-odds")
+    p.add_argument("--group-by-run-id", action="store_true",
+                   help="average within each run-id family first, then "
+                        "across families")
+    p.add_argument("--scan-family-weight", action="store_true",
+                   help="with exactly 2 run-id families, scan their blend "
+                        "weight on the gold labels")
+    p.set_defaults(fn=_cmd_combine)
+
+    p = sub.add_parser("analyze", help="per-class report and the words of "
+                                       "the misclassified memes")
+    p.add_argument("--gold-file-path", "-g", required=True)
+    p.add_argument("--pred-file-path", "-p", required=True)
+    p.add_argument("--top-words", type=int, default=15,
+                   help="the N most frequent normalized words among "
+                        "misclassified samples (0 disables)")
+    p.set_defaults(fn=_cmd_analyze)
 
     p = sub.add_parser("train", help="fine-tune the 2C model over "
                                      "stratified folds")

@@ -1,4 +1,4 @@
-"""Typed configuration for the PyTorch port (2C serving and training).
+"""Typed configuration for the PyTorch port.
 
 A copy of the dataclasses and fields of ``mpmc_tpu/config.py`` that the
 port reads.  Field names and defaults are identical, so a ``run_meta.json``
@@ -54,12 +54,25 @@ class TextEncoderConfig:
     gelu_approx: bool = False
 
     @staticmethod
+    def arabertv2() -> "TextEncoderConfig":
+        return TextEncoderConfig(vocab_size=64000)
+
+    @staticmethod
+    def qarib() -> "TextEncoderConfig":
+        return TextEncoderConfig(vocab_size=64000)
+
+    @staticmethod
     def roberta_base() -> "TextEncoderConfig":
         return TextEncoderConfig(
             vocab_size=50265, max_position_embeddings=514,
             type_vocab_size=1, pad_token_id=1, roberta_style_positions=True,
             layer_norm_eps=1e-5,
         )
+
+    @staticmethod
+    def distilbert_multilingual() -> "TextEncoderConfig":
+        """distilbert-base-multilingual-cased: 6 layers of BERT-base."""
+        return TextEncoderConfig(vocab_size=119547, num_layers=6)
 
     @staticmethod
     def tiny(vocab_size: int = 512) -> "TextEncoderConfig":
@@ -72,7 +85,9 @@ class TextEncoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ImageEncoderConfig:
-    arch: str = "resnet18"            # resnet18 | tiny_resnet in this port
+    # resnet18 | resnet50 | resnext50_32x4d | seresnext50_32x4d | tiny_resnet
+    # in this port
+    arch: str = "resnet18"
     image_size: int = 224
     feature_dim: int = 512
     finetune_dim: int = 512
@@ -99,9 +114,37 @@ class ModelConfig:
     fusion: FusionMethod = FusionMethod.CONCATENATION
     proj_dim: int = 512
     dropout: float = 0.3
-    num_classes: int = 1
+    num_classes: int = 1              # 1: sigmoid + focal (2C); 2: softmax + CE
     max_text_len: int = 512
     max_caption_len: int = 512
+
+    @staticmethod
+    def small_2a() -> "ModelConfig":
+        """The from-scratch small text model (no pretrained weights)."""
+        return ModelConfig(
+            subtask=Subtask.A,
+            text=TextEncoderConfig(vocab_size=512, hidden_size=128,
+                                   num_layers=4, num_heads=4,
+                                   intermediate_size=256,
+                                   max_position_embeddings=128),
+            caption=None, image=None, num_classes=2, max_text_len=64)
+
+    @staticmethod
+    def captions_2b() -> "ModelConfig":
+        """The image + caption variant: no Arabic-text branch."""
+        return ModelConfig(text=None)
+
+    @staticmethod
+    def simple_2c() -> "ModelConfig":
+        """The organizers' simple 2C baseline (C28): a
+        distilbert-multilingual text branch, ResNet-50's 1000 logits as the
+        image branch, 2-class CE, no captions."""
+        return ModelConfig(
+            subtask=Subtask.C,
+            text=TextEncoderConfig.distilbert_multilingual(),
+            caption=None,
+            image=ImageEncoderConfig(arch="resnet50", feature_dim=2048),
+            num_classes=2, max_text_len=128)
 
     @staticmethod
     def tiny_2c() -> "ModelConfig":

@@ -2,7 +2,9 @@
 ``mpmc_tpu/io/tsv.py``).
 
 * label TSV: header ``id\tlabel\trun_id``, one 3-column row per sample;
-* prob TSV: header ``id\tlabel\tprob\trun_id``.
+* prob TSV: header ``id\tlabel\tprob\trun_id``;
+
+and their readers.
 
 ``check_format`` applies the official checker's acceptance rule: skip the
 header; every line splits on tabs into exactly 3 fields and matches
@@ -13,7 +15,9 @@ from __future__ import annotations
 
 import logging
 import re
-from typing import Sequence
+from typing import List, Sequence, Tuple
+
+import numpy as np
 
 ID2L = {0: "not_propaganda", 1: "propaganda"}
 
@@ -57,3 +61,45 @@ def check_format(path: str) -> bool:
                 log.error("Wrong line format: %s", line)
                 return False
     return True
+
+
+def read_predictions(path: str) -> Tuple[List[str], List[str]]:
+    """A label TSV read back as (ids, labels), as the official scorer
+    parses it: split on tabs, strip id and label."""
+    ids, labels = [], []
+    with open(path, encoding="utf-8") as f:
+        next(f)
+        for line in f:
+            if not line.strip():
+                continue
+            i, label, _run = line.split("\t")
+            ids.append(i.strip())
+            labels.append(label.strip())
+    return ids, labels
+
+
+def read_run_id(path: str) -> str:
+    """The run id of a prediction TSV (last column of the first data row),
+    the family key of ``combine --group-by-run-id``."""
+    with open(path, encoding="utf-8") as f:
+        if next(f, None) is not None:
+            for line in f:
+                if line.strip():
+                    return line.rstrip("\n").split("\t")[-1].strip()
+    raise ValueError(f"no data rows in {path}")
+
+
+def read_prob_predictions(path: str
+                          ) -> Tuple[List[str], List[str], np.ndarray]:
+    """A 4-column probability TSV read back as (ids, labels, probs)."""
+    ids, labels, probs = [], [], []
+    with open(path, encoding="utf-8") as f:
+        next(f)
+        for line in f:
+            if not line.strip():
+                continue
+            i, label, prob, _run = line.split("\t")
+            ids.append(i.strip())
+            labels.append(label.strip())
+            probs.append(float(prob))
+    return ids, labels, np.asarray(probs, dtype=np.float64)

@@ -1,10 +1,22 @@
-"""The 2C classifier (port of ``ImageEncoderWithHead``, ``_ModalityFC``,
-``MultimodalClassifier`` and ``PackedMultimodalClassifier`` in
-``mpmc_tpu/models/classifier.py``): text CLS features and caption CLS
-features each through Dropout+Linear+BN+ReLU, the image backbone through
-its fine-tune MLP (with dropout), concatenation fusion, and a Linear+BN
-head giving one logit.  ``model.train()`` is the JAX package's
-``train=True``: batch statistics in every BatchNorm and active dropout.
+"""Classifier assemblies for subtasks 2A, 2B and 2C (port of
+``mpmc_tpu/models/classifier.py``):
+
+* ``TextClassifier`` (2A): text encoder, ``Pooler`` (any of the six modes),
+  a Linear head named ``output``;
+* ``ImageClassifier`` (2B): image backbone, then a Linear ``output`` or the
+  zoo's ``BinaryHead``;
+* ``SimpleMultimodalClassifier`` (the organizers' simple 2C baseline, C28):
+  the text encoder's last token, ResNet-50's 1000 logits, four Linears;
+* ``MultimodalClassifier`` (2C flagship): text CLS features and caption CLS
+  features each through Dropout+Linear+BN+ReLU, the image backbone through
+  its fine-tune MLP (with dropout), concatenation fusion, and a Linear+BN
+  head giving one logit; ``PackedMultimodalClassifier`` is its packed form.
+
+Module names follow flax's, so ``models/convert.py`` maps weights by path.
+Each class names its ``kind`` (the ``run_meta.json`` field) and the batch
+keys its forward takes, in order (``inputs``).  ``model.train()`` is the
+JAX package's ``train=True``: batch statistics in every BatchNorm and active
+dropout.
 """
 
 from __future__ import annotations
@@ -19,17 +31,27 @@ from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig
 from mpmc_tpu_torch.models.bert import TextEncoder
 from mpmc_tpu_torch.models.fusion import make_fusion
 from mpmc_tpu_torch.models.norm import BatchNorm, Dropout
-from mpmc_tpu_torch.models.resnet import ResNet, TinyResNet, resnet18
+from mpmc_tpu_torch.models.pooling import Pooler
+from mpmc_tpu_torch.models.resnet import (ResNet, TinyResNet, resnet18,
+                                          resnet50, resnext50_32x4d,
+                                          seresnext50_32x4d)
+from mpmc_tpu_torch.models.vit import BinaryHead
 from mpmc_tpu_torch.ops.packing import unpack_cls
 
+_BACKBONES = {"resnet18": resnet18, "resnet50": resnet50,
+              "resnext50_32x4d": resnext50_32x4d,
+              "seresnext50_32x4d": seresnext50_32x4d,
+              "tiny_resnet": TinyResNet}
 
-def create_image_backbone(cfg: ImageEncoderConfig) -> ResNet:
-    in_channels = 1 if cfg.grayscale else 3
-    if cfg.arch == "resnet18":
-        return resnet18(in_channels)
-    if cfg.arch == "tiny_resnet":
-        return TinyResNet(in_channels)
-    raise ValueError(f"image arch {cfg.arch!r} is not ported yet")
+
+def create_image_backbone(cfg: ImageEncoderConfig,
+                          num_classes: int = 0) -> ResNet:
+    """The backbone of ``cfg.arch``; ``num_classes`` > 0 keeps its
+    classifier head."""
+    if cfg.arch not in _BACKBONES:
+        raise ValueError(f"image arch {cfg.arch!r} is not ported yet")
+    return _BACKBONES[cfg.arch](num_classes=num_classes,
+                                in_channels=1 if cfg.grayscale else 3)
 
 
 class ImageEncoderWithHead(nn.Module):
@@ -61,11 +83,87 @@ class _ModalityFC(nn.Module):
         return F.relu(self.bn(self.fc(self.dropout(x))))
 
 
+class TextClassifier(nn.Module):
+    """2A: encoder, pooler, Linear head; logits ``[B, num_classes]``."""
+
+    kind = "text"
+    inputs = ("text_ids", "text_mask")
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = TextEncoder(cfg.text)
+        self.pooler = Pooler(cfg.pooling, cfg.text.hidden_size)
+        self.output = nn.Linear(cfg.text.hidden_size, cfg.num_classes)
+
+    def forward(self, text_ids: torch.Tensor,
+                text_mask: torch.Tensor) -> torch.Tensor:
+        hidden = self.encoder(text_ids, text_mask)
+        return self.output(self.pooler(hidden, text_mask))
+
+
+class ImageClassifier(nn.Module):
+    """2B: backbone, then a Linear ``output`` or, with ``binary_head``, the
+    l2-normalized scaled ``BinaryHead``; logits ``[B, num_classes]``."""
+
+    kind = "image"
+    inputs = ("image",)
+
+    def __init__(self, cfg: ModelConfig, binary_head: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = create_image_backbone(cfg.image)
+        dim = self.backbone.feature_dim
+        self.binary_head = (BinaryHead(dim, cfg.num_classes) if binary_head
+                            else None)
+        self.output = None if binary_head else nn.Linear(dim, cfg.num_classes)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        feats = self.backbone(image)
+        if self.binary_head is not None:
+            return self.binary_head(feats)
+        return self.output(feats)
+
+
+class SimpleMultimodalClassifier(nn.Module):
+    """The organizers' simple 2C baseline (C28): the text encoder's LAST
+    token (the reference's ``[:, -1, :]``, a documented bug kept for
+    parity, so the result depends on the padded length), Dropout(0.3),
+    Linear to ``proj_dim``; the backbone's ``image_logits_dim`` logits,
+    Linear to ``proj_dim``; concatenation, Linear, Linear to
+    ``num_classes``.  No activations between the Linears."""
+
+    kind = "simple"
+    inputs = ("text_ids", "text_mask", "image")
+    image_logits = 1000          # torchvision ResNet-50's ImageNet head
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.text_model = TextEncoder(cfg.text)
+        self.dropout = Dropout(0.3)
+        self.bert_fc = nn.Linear(cfg.text.hidden_size, cfg.proj_dim)
+        self.backbone = create_image_backbone(cfg.image, self.image_logits)
+        self.resnet_fc = nn.Linear(self.image_logits, cfg.proj_dim)
+        self.fusion_fc = nn.Linear(2 * cfg.proj_dim, cfg.proj_dim)
+        self.output_fc = nn.Linear(cfg.proj_dim, cfg.num_classes)
+
+    def forward(self, text_ids: torch.Tensor, text_mask: torch.Tensor,
+                image: torch.Tensor) -> torch.Tensor:
+        hidden = self.text_model(text_ids, text_mask)
+        t = self.bert_fc(self.dropout(hidden[:, -1]))
+        i = self.resnet_fc(self.backbone(image))
+        return self.output_fc(self.fusion_fc(torch.cat([t, i], dim=-1)))
+
+
 class MultimodalClassifier(nn.Module):
     """2C: text + image (+ caption), fusion, single logit ``[B]``.
 
     The text and caption branches exist when the config has them (the JAX
     package decides at call time, which a torch module cannot)."""
+
+    kind = "multimodal"
+    inputs = ("text_ids", "text_mask", "image", "caption_ids", "caption_mask")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -156,7 +254,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.normal_(mod.weight, 0.0, 0.02, generator=generator)
             if getattr(mod, "bias", None) is not None:
                 nn.init.zeros_(mod.bias)
-        elif isinstance(mod, nn.Conv2d):
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
             nn.init.kaiming_normal_(mod.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
         elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
@@ -167,15 +265,27 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.running_var.fill_(1.0)
 
 
+MODEL_CLASSES = {cls.kind: cls for cls in (
+    TextClassifier, ImageClassifier, SimpleMultimodalClassifier,
+    MultimodalClassifier)}
+
+
 def build_model(cfg: ModelConfig, device: torch.device,
-                seed: Optional[int] = None,
-                packed: bool = False) -> MultimodalClassifier:
-    """The classifier (``packed``: its packed form) on ``device`` in eval
-    mode; with ``seed``, random weights from a generator seeded with it
-    (otherwise the caller loads a state_dict)."""
+                seed: Optional[int] = None, kind: str = "multimodal",
+                binary_head: bool = False,
+                packed: bool = False) -> nn.Module:
+    """The classifier of ``kind`` (``text``, ``image``, ``simple`` or
+    ``multimodal``; ``packed``: the multimodal model's packed form;
+    ``binary_head``: the image model's ``BinaryHead``) on ``device`` in
+    eval mode; with ``seed``, random weights from a generator seeded with
+    it (otherwise the caller loads a state_dict)."""
+    if kind not in MODEL_CLASSES:
+        raise ValueError(f"unknown model kind {kind!r}")
+    if packed and kind != "multimodal":
+        raise ValueError(f"the {kind} model has no packed form yet")
+    cls = PackedMultimodalClassifier if packed else MODEL_CLASSES[kind]
     with torch.device(device):
-        model = (PackedMultimodalClassifier if packed
-                 else MultimodalClassifier)(cfg)
+        model = cls(cfg, binary_head) if kind == "image" else cls(cfg)
     if seed is not None:
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
     return model.eval()

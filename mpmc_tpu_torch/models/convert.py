@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's ``MultimodalClassifier`` variables to the
-port's ``state_dict``.
+"""Weight bridge: the JAX package's classifier variables (text, image, simple
+and multimodal models) to the port's ``state_dict``.
 
 Module names are the same on both sides, so keys map by path; layouts are
 the inverse of the JAX package's converters (``models/hf_convert.py``,
@@ -9,7 +9,9 @@ the inverse of the JAX package's converters (``models/hf_convert.py``,
 * DenseGeneral q/k/v kernel ``[H, heads, hd]`` -> ``[heads*hd, H]`` (bias
   ``[heads, hd]`` -> ``[heads*hd]``), ``out`` kernel ``[heads, hd, H]`` ->
   ``[H, heads*hd]``;
-* conv kernel HWIO -> OIHW;
+* conv kernel HWIO -> OIHW (grouped convs too: I is in/groups on both
+  sides); the CNN pooler's 1-D conv kernel ``[k, in, out]`` -> ``[out, in,
+  k]``, told from a q/k/v kernel, also 3-D, by its module name ``conv1d``;
 * LayerNorm / BatchNorm ``scale`` -> ``weight``, batch stats ``mean`` /
   ``var`` -> ``running_mean`` / ``running_var``; ``embedding`` -> ``weight``.
 
@@ -39,6 +41,8 @@ def _param(path: Tuple[str, ...], name: str, x: np.ndarray
         raise KeyError(f"unknown parameter {'/'.join(path + (name,))}")
     if x.ndim == 2:
         return "weight", x.T
+    if x.ndim == 3 and parent == "conv1d":    # 1-D conv [k, in, out]
+        return "weight", x.transpose(2, 1, 0)
     if x.ndim == 3 and parent == "out":       # [heads, hd, H]
         return "weight", x.reshape(-1, x.shape[-1]).T
     if x.ndim == 3:                           # q/k/v [H, heads, hd]

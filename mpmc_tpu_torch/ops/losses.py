@@ -1,6 +1,7 @@
-"""Sigmoid focal loss (port of ``mpmc_tpu/ops/losses.py``), the formula of
-torchvision's ``sigmoid_focal_loss``: alpha on the positive class, 1-alpha
-on the negative, ``FL = alpha_t * (1 - p_t)^gamma * BCE``."""
+"""Losses (port of ``mpmc_tpu/ops/losses.py``): the sigmoid focal loss, the
+formula of torchvision's ``sigmoid_focal_loss`` (alpha on the positive
+class, 1-alpha on the negative, ``FL = alpha_t * (1 - p_t)^gamma * BCE``),
+and softmax cross-entropy over integer labels for the 2-logit heads."""
 
 from __future__ import annotations
 
@@ -26,3 +27,16 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          reduction: str = "mean") -> torch.Tensor:
+    """CE over integer labels (the JAX package's, without the per-class
+    weights that none of its callers passes)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll

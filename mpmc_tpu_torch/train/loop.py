@@ -13,8 +13,8 @@ import torch
 
 from mpmc_tpu_torch.config import TrainConfig
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
-from mpmc_tpu_torch.train.metrics import (accuracy_score, macro_f1,
-                                          optimal_threshold_youden)
+from mpmc_tpu_torch.io.scorer import accuracy_score, macro_f1
+from mpmc_tpu_torch.train.metrics import optimal_threshold_youden
 from mpmc_tpu_torch.train.step import EvalStep
 
 log = logging.getLogger(__name__)

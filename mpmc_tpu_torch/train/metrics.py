@@ -1,12 +1,15 @@
-"""Eval metrics on host arrays (copy of ``roc_curve`` and
-``optimal_threshold_youden`` in ``mpmc_tpu/train/metrics.py`` and of
-``accuracy_score`` / ``macro_f1`` in ``mpmc_tpu/io/scorer.py``)."""
+"""Eval metrics on host arrays (copy of ``mpmc_tpu/train/metrics.py``):
+the ROC curve and its Youden threshold, the in-loop threshold rule, and the
+100-point threshold scans of the fold ensemble (binary F1 and macro-F1,
+strict ``prob > t``)."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
+
+from mpmc_tpu_torch.io.scorer import binary_f1, macro_f1
 
 
 def roc_curve(y_true: np.ndarray, y_score: np.ndarray
@@ -37,20 +40,23 @@ def optimal_threshold_youden(y_true: np.ndarray, y_score: np.ndarray) -> float:
     return float(thr[int(np.argmax(tpr - fpr))])
 
 
-def accuracy_score(gold: np.ndarray, pred: np.ndarray) -> float:
-    return float(np.mean(gold == pred))
+def threshold_scan(y_true: np.ndarray, y_prob: np.ndarray,
+                   num: int = 100) -> Tuple[float, float]:
+    """(best threshold, best binary F1) over ``np.linspace(0, 1, num)``."""
+    thresholds = np.linspace(0, 1, num)
+    y_true, y_prob = np.asarray(y_true), np.asarray(y_prob)
+    scores = [binary_f1(y_true, (y_prob > t).astype(int))
+              for t in thresholds]
+    best = int(np.argmax(scores))
+    return float(thresholds[best]), float(scores[best])
 
 
-def macro_f1(gold: np.ndarray, pred: np.ndarray,
-             classes: Sequence[int] = (0, 1)) -> float:
-    """Mean per-class F1 with sklearn's zero-division-to-0 convention."""
-    gold, pred = np.asarray(gold), np.asarray(pred)
-    fs = []
-    for c in classes:
-        tp = int(np.sum((pred == c) & (gold == c)))
-        fp = int(np.sum((pred == c) & (gold != c)))
-        fn = int(np.sum((pred != c) & (gold == c)))
-        p = tp / (tp + fp) if (tp + fp) else 0.0
-        r = tp / (tp + fn) if (tp + fn) else 0.0
-        fs.append(2 * p * r / (p + r) if (p + r) else 0.0)
-    return float(np.mean(fs))
+def macro_f1_threshold_scan(y_true: np.ndarray, y_prob: np.ndarray,
+                            num: int = 100) -> Tuple[float, float]:
+    """(best threshold, best macro-F1) over the same thresholds."""
+    thresholds = np.linspace(0, 1, num)
+    y_true, y_prob = np.asarray(y_true), np.asarray(y_prob)
+    scores = [macro_f1(y_true, (y_prob > t).astype(int))
+              for t in thresholds]
+    best = int(np.argmax(scores))
+    return float(thresholds[best]), float(scores[best])

@@ -1,5 +1,6 @@
-"""Train and eval steps (port of ``mpmc_tpu/train/step.py`` for the
-single-logit 2C model): the bf16 policy, the valid-weighted focal loss, the
+"""Train and eval steps (port of ``mpmc_tpu/train/step.py``): the eval step
+of every model kind; for the single-logit 2C model the train step, with the
+bf16 policy, the valid-weighted focal loss, the
 global-norm clip, grouped Adam with the fast recipe's bf16 first moment and
 factored-RMS word embeddings, and the linear-warmup schedule.
 
@@ -27,9 +28,10 @@ from torch.func import functional_call
 from mpmc_tpu_torch.config import TrainConfig
 from mpmc_tpu_torch.image.augment import eval_preprocess, train_augment
 from mpmc_tpu_torch.models.classifier import (MultimodalClassifier,
-                                              PackedMultimodalClassifier)
+                                              PackedMultimodalClassifier,
+                                              build_model)
 from mpmc_tpu_torch.models.norm import set_dropout_generator
-from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss
+from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss, softmax_cross_entropy
 from mpmc_tpu_torch.train.packed import packed_model_inputs
 
 EvalStep = Callable[[Dict[str, torch.Tensor]],
@@ -44,23 +46,28 @@ def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
 def make_eval_step(model: nn.Module, cfg: TrainConfig,
                    grayscale: bool = False,
                    cast_in_place: bool = True) -> EvalStep:
-    """``step(batch) -> (probs [B], per-sample focal loss [B])``.  The batch
-    holds ``text_ids``, ``text_mask``, uint8 ``image [B,H,W,C]``,
-    ``caption_ids``, ``caption_mask`` and optionally ``label``; the loss is
-    zero without labels.  Eval always runs the unpacked forward.
+    """``step(batch) -> (probs [B], per-sample loss [B])``.  The batch holds
+    the keys of ``model.inputs`` (a uint8 ``image [B,H,W,C]`` goes through
+    ``eval_preprocess``) and optionally ``label``; the loss is zero without
+    labels.  One logit gives sigmoid probabilities and the focal loss, two
+    give ``softmax(out)[:, 1]`` and the cross-entropy.  Eval always runs the
+    unpacked forward.
 
     ``cast_in_place`` (serving) casts the model's parameters to the compute
     dtype once, which halves their device memory.  Otherwise (a model that
     is still training) every call runs on copies in the compute dtype and
     leaves the model as it was."""
     dtype = _compute_dtype(cfg)
+    inputs = model.inputs
     if cast_in_place:
         for p in model.parameters():
             p.data = p.data.to(dtype)
         run = model
     else:
-        with torch.device("meta"):
-            skeleton = MultimodalClassifier(model.cfg).eval()
+        # The unpacked model of the same kind and config, without storage.
+        skeleton = build_model(
+            model.cfg, torch.device("meta"), kind=model.kind,
+            binary_head=getattr(model, "binary_head", None) is not None)
 
         def run(*args):
             weights = {n: p.detach().to(dtype)
@@ -71,16 +78,21 @@ def make_eval_step(model: nn.Module, cfg: TrainConfig,
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]):
         model.eval()
-        image = eval_preprocess(batch["image"], grayscale=grayscale).to(dtype)
-        logits = run(batch.get("text_ids"), batch.get("text_mask"), image,
-                     batch.get("caption_ids"), batch.get("caption_mask"))
-        logits = logits.to(torch.float32)
-        probs = torch.sigmoid(logits)
-        if "label" in batch:
-            loss = sigmoid_focal_loss(logits, batch["label"],
-                                      alpha=cfg.focal_alpha,
-                                      gamma=cfg.focal_gamma, reduction="none")
+        args = [eval_preprocess(batch["image"], grayscale=grayscale).to(dtype)
+                if key == "image" else batch.get(key) for key in inputs]
+        out = run(*args).to(torch.float32)
+        labels = batch.get("label")
+        if out.ndim == 1:
+            probs = torch.sigmoid(out)
+            if labels is not None:
+                loss = sigmoid_focal_loss(out, labels, alpha=cfg.focal_alpha,
+                                          gamma=cfg.focal_gamma,
+                                          reduction="none")
         else:
+            probs = torch.softmax(out, dim=-1)[:, 1]
+            if labels is not None:
+                loss = softmax_cross_entropy(out, labels, reduction="none")
+        if labels is None:
             loss = torch.zeros_like(probs)
         return probs, loss
 
