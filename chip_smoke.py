@@ -34,7 +34,23 @@ toolkit.  Phases, each of which raises on failure:
    new model class card vs CPU in f32 (TF32 off) on a few memes; and run
    ``combine``, ``check`` and ``score`` over the probability TSVs of
    phases 3 and 7 against a synthetic labelled manifest, the ensemble and
-   its score recomputed in plain numpy.
+   its score recomputed in plain numpy;
+8. drive the 2A ``train`` command line at full width (AraBERT-base shape,
+   attention pooling, 2 classes) on phase 5's manifests: folds over
+   train+dev, fold 0, one epoch, bf16, the fast recipe's 4 packed rows a
+   step, launch counts zeroed before and read after (12 forward and 12
+   backward launches a step, 12 forward launches per eval batch, no image
+   kernel); check the losses, the three TSVs (labels at 0.5) and that
+   ``predict --checkpoint`` reproduces the best eval; time warm packed 2A
+   steps with device and host profiles; one packed 2A step in f32 card vs
+   CPU as in phase 6; then ``pretrain_and_save`` (corpus MLM) at full
+   width, one epoch, unpacked, f32, with 12 launches of each attention
+   kernel a step, its own steps timed and two of them profiled, and the
+   written npz spliced into a ``TextClassifier`` on the card equal to the
+   MLM encoder bit for bit; then ``train --subtask 2a --recipe reference
+   --mlm-epochs 2 --mlm-pack`` (a packed MLM stage, its npz spliced into an
+   unpacked fine-tune) and ``train --subtask 2a --text-params`` with that
+   npz, launches checked as before.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -43,17 +59,21 @@ id-0 rows, none with Sq != Sk; bf16 and f32; the main paths' shapes, text
 buckets of 256 and 512, D = 128 and D = 8), with two runs bit-equal, and the
 fused image kernel ([16,224,224,3], both flip values) against their plain
 versions, and times them beside SDPA (forward, backward alone, and the
-pair).  Phase 5 also checks that the profiled steps launch one backward
-kernel, 24 times a step, and times SDPA at the packed shapes with a
-[B,1,S,S] bias built from the segment ids.
+pair).  Phases 5 and 8 also check that the profiled steps launch one
+backward kernel, 24 (2C) or 12 (2A) times a step, and time the attention
+pair and SDPA at the packed shapes (a [B,1,S,S] bias built from the
+segment ids) and at the MLM shapes, packed and unpacked, after holding
+the forward and backward kernels against their plain versions there.
 
-Prints the card's name and power limit, each phase's result, a ``kernels``
-JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
+Prints the card's name and power limit, each phase's result, the
+``predict_kinds`` and ``train_2a``/``mlm`` JSON lines, a ``kernels`` JSON
+line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a CUDA device or outside the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -82,6 +102,13 @@ LONG_CASES = [("long-256", (4, 256, 12, 64), "padding", None),
               ("d128", (4, 128, 6, 128), "padding", None),
               ("d8", (4, 100, 12, 8), "none", 300)]
 ARABIC_LETTERS = "ابتثجحخدذرزسشصضطظعغفقكلمنهوي"
+# Kernel vs plain version, by input type.  Forward: max |out| and max |lse|
+# differences.  Backward: (atol, rtol) on dq, dk, dv; f32 sums of up to 512
+# terms in another order (a fully masked padding sample has P = exp(s -
+# lse) ~ 1 on every key, so its sums reach ~10); bf16 adds one rounding of
+# P or dS to bf16 (an ulp is 2^-8 relative) flipped by that order.
+FWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
+BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 1.6e-2)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -190,6 +217,43 @@ def attention_bound_ms(q, k, mode) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def check_forward(A, q, k, v, mask, mode, out, lse, tag) -> float:
+    """Hold the forward kernel's ``out`` and ``lse`` against the plain
+    version on the same inputs (``FWD_TOL``); returns max |out - plain|."""
+    ref_out, ref_lse = A.attention_forward_reference(q, k, v, mask, mode)
+    atol, lse_atol = FWD_TOL[dtype_name(q.dtype)]
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lerr = (lse - ref_lse).abs().max().item()
+    print(f"  attention_fwd {tag}: max|out-plain| {err:.3g} (tol {atol}), "
+          f"max|lse-plain| {lerr:.3g} (tol {lse_atol})")
+    check(bool(out.float().isfinite().all()), f"{tag}: non-finite")
+    check(err <= atol and lerr <= lse_atol,
+          f"{tag}: kernel disagrees with the plain version")
+    return err
+
+
+def check_backward(A, q, k, v, mask, mode, out, lse, do, got, tag) -> float:
+    """Hold the backward kernel's ``got = (dq, dk, dv)`` against the plain
+    version on the same inputs (``BWD_TOL``); returns the largest max
+    |difference|."""
+    want = A.attention_backward_reference(q, k, v, mask, mode, out, lse, do)
+    atol, rtol = BWD_TOL[dtype_name(q.dtype)]
+    errs = []
+    for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, ok = within(g, w, atol, rtol)
+        errs.append(err)
+        check(bool(g.float().isfinite().all()), f"{tag}: non-finite {g_name}")
+        check(ok, f"{tag}: {g_name} disagrees with the plain version "
+                  f"(max |diff| {err:.3g})")
+    print(f"  attention_bwd {tag}: max|dq,dk,dv - plain| {max(errs):.3g} "
+          f"(tol {atol} + {rtol}|plain|)")
+    return max(errs)
+
+
 def phase_kernels(torch):
     """Attention kernel vs plain version on the card; timings."""
     import torch.nn.functional as F
@@ -202,7 +266,6 @@ def phase_kernels(torch):
              ("caption", CAPTION_SHAPE, "padding", None),
              ("packed-text", TEXT_SHAPE, "segments", None),
              ("cross", TEXT_SHAPE, "none", CAPTION_SHAPE[1])] + LONG_CASES
-    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-3)}
     timed = {}
     err_main = 0.0
     for name, shape, mode, sk in cases:
@@ -210,17 +273,8 @@ def phase_kernels(torch):
             q, k, v, mask = attention_inputs(torch, shape, mode, dtype, gen, sk)
             out, lse = A.attention_forward_cuda(q, k, v, mask, mode)
             torch.cuda.synchronize()
-            ref_out, ref_lse = A.attention_forward_reference(q, k, v, mask,
-                                                             mode)
-            err = (out.float() - ref_out.float()).abs().max().item()
-            lerr = (lse - ref_lse).abs().max().item()
             tag = f"{name} {mode} {tuple(q.shape)}x{k.shape[1]} {dtype}"
-            print(f"  attention_fwd {tag}: max|out-plain| {err:.3g} "
-                  f"(tol {tol[dtype][0]}), max|lse-plain| {lerr:.3g} "
-                  f"(tol {tol[dtype][1]})")
-            check(bool(torch.isfinite(out.float()).all()), f"{tag}: non-finite")
-            check(err <= tol[dtype][0] and lerr <= tol[dtype][1],
-                  f"{tag}: kernel disagrees with the plain version")
+            err = check_forward(A, q, k, v, mask, mode, out, lse, tag)
             if name in ("text", "caption") and dtype == torch.bfloat16:
                 err_main = max(err_main, err)
                 timed[name] = (q, k, v, mask)
@@ -483,11 +537,6 @@ def phase_kernels_bwd(torch):
              ("packed-text", TEXT_SHAPE, "segments", None),
              ("packed-caption", CAPTION_SHAPE, "segments", None),
              ("cross", TEXT_SHAPE, "none", CAPTION_SHAPE[1])] + LONG_CASES
-    # (atol, rtol): f32 sums of up to 512 terms in another order (a fully
-    # masked padding sample has P = exp(s - lse) ~ 1 on every key, so its
-    # sums reach ~10); bf16 adds one rounding of P or dS to bf16 (an ulp is
-    # 2^-8 relative) flipped by that order.
-    tol = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (3e-2, 1.6e-2)}
     err_main, timed = 0.0, {}
     for name, shape, mode, sk in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -499,24 +548,15 @@ def phase_kernels_bwd(torch):
             again = A.attention_backward_cuda(q, k, v, mask, mode, out, lse,
                                               do)
             torch.cuda.synchronize()
-            want = A.attention_backward_reference(q, k, v, mask, mode, out,
-                                                  lse, do)
             tag = f"{name} {mode} {tuple(q.shape)}x{k.shape[1]} {dtype}"
-            errs = []
-            for g_name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
-                err, ok = within(g, w, *tol[dtype])
-                errs.append(err)
-                check(bool(torch.isfinite(g.float()).all()),
-                      f"{tag}: non-finite {g_name}")
-                check(ok, f"{tag}: {g_name} disagrees with the plain version "
-                          f"(max |diff| {err:.3g})")
+            err = check_backward(A, q, k, v, mask, mode, out, lse, do, got,
+                                 tag)
+            for g_name, g, g2 in zip(("dq", "dk", "dv"), got, again):
                 check(torch.equal(g, g2), f"{tag}: two runs of the backward "
                                           f"differ in {g_name}")
-            print(f"  attention_bwd {tag}: max|dq,dk,dv - plain| "
-                  f"{max(errs):.3g} (tol {tol[dtype][0]} + "
-                  f"{tol[dtype][1]}|plain|); a second run bit-equal")
+            print("    a second run bit-equal")
             if dtype == torch.bfloat16:
-                err_main = max(err_main, max(errs))
+                err_main = max(err_main, err)
                 if name in ("text", "caption"):
                     timed[name] = (q, k, v, mask, out, lse, do)
     # One autograd round trip through AttentionFunction.
@@ -679,44 +719,101 @@ def read_probs(path: str):
 
 
 def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None):
-    """Fold 0 of the phase 5 run rebuilt from its command line: prepared
-    data, its first packed batch on ``device``, and the fold's model and
-    steps (weights from the run's seed)."""
+    """Fold 0 of a phase 5 (2C) or phase 8 (2A) run rebuilt from its command
+    line: prepared data, the epoch's packed batches (host arrays), and the
+    fold's model and steps (weights from the run's seed)."""
     import dataclasses
     import numpy as np
     from mpmc_tpu_torch.cli.experiments import (_select, build_fold,
-                                                prepare_2c, resident_store)
+                                                prepare_2a, prepare_2c,
+                                                resident_store)
     from mpmc_tpu_torch.cli.main import build_parser, train_config
     from mpmc_tpu_torch.cv.kfold import stratified_kfold
-    cfg, _ = train_config(build_parser().parse_args(argv))
-    prep = prepare_2c(dataclasses.replace(cfg, checkpoint_dir=None),
-                      tempfile.mkdtemp(dir=os.getcwd()))
+    args = build_parser().parse_args(argv)
+    cfg, _ = train_config(args)
+    prepare, kind = ((prepare_2a, "text") if args.subtask == "2a"
+                     else (prepare_2c, "multimodal"))
+    prep = prepare(dataclasses.replace(cfg, checkpoint_dir=None),
+                   tempfile.mkdtemp(dir=os.getcwd()))
     cfg = dataclasses.replace(prep.cfg, bf16=bf16)
     if dropout_zero:
         m = cfg.model
         enc = dict(hidden_dropout=0.0, attention_dropout=0.0)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             m, dropout=0.0, text=dataclasses.replace(m.text, **enc),
-            caption=dataclasses.replace(m.caption, **enc),
-            image=dataclasses.replace(m.image, finetune_dropout=0.0)))
+            caption=m.caption and dataclasses.replace(m.caption, **enc),
+            image=m.image and dataclasses.replace(m.image,
+                                                  finetune_dropout=0.0)))
     tr_idx = stratified_kfold(prep.data["label"], cfg.data.num_folds,
                               cfg.data.fold_seed)[0][0]
     store = resident_store(cfg, prep.data, device)
     run = build_fold(cfg, _select(prep.data, tr_idx), tr_idx, store, device,
-                     0, augment)
+                     0, augment, kind)
     batches = [b for b, _ in run.plan.epoch_iter(
         np.random.default_rng(cfg.seed))]
     return cfg, run, batches
 
 
-def phase_warm_train(torch, argv):
-    """Warm train steps of the phase 5 configuration: ms per step (the
-    first step excluded), a device-time profile by kernel, and the backward
-    kernel timed at the realized packed shapes."""
+def time_attention_at(torch, mask, mode: str, dtype, gen, what: str):
+    """The attention pair at one main-path shape ``[rows, S, 12, 64]``,
+    ``mask`` the path's own key mask or segment ids: forward and backward
+    kernels held against their plain versions on the same inputs, then
+    timed beside the plain versions, the autograd pair, and SDPA with the
+    same additive bias (for segments a ``[B,1,S,S]`` bias from the ids)."""
     from mpmc_tpu_torch.ops import attention as A
+    rows, S = mask.shape
+    q, k, v, do = (torch.randn(rows, S, 12, 64, device="cuda",
+                               generator=gen).to(dtype) for _ in range(4))
+    out, lse = A.attention_forward_cuda(q, k, v, mask, mode)
+    got = A.attention_backward_cuda(q, k, v, mask, mode, out, lse, do)
+    torch.cuda.synchronize()
+    tag = f"{what} {mode} {tuple(q.shape)} {dtype}"
+    fwd_err = check_forward(A, q, k, v, mask, mode, out, lse, tag)
+    bwd_err = check_backward(A, q, k, v, mask, mode, out, lse, do, got, tag)
+    del got
+    ms = graph_ms(torch, lambda: A.attention_backward_cuda(
+        q, k, v, mask, mode, out, lse, do))
+    fwd_ms = graph_ms(torch, lambda: A.attention_forward_cuda(
+        q, k, v, mask, mode))
+    plain_ms = graph_ms(torch, lambda: A.attention_backward_reference(
+        q, k, v, mask, mode, out, lse, do))
+    fwd_plain_ms = graph_ms(torch, lambda: A.attention_forward_reference(
+        q, k, v, mask, mode))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    if mode == "segments":
+        pair = lambda: torch.autograd.grad(A.dot_product_attention(  # noqa
+            *leaves, segments=mask), leaves, do)
+        bias = segment_bias(mask, dtype)
+    else:
+        pair = lambda: torch.autograd.grad(A.dot_product_attention(  # noqa
+            *leaves, mask), leaves, do)
+        bias = ((1.0 - mask) * -1e9).to(dtype)[:, None, None, :]
+    pair_ms = graph_ms(torch, pair)
+    sdpa_fwd, sdpa_bwd, sdpa_pair = sdpa_times(torch, q, k, v, bias, do)
+    bound_ms, bound_by = backward_bound_ms(q, k, mode)
+    fwd_bound_ms, _ = attention_bound_ms(q, k, mode)
+    print(f"  attention at {what} [{rows},{S},12,64] {str(dtype)[6:]} {mode}: "
+          f"backward {ms:.5f} ms (sdpa backward alone {sdpa_bwd:.5f}, plain "
+          f"{plain_ms:.5f}, bound {bound_ms:.5f} {bound_by}), forward "
+          f"{fwd_ms:.5f} ms (sdpa {sdpa_fwd:.5f}, plain {fwd_plain_ms:.5f}, "
+          f"bound {fwd_bound_ms:.5f}), forward+backward {pair_ms:.5f} ms "
+          f"(sdpa {sdpa_pair:.5f})")
+    return dict(shape=[rows, S, 12, 64], mode=mode, dtype=str(dtype),
+                max_abs_err=bwd_err, fwd_max_abs_err=fwd_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+                fwd_bound_ms=fwd_bound_ms, fwd_bwd_pair_ms=pair_ms,
+                library_fwd_ms=sdpa_fwd, library_ms=sdpa_bwd,
+                library_pair_ms=sdpa_pair)
+
+
+def warm_steps(torch, run, batches, per_step: int):
+    """Warm train steps of a fold: ms per step (the first step excluded), a
+    device-time profile by kernel of 3 steps (which must launch one
+    backward kernel ``per_step`` times a step) and a host profile of 3
+    more.  Returns the warm times, the profile's wall and kernel ms, and the
+    batches on the card."""
     dev = torch.device("cuda")
-    cfg, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
-                               device=dev)
     to_dev = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
               for b in batches]
     times = []
@@ -727,9 +824,9 @@ def phase_warm_train(torch, argv):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     warm = sorted(times[1:])
-    R, Rc = run.plan.row_budgets
-    print(f"  warm train steps ({len(warm)} after the first, R={R}, "
-          f"Rc={Rc}): median {warm[len(warm) // 2]:.3f} ms/step, mean "
+    print(f"  warm train steps ({len(warm)} after the first, packed row "
+          f"budgets {tuple(run.plan.row_budgets)}): median "
+          f"{warm[len(warm) // 2]:.3f} ms/step, mean "
           f"{sum(warm) / len(warm):.3f} ms/step (first step "
           f"{times[0]:.3f} ms)")
     from torch.profiler import ProfilerActivity, profile
@@ -760,9 +857,9 @@ def phase_warm_train(torch, argv):
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:100]}")
     bwd = [(e.key, e.count) for e in ours if "attention_bwd" in e.key]
-    check(len(bwd) == 1 and bwd[0][1] == 24 * 3,
-          f"the backward should be one kernel launched 24 times a step at "
-          f"S <= 128, got {bwd}")
+    check(len(bwd) == 1 and bwd[0][1] == per_step * 3,
+          f"the backward should be one kernel launched {per_step} times a "
+          f"step at S <= 128, got {bwd}")
     # Where the host's time goes (Python's profiler, 3 more steps).
     import cProfile
     import pstats
@@ -780,42 +877,23 @@ def phase_warm_train(torch, argv):
                                       key=lambda kv: -kv[1][2])[:10]:
         print(f"    {v[2] * 1e3 / 3:8.3f} ms  {v[1] // 3:6d}x  "
               f"{os.path.basename(path)}:{line}({fn})"[:110])
+    return warm, wall_us / 1e3, busy_us / 1e3, to_dev
+
+
+def phase_warm_train(torch, argv):
+    """Warm train steps of the phase 5 configuration: ms per step (the
+    first step excluded), a device-time profile by kernel, and the backward
+    kernel timed at the realized packed shapes."""
+    cfg, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
+                               device=torch.device("cuda"))
+    warm, _, _, to_dev = warm_steps(torch, run, batches, 24)
     # The backward kernel at this run's packed shapes, real segment ids.
     gen = torch.Generator(device="cuda").manual_seed(3)
     shapes = {}
     for name, prefix in (("text", "t"), ("caption", "c")):
-        seg = to_dev[1][f"{prefix}_segments"].float()
-        rows, S = seg.shape
-        q, k, v, do = (torch.randn(rows, S, 12, 64, device="cuda",
-                                   generator=gen).bfloat16()
-                       for _ in range(4))
-        out, lse = A.attention_forward_cuda(q, k, v, seg, "segments")
-        ms = graph_ms(torch, lambda: A.attention_backward_cuda(
-            q, k, v, seg, "segments", out, lse, do))
-        fwd_ms = graph_ms(torch, lambda: A.attention_forward_cuda(
-            q, k, v, seg, "segments"))
-        plain_ms = graph_ms(torch, lambda: A.attention_backward_reference(
-            q, k, v, seg, "segments", out, lse, do))
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        pair_ms = graph_ms(torch, lambda: torch.autograd.grad(
-            A.dot_product_attention(*leaves, segments=seg), leaves, do))
-        sdpa_fwd, sdpa_bwd, sdpa_pair = sdpa_times(
-            torch, q, k, v, segment_bias(seg, q.dtype), do)
-        bound_ms, bound_by = backward_bound_ms(q, k, "segments")
-        fwd_bound_ms, _ = attention_bound_ms(q, k, "segments")
-        shapes[name] = dict(shape=[rows, S, 12, 64], mode="segments",
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, fwd_ms=fwd_ms,
-                            fwd_bound_ms=fwd_bound_ms,
-                            fwd_bwd_pair_ms=pair_ms, library_fwd_ms=sdpa_fwd,
-                            library_ms=sdpa_bwd, library_pair_ms=sdpa_pair)
-        print(f"  attention at the packed {name} shape [{rows},{S},12,64] "
-              f"bf16 segments: backward {ms:.5f} ms (sdpa backward alone "
-              f"{sdpa_bwd:.5f}, plain {plain_ms:.5f}, bound {bound_ms:.5f} "
-              f"{bound_by}), forward {fwd_ms:.5f} ms (sdpa {sdpa_fwd:.5f}, "
-              f"bound {fwd_bound_ms:.5f}), forward+backward {pair_ms:.5f} ms "
-              f"(sdpa {sdpa_pair:.5f}); sdpa with a [B,1,S,S] bias from the "
-              f"segment ids")
+        shapes[name] = time_attention_at(
+            torch, to_dev[1][f"{prefix}_segments"].float(), "segments",
+            torch.bfloat16, gen, f"the packed {name} shape")
     del run
     torch.cuda.empty_cache()
     return shapes, warm
@@ -823,7 +901,9 @@ def phase_warm_train(torch, argv):
 
 def phase_train_card_vs_cpu(torch, argv):
     """One packed train step in f32 on the card (kernels) and the CPU
-    (plain versions): same weights, batch and draws; dropout 0; TF32 off."""
+    (plain versions): same weights, batch and draws; dropout 0; TF32 off.
+    A 2A command line (phase 8) has no image, so no draws and no batch
+    statistics."""
     import numpy as np
     from mpmc_tpu_torch.image.augment import augment_with_draws
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -856,19 +936,23 @@ def phase_train_card_vs_cpu(torch, argv):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
         m = run.train_step(batch)
         metrics[where] = {k: float(v) for k, v in m.items()}
-    R, Rc = runs["cpu"].plan.row_budgets
-    layers = (cfg.model.text.num_layers, cfg.model.caption.num_layers)
-    print(f"  encoders at {layers[0]} + {layers[1]} layers, R={R}, Rc={Rc}, "
+    layers = [cfg.model.text.num_layers] + (
+        [cfg.model.caption.num_layers] if seen else [])
+    print(f"  encoders at {' + '.join(map(str, layers))} layers, packed row "
+          f"budgets {tuple(runs['cpu'].plan.row_budgets)}, "
           f"{time.perf_counter() - t0:.1f} s for both sides")
     lc, lg = metrics["cpu"]["loss"], metrics["cuda"]["loss"]
     gc, gg = metrics["cpu"]["grad_norm"], metrics["cuda"]["grad_norm"]
-    img_err, _ = within(seen["cuda"].cpu(), seen["cpu"], 0, 0)
-    same = float((seen["cuda"].cpu() == seen["cpu"]).float().mean())
     print(f"  loss card {lg:.8g} cpu {lc:.8g} (|diff| {abs(lg - lc):.3g}, tol "
           f"1e-4 relative); grad norm card {gg:.8g} cpu {gc:.8g} (rel diff "
-          f"{abs(gg - gc) / gc:.3g}, tol 1e-3); augmented image max |diff| "
-          f"{img_err:.3g} (tol 1.6e-2, one bf16 ulp below 4), "
-          f"{100 * same:.3f} % identical")
+          f"{abs(gg - gc) / gc:.3g}, tol 1e-3)")
+    if seen:
+        img_err, _ = within(seen["cuda"].cpu(), seen["cpu"], 0, 0)
+        same = float((seen["cuda"].cpu() == seen["cpu"]).float().mean())
+        print(f"  augmented image max |diff| {img_err:.3g} (tol 1.6e-2, one "
+              f"bf16 ulp below 4), {100 * same:.3f} % identical")
+        check(img_err <= 1.6e-2 and same >= 0.99,
+              "augmented image: card and CPU disagree")
     gpu_sd = {k: v.cpu() for k, v in runs["cuda"].model.state_dict().items()}
     cpu_sd = runs["cpu"].model.state_dict()
     lr = runs["cpu"].train_step.optimizer.schedules["head"](0)
@@ -894,13 +978,331 @@ def phase_train_card_vs_cpu(torch, argv):
     # other orders reach the loss undamped.
     check(abs(lg - lc) <= 1e-4 * abs(lc), "loss: card and CPU disagree")
     check(abs(gg - gc) <= 1e-3 * gc, "grad norm: card and CPU disagree")
-    check(img_err <= 1.6e-2 and same >= 0.99,
-          "augmented image: card and CPU disagree")
     check(p_max <= 2 * 3.17 * lr and off <= 0.01 * count,
           "parameters after the step: card and CPU disagree")
     check(s_max <= 1e-5, "batch statistics: card and CPU disagree")
     del runs
     torch.cuda.empty_cache()
+
+
+def tsv_rows(path: str):
+    with open(path, encoding="utf-8") as f:
+        return [line.rstrip("\n").split("\t") for line in f]
+
+
+@contextlib.contextmanager
+def watch_mlm(torch, profiled=None):
+    """While active, wrap ``pretrain_and_save``, ``MLMTrainer.step`` and
+    ``apply_pretrained`` (the port's own functions, called as a run calls
+    them) and record: each MLM run and the launch counts at its end, each
+    step's wall time (synchronized before and after), the first step's key
+    mask or segment ids, the text checkpoint each splice read, and a device
+    profile of steps ``profiled = (first, last)``."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpmc_tpu_torch.models import pretrained as PT
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train import pretrain as P
+    seen = dict(runs=[], launches=None, step_ms=[], keys=None, spliced=[],
+                prof=profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]))
+    save, step, splice = (P.pretrain_and_save, P.MLMTrainer.step,
+                          PT.apply_pretrained)
+
+    def saved(*args, **kwargs):
+        seen["runs"].append(save(*args, **kwargs))
+        seen["launches"] = dict(build.launch_counts)
+        return seen["runs"][-1]
+
+    def timed(self, ids, mask, sel, inp, segments=None, positions=None):
+        i = len(seen["step_ms"])
+        if seen["keys"] is None:
+            seen["keys"] = (mask if segments is None else segments).float()
+        if profiled and i == profiled[0]:
+            seen["prof"].start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(self, ids, mask, sel, inp, segments, positions)
+        torch.cuda.synchronize()
+        seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if profiled and i == profiled[1]:
+            seen["prof"].stop()
+        return loss
+
+    def spliced(model, kind, spec):
+        seen["spliced"].append(spec and spec.text)
+        return splice(model, kind, spec)
+
+    P.pretrain_and_save, P.MLMTrainer.step = saved, timed
+    PT.apply_pretrained = spliced
+    try:
+        yield seen
+    finally:
+        P.pretrain_and_save, P.MLMTrainer.step = save, step
+        PT.apply_pretrained = splice
+
+
+def train_2a_cli(torch, work: str, name: str, flags):
+    """``train --subtask 2a`` through the command line on phase 5's
+    manifests (folds over train+dev, fold 0, one epoch, batch 16, bf16, the
+    given ``flags``), launch counts zeroed before and read after.  Checks
+    the launches (12 forward and 12 backward a step of the fine-tune and of
+    its MLM stage, if any; 12 forward per eval batch, two eval passes per
+    check since the val split is the test split too; no image kernel), the
+    finite losses, the three TSVs and the labels at 0.5.  Returns the
+    argv, the launches, the metrics, the best eval's probabilities by id,
+    the MLM watch and the wall time."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.io.tsv import check_format
+    from mpmc_tpu_torch.ops import build
+    out_dir = os.path.join(work, f"{name}_out")
+    argv = ["train", "--subtask", "2a",
+            "-tr", os.path.join(work, "train.json"),
+            "-te", os.path.join(work, "dev.json"), "--fold", "0", "--epochs",
+            "1", "--checkpoint-dir", os.path.join(work, f"{name}_ck"),
+            "--out-dir", out_dir, "--device", "cuda"] + flags
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    with watch_mlm(torch) as mlm:
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"train --subtask 2a {' '.join(flags)} returned {rc}")
+    with open(os.path.join(out_dir, "task2A_train_metrics_fold_0.json")) as f:
+        metrics = json.load(f)
+    steps = len(metrics["steps"])
+    check(steps == metrics["steps_per_epoch"] > 0, "steps missing")
+    evals = len(metrics["evals"])
+    eval_batches = evals * (math.ceil(metrics["n_test"] / BATCH)
+                            + math.ceil(metrics["n_val"] / BATCH))
+    mlm_steps = sum(r.steps for r in mlm["runs"])
+    check(mlm_steps == len(mlm["step_ms"]), "MLM steps miscounted")
+    want = {"attention_fwd": 12 * (mlm_steps + steps + eval_batches),
+            "attention_bwd": 12 * (mlm_steps + steps), "image_normalize": 0}
+    check(launches == want, f"2A train launches {launches}, expected {want}")
+    if mlm["runs"]:
+        want = {"attention_fwd": 12 * mlm_steps,
+                "attention_bwd": 12 * mlm_steps, "image_normalize": 0}
+        check(mlm["launches"] == want, f"MLM stage launches "
+                                       f"{mlm['launches']}, expected {want}")
+        check(all(math.isfinite(x) for r in mlm["runs"]
+                  for x in r.epoch_losses), "non-finite MLM loss")
+    bad = [s for s in metrics["steps"]
+           if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+    check(not bad, f"non-finite loss or grad norm: {bad}")
+    prefix = os.path.join(out_dir, "task2A_kevinmathew")
+    paths = [prefix + ".tsv", prefix + "_probs_fold_0.tsv",
+             prefix + "_val_fold_0.tsv"]
+    probs = {}
+    for i, path in enumerate(paths):
+        rows = tsv_rows(path)
+        if i:
+            # check_format takes 3 columns: the TSV without its probability.
+            check(rows[0] == ["id", "label", "propaganda_probability",
+                              "run_id"], f"{path}: header {rows[0]}")
+            probs = {r[0]: float(r[2]) for r in rows[1:]}
+            three = path + ".3col"
+            with open(three, "w", encoding="utf-8") as f:
+                f.writelines("\t".join(r[:2] + r[3:]) + "\n" for r in rows)
+            path = three
+        check(check_format(path), f"{path} fails check_format")
+    labels = {r[0]: r[1] for r in tsv_rows(paths[0])[1:]}
+    check(labels == {i: "propaganda" if p > 0.5 else "not_propaganda"
+                     for i, p in probs.items()},
+          "2A labels are not the probabilities at 0.5")
+    rows = (f"{metrics['row_budgets'][0]} packed rows of 128, 4 a step"
+            if metrics["row_budgets"] else "unpacked")
+    label = " ".join(["train --subtask 2a"] + flags)
+    print(f"  {label} --fold 0 --epochs 1, "
+          f"{metrics['n_train']} train / {metrics['n_val']} val memes (folds "
+          f"over train+dev), batch {BATCH}, bf16, {rows}: rc 0, {wall:.3f} s "
+          f"wall (model build, {evals} evals and first-call set-up included)")
+    print(f"  {steps} steps; losses "
+          f"{[round(s['loss'], 5) for s in metrics['steps']]}")
+    print(f"  launches: attention_fwd {launches['attention_fwd']} = 12 x "
+          f"({mlm_steps} MLM steps + {steps} steps + {eval_batches} eval "
+          f"batches, test and val passes), attention_bwd "
+          f"{launches['attention_bwd']} = 12 x ({mlm_steps} + {steps}), "
+          f"image_normalize 0; the three TSVs pass check_format, labels at "
+          f"0.5")
+    return argv, launches, metrics, probs, mlm, wall
+
+
+def phase_train_2a(torch, work: str):
+    """Full-width 2A train (fast recipe) through the command line on phase
+    5's manifests, and predict from the checkpoint over the fold's val
+    memes."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    argv, launches, _, probs, _, _ = train_2a_cli(torch, work, "train_2a", [])
+    # predict on the best checkpoint, over the fold's val memes (from both
+    # manifests), reproduces the best eval's probabilities.
+    records = {}
+    for name in ("train.json", "dev.json"):
+        with open(os.path.join(work, name), encoding="utf-8") as f:
+            records.update({r["id"]: r for r in json.load(f)})
+    val_m = os.path.join(work, "val_2a.json")
+    with open(val_m, "w", encoding="utf-8") as f:
+        json.dump([records[i] for i in probs], f, ensure_ascii=False)
+    pred_out, pred_probs = (os.path.join(work, n) for n in ("p2a.tsv",
+                                                            "pp2a.tsv"))
+    check(cli_main(["predict", "--subtask", "2a", "--manifest", val_m,
+                    "--checkpoint", os.path.join(work, "train_2a_ck",
+                                                 "fold_0"),
+                    "--out", pred_out, "--probs-out", pred_probs, "--device",
+                    "cuda"]) == 0, "predict --subtask 2a failed")
+    got = read_probs(pred_probs)
+    err = max(abs(a - b) for a, b in zip(got, probs.values()))
+    check(len(got) == len(probs) and err <= 1e-4,
+          f"2A predict from the checkpoint differs from the best eval by "
+          f"{err}")
+    print(f"  predict --subtask 2a --checkpoint on the {len(got)} val memes: "
+          f"max |prob - best eval prob| {err:.3g} (tol 1e-4)")
+    return argv, launches
+
+
+def phase_warm_train_2a(torch, argv):
+    """Warm packed 2A steps: ms per step, device and host profiles, and the
+    attention pair checked and timed at the realized packed shape."""
+    cfg, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
+                               device=torch.device("cuda"))
+    warm, wall_ms, busy_ms, to_dev = warm_steps(torch, run, batches, 12)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = time_attention_at(torch, to_dev[1]["t_segments"].float(),
+                              "segments", torch.bfloat16, gen,
+                              "the packed 2A shape")
+    del run, to_dev
+    torch.cuda.empty_cache()
+    return dict(warm_ms=warm, profiled_wall_ms=wall_ms,
+                profiled_kernel_ms=busy_ms, shape=shape)
+
+
+def phase_mlm(torch, argv):
+    """``pretrain_and_save`` at full width, 1 epoch, unpacked, on the 2A
+    corpus (train+dev texts and their character-noise copies, the 2A vocab
+    and bucket length): launch counts, finite losses, the npz spliced into
+    a ``TextClassifier`` on the card equal to the MLM encoder bit for bit,
+    the run's own steps timed (its steps 2 and 3 profiled), and the
+    attention pair checked and timed at the MLM shape (f32, padding) with
+    the run's first key mask."""
+    import dataclasses
+    from mpmc_tpu_torch.cli.experiments import prepare_2a
+    from mpmc_tpu_torch.cli.main import build_parser, train_config
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.models.pretrained import (PretrainedSpec,
+                                                  apply_pretrained)
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train import pretrain as P
+    cfg, _ = train_config(build_parser().parse_args(argv))
+    out = tempfile.mkdtemp(dir=os.getcwd())
+    prep = prepare_2a(dataclasses.replace(cfg, checkpoint_dir=None), out)
+    path = os.path.join(out, "mlm_encoder.npz")
+    seq_len = prep.data["text_ids"].shape[1]
+    dev = torch.device("cuda")
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    with watch_mlm(torch, profiled=(2, 3)) as seen:
+        run = P.pretrain_and_save(prep.cfg.model.text, prep.corpus, prep.tok,
+                                  path, P.MLMConfig(epochs=1, seed=cfg.seed),
+                                  max_len=seq_len, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    n = (P.MLMConfig().char_noise_copies + 1) * len(prep.corpus)
+    want = {"attention_fwd": 12 * run.steps, "attention_bwd": 12 * run.steps,
+            "image_normalize": 0}
+    check(run.steps > 3 and launches == want,
+          f"MLM launches {launches} in {run.steps} steps, expected {want}")
+    check(all(math.isfinite(x) for x in run.epoch_losses),
+          f"non-finite MLM loss {run.epoch_losses}")
+    model = build_model(prep.cfg.model, dev, seed=cfg.seed, kind="text")
+    apply_pretrained(model, "text", PretrainedSpec(text=path))
+    mlm_sd = run.encoder.state_dict()
+    spliced = model.encoder.state_dict()
+    check(set(spliced) == set(mlm_sd)
+          and all(torch.equal(spliced[k], mlm_sd[k]) for k in mlm_sd),
+          "the spliced encoder differs from the MLM encoder")
+    print(f"  pretrain_and_save, {n} texts ({len(prep.corpus)} and their "
+          f"noisy copies) at {seq_len} tokens, batch 64, f32, 1 epoch: "
+          f"{run.steps} steps (whole groups of {P.SCAN_GROUP} of "
+          f"{n // 64} batches) in {wall:.3f} s wall (set-up, tokenization, "
+          f"a synchronization around each step and 2 profiled steps "
+          f"included); loss {run.epoch_losses[0]:.4f}; launches "
+          f"attention_fwd {launches['attention_fwd']} and attention_bwd "
+          f"{launches['attention_bwd']} = 12 x {run.steps}; the npz spliced "
+          f"into a TextClassifier on the card equals the MLM encoder bit for "
+          f"bit ({len(mlm_sd)} tensors)")
+    # The run's own steps: warm ones (the first and the profiled excluded),
+    # and the device's share of the 2 profiled ones.
+    step_ms = seen["step_ms"]
+    warm = sorted(step_ms[1:2] + step_ms[4:])
+    wall_ms = step_ms[2] + step_ms[3]
+    events = [e for e in seen["prof"].key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  its steps at [64,{seq_len}] f32: "
+          f"{[round(t, 3) for t in step_ms]} ms; warm median {warm[len(warm) // 2]:.3f} ms/step of "
+          f"{len(warm)}; steps 2 and 3 profiled: {wall_ms:.3f} ms wall, "
+          f"kernels {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} % of "
+          f"wall) in {sum(e.count for e in events)} launches; top:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = time_attention_at(torch, seen["keys"], "padding", torch.float32,
+                              gen, "the MLM shape")
+    result = dict(steps=run.steps, wall_s=wall, loss=run.epoch_losses[0],
+                  launches=launches, shape=shape, step_ms=step_ms,
+                  warm_step_ms_median=warm[len(warm) // 2],
+                  profiled_wall_ms=wall_ms, profiled_kernel_ms=busy_ms,
+                  npz=path)
+    del run, model, seen
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_2a_more(torch, work: str, npz: str):
+    """The other 2A train paths through the command line: ``--recipe
+    reference`` (unpacked, device-resident) after a packed corpus MLM stage
+    (``--mlm-epochs 2 --mlm-pack``, its npz spliced into the fine-tune), and
+    the fast recipe from ``--text-params`` (phase 8 (d)'s npz); launches
+    checked as in (a), the splices' files, and the attention pair checked
+    and timed at the packed MLM shape (f32, segments)."""
+    _, launches, metrics, _, mlm, wall = train_2a_cli(
+        torch, work, "train_2a_ref", ["--recipe", "reference",
+                                      "--mlm-epochs", "2", "--mlm-pack"])
+    mlm_npz = os.path.join(work, "train_2a_ref_out", "mlm_encoder.npz")
+    check(metrics["row_budgets"] is None, "the reference recipe packed rows")
+    check(len(mlm["runs"]) == 1 and mlm["spliced"] == [mlm_npz],
+          f"the MLM stage's npz was not spliced: {mlm['spliced']}")
+    rows = mlm["keys"].shape[0]
+    check(bool((mlm["keys"] > 1).any()),
+          "the packed MLM stage ran no row with two segments")
+    mlm_steps = mlm["runs"][0].steps
+    print(f"  its packed MLM stage: {mlm_steps} steps of [{rows},"
+          f"{mlm['keys'].shape[1]}] rows (up to {int(mlm['keys'].max())} "
+          f"texts a row), losses {mlm['runs'][0].epoch_losses}, step ms "
+          f"{[round(t, 3) for t in mlm['step_ms']]}; its npz spliced into the "
+          f"fine-tune")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shape = time_attention_at(torch, mlm["keys"], "segments", torch.float32,
+                              gen, "the packed MLM shape")
+    mlm_launches = mlm["launches"]
+    ref_launches = {k: launches[k] - mlm_launches[k] for k in launches}
+    _, tp_launches, _, _, tp, _ = train_2a_cli(
+        torch, work, "train_2a_tp", ["--text-params", npz])
+    check(not tp["runs"] and tp["spliced"] == [npz],
+          f"--text-params: spliced {tp['spliced']}, MLM runs {tp['runs']}")
+    print(f"  --text-params {os.path.basename(npz)} (phase 8 (d)'s npz) "
+          f"spliced into the fine-tune")
+    torch.cuda.empty_cache()
+    return dict(reference=dict(steps=len(metrics["steps"]), wall_s=wall,
+                               launches=ref_launches),
+                mlm_pack=dict(steps=mlm_steps, batch_rows=rows,
+                              launches=mlm_launches,
+                              step_ms=mlm["step_ms"], shape=shape),
+                text_params=dict(launches=tp_launches))
 
 
 # Phase 7: the other predict kinds at full width (name, flags, attention
@@ -1182,6 +1584,14 @@ def main() -> int:
                 + [r["probs"] for r in kinds.values()],
                 [os.path.join(work, "pred.tsv")]
                 + [r["labels"] for r in kinds.values()])
+            print("phase 8 full-width 2A train and corpus MLM:")
+            argv_2a, launches_2a = phase_train_2a(torch, work)
+            warm_2a = phase_warm_train_2a(torch, argv_2a)
+            print("  packed 2A train step, card vs CPU in f32:")
+            phase_train_card_vs_cpu(torch, argv_2a)
+            mlm = phase_mlm(torch, argv_2a)
+            print("  the reference recipe with packed MLM, and --text-params:")
+            more_2a = phase_train_2a_more(torch, work, mlm["npz"])
         finally:
             os.chdir(cwd)
 
@@ -1200,12 +1610,25 @@ def main() -> int:
             "predict": launches["attention_fwd"],
             "train": train_launches["attention_fwd"],
             "predict_2a": kinds["predict_2a"]["launches"],
-            "predict_simple": kinds["predict_simple"]["launches"]},
+            "predict_simple": kinds["predict_simple"]["launches"],
+            "train_2a": launches_2a["attention_fwd"],
+            "mlm": mlm["launches"]["attention_fwd"],
+            "train_2a_reference": more_2a["reference"]["launches"][
+                "attention_fwd"],
+            "mlm_pack": more_2a["mlm_pack"]["launches"]["attention_fwd"],
+            "train_2a_text_params": more_2a["text_params"]["launches"][
+                "attention_fwd"]},
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
                 "library_ms": v["library_fwd_ms"],
                 "bound_ms": v["fwd_bound_ms"]}
-            for k, v in packed_shapes.items()}}, {
+            for k, v in packed_shapes.items()},
+        **{f"{name}_shape": {m: shape[m] for m in (
+            "shape", "mode", "dtype", "fwd_max_abs_err", "fwd_ms",
+            "fwd_plain_ms", "library_fwd_ms", "fwd_bound_ms")}
+           for name, shape in (("train_2a", warm_2a["shape"]),
+                               ("mlm", mlm["shape"]),
+                               ("mlm_pack", more_2a["mlm_pack"]["shape"]))}}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "mpmc_tpu/ops/attention.py:182",
@@ -1219,7 +1642,18 @@ def main() -> int:
         "tensor_core_instructions": tensor_core["attention_bwd"],
         "shape": bwd["shape"],
         "dtype": bwd["dtype"], "caption_shape": bwd_timings["caption"],
-        "packed_train_shapes": packed_shapes}, {
+        "launches_by_path": {
+            "train": train_launches["attention_bwd"],
+            "train_2a": launches_2a["attention_bwd"],
+            "mlm": mlm["launches"]["attention_bwd"],
+            "train_2a_reference": more_2a["reference"]["launches"][
+                "attention_bwd"],
+            "mlm_pack": more_2a["mlm_pack"]["launches"]["attention_bwd"],
+            "train_2a_text_params": more_2a["text_params"]["launches"][
+                "attention_bwd"]},
+        "packed_train_shapes": packed_shapes,
+        "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
+        "mlm_pack_shape": more_2a["mlm_pack"]["shape"]}, {
         "name": "image_normalize", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/image_normalize.cu",
         "replaces": "mpmc_tpu/ops/image_ops.py:20",
@@ -1234,8 +1668,22 @@ def main() -> int:
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
                               "profiled_wall_ms", "profiled_kernel_ms")}
         for k, v in kinds.items()}}))
-    print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median); "
-          f"whole run {time.perf_counter() - T_START:.1f} s")
+    w2a = warm_2a["warm_ms"]
+    print(json.dumps({"train_2a": {
+        "warm_step_ms_median": w2a[len(w2a) // 2], "warm_steps": len(w2a),
+        "profiled_wall_ms": warm_2a["profiled_wall_ms"],
+        "profiled_kernel_ms": warm_2a["profiled_kernel_ms"],
+        "launches": launches_2a}, "mlm": {
+        k: mlm[k] for k in ("steps", "wall_s", "loss", "launches", "step_ms",
+                            "warm_step_ms_median", "profiled_wall_ms",
+                            "profiled_kernel_ms")},
+        "train_2a_reference": more_2a["reference"],
+        "mlm_pack": {k: v for k, v in more_2a["mlm_pack"].items()
+                     if k != "shape"},
+        "train_2a_text_params": more_2a["text_params"]}))
+    print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
+          f"{w2a[len(w2a) // 2]:.3f} ms; whole run "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """The port's experiment drivers (port of ``mpmc_tpu/cli/experiments.py``):
 corpus vocabulary, tokenization and sequence-length bucketing shared by
-the entry points, and the 2C training driver ``run_subtask_2c`` over
-``_run_folds`` (one device; packed when ``pack_rows > 0``; the images, and
-unpacked every array, resident on the device)."""
+the entry points, the optional corpus MLM stage (``_maybe_mlm_pretrain``),
+and the training drivers ``run_subtask_2a`` (text) and ``run_subtask_2c``
+(multimodal) over ``_run_folds`` on one device.  Packed (``pack_rows > 0``)
+2A is fed from the host by a ``PackedTrainPlan``; packed 2C keeps its
+images on the device; unpacked, every array stays on the device and
+batches carry row indices."""
 
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mpmc_tpu_torch.config import (Subtask, TrainConfig,
-                                   model_config_to_dict)
+from mpmc_tpu_torch.config import (LossType, PoolingType, Subtask,
+                                   TrainConfig, model_config_to_dict)
 from mpmc_tpu_torch.cv.kfold import stratified_kfold
 from mpmc_tpu_torch.image.decode import decode_batch
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
@@ -75,7 +78,7 @@ def bucket_trim(data: Dict[str, np.ndarray], ids_key: str, mask_key: str,
 
 
 # ---------------------------------------------------------------------------
-# 2C training
+# Training drivers
 # ---------------------------------------------------------------------------
 
 def _select(data: Dict[str, np.ndarray], idx) -> Dict[str, np.ndarray]:
@@ -89,6 +92,26 @@ def _persist_vocab(tok: WordPieceTokenizer, cfg: TrainConfig, out_dir: str,
     for d in [out_dir] + ([cfg.checkpoint_dir] if cfg.checkpoint_dir else []):
         os.makedirs(d, exist_ok=True)
         tok.save(os.path.join(d, filename))
+
+
+def _maybe_mlm_pretrain(cfg: TrainConfig, mcfg, tok, corpus_texts,
+                        seq_len: int, out_dir: str, pretrained,
+                        device: torch.device):
+    """The corpus MLM stage (``cfg.mlm_epochs`` > 0) on ``device``: its
+    encoder npz becomes the spec's text checkpoint, unless the spec already
+    has one."""
+    from mpmc_tpu_torch.models.pretrained import PretrainedSpec
+    from mpmc_tpu_torch.train.pretrain import MLMConfig, pretrain_and_save
+    if cfg.mlm_epochs <= 0 or (pretrained is not None and pretrained.text):
+        return pretrained
+    os.makedirs(out_dir, exist_ok=True)
+    mlm_path = os.path.join(out_dir, "mlm_encoder.npz")
+    pretrain_and_save(mcfg.text, list(corpus_texts), tok, mlm_path,
+                      MLMConfig(epochs=cfg.mlm_epochs, seed=cfg.seed,
+                                pack=cfg.mlm_pack),
+                      max_len=seq_len, device=device)
+    return (dataclasses.replace(pretrained, text=mlm_path)
+            if pretrained else PretrainedSpec(text=mlm_path))
 
 
 def _persist_run_meta(cfg: TrainConfig, mcfg, kind: str, out_dir: str,
@@ -135,25 +158,36 @@ class FoldRun:
 def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                tr_idx: np.ndarray, store: Dict[str, torch.Tensor],
                device: torch.device, fold: int,
-               augment: Optional[Callable] = None) -> FoldRun:
-    """Model, plan and steps of fold ``fold`` over its train rows ``tr_idx``
-    of the resident ``store``: random weights from ``cfg.seed`` (the same
-    for every fold, as the JAX package initializes), dropout and
-    augmentation from a generator seeded with ``cfg.seed + fold``."""
+               augment: Optional[Callable] = None, kind: str = "multimodal",
+               pretrained=None) -> FoldRun:
+    """Model of ``kind``, plan and steps of fold ``fold`` over its train
+    rows ``tr_idx`` of the resident ``store``: random weights from
+    ``cfg.seed`` (the same for every fold, as the JAX package initializes)
+    with the ``pretrained`` text encoder spliced in, dropout and
+    augmentation from a generator seeded with ``cfg.seed + fold``.
+    Packing gives 2A a ``PackedTrainPlan`` of ``pack_rows`` rows a step
+    over the host arrays, and 2C a ``PackedMultimodalPlan`` that indexes
+    the resident images."""
     from mpmc_tpu_torch.models.classifier import build_model
-    from mpmc_tpu_torch.train.packed import PackedMultimodalPlan
+    from mpmc_tpu_torch.models.pretrained import apply_pretrained
+    from mpmc_tpu_torch.train.packed import (PackedMultimodalPlan,
+                                             PackedTrainPlan)
     from mpmc_tpu_torch.train.step import build_train_step, make_eval_step
 
     bs = cfg.data.batch_size
     packing = cfg.data.pack_rows > 0
     plan = None
-    if packing:
+    if packing and kind == "text":
+        plan = PackedTrainPlan(train_d, pack_len=train_d["text_ids"].shape[1],
+                               rows_per_batch=cfg.data.pack_rows)
+    elif packing:
         plan = PackedMultimodalPlan(train_d, batch_size=bs, abs_idx=tr_idx,
                                     resident_images=True)
-        steps_per_epoch = plan.steps_per_epoch
-    else:
-        steps_per_epoch = (len(tr_idx) + bs - 1) // bs
-    model = build_model(cfg.model, device, seed=cfg.seed, packed=packing)
+    steps_per_epoch = (plan.steps_per_epoch if plan is not None
+                       else (len(tr_idx) + bs - 1) // bs)
+    model = apply_pretrained(build_model(cfg.model, device, seed=cfg.seed,
+                                         kind=kind, packed=packing),
+                             kind, pretrained)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + fold)
     train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
                                   store, generator, augment)
@@ -164,7 +198,8 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
 def resident_store(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                    device: torch.device) -> Dict[str, torch.Tensor]:
     """The arrays that stay on the device for the whole run: the images,
-    and unpacked every array (batches then carry only row indices)."""
+    and unpacked every array (batches then carry only row indices).  Packed
+    2A has no image, so its store is empty and the plan feeds it."""
     packing = cfg.data.pack_rows > 0
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in full_data.items() if k == "image" or not packing}
@@ -174,14 +209,16 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                ids: List[str], test_data: Optional[Dict[str, np.ndarray]],
                test_ids: Optional[List[str]], out_dir: str, name: str,
                device: torch.device, folds: Optional[List[int]] = None,
-               augment: Optional[Callable] = None) -> List:
-    """Train the selected stratified folds one after another on ``device``.
-    Packed (``cfg.data.pack_rows > 0``): ``PackedMultimodalPlan`` batches
-    with the images resident on the device; unpacked: every array resident
-    and batches of row indices.  Each fold writes its TSVs under
-    ``out_dir`` and, with ``cfg.checkpoint_dir``, its best-test-F1 weights
-    as ``<checkpoint_dir>/fold_<k>/model.pt``, and its per-step losses and
-    evals as ``<out_dir>/<name>_train_metrics_fold_<k>.json``."""
+               augment: Optional[Callable] = None, kind: str = "multimodal",
+               pretrained=None) -> List:
+    """Train the selected stratified folds of the ``kind`` model one after
+    another on ``device`` (:func:`build_fold`).  Without a test split the
+    fold's val split is the test split too, evaluated twice per check as in
+    the JAX package.  Each fold writes its TSVs under ``out_dir`` (the val
+    TSV under ``cfg.emit_val_tsv``) and, with ``cfg.checkpoint_dir``, its
+    best-test-F1 weights as ``<checkpoint_dir>/fold_<k>/model.pt``, and its
+    per-step losses and evals as
+    ``<out_dir>/<name>_train_metrics_fold_<k>.json``."""
     from mpmc_tpu_torch.train.loop import fit
 
     os.makedirs(out_dir, exist_ok=True)
@@ -197,7 +234,8 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         val_d = _select(full_data, va_idx)
         t_data = test_data if test_data is not None else val_d
         t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
-        run = build_fold(cfg, train_d, tr_idx, store, device, k, augment)
+        run = build_fold(cfg, train_d, tr_idx, store, device, k, augment,
+                         kind, pretrained)
         on_best = None
         if cfg.checkpoint_dir:
             fold_dir = os.path.join(cfg.checkpoint_dir, f"fold_{k}")
@@ -209,7 +247,8 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                 log.info("checkpoint at step %d -> %s", step, fold_dir)
         prefix = os.path.join(out_dir, f"{name}_{cfg.team_name}")
         res = fit(run.train_step, run.eval_step, cfg, train_d, device,
-                  test_data=t_data, val_data=val_d, test_ids=t_ids, fold=k,
+                  test_data=t_data, val_data=val_d, test_ids=t_ids,
+                  val_ids=[ids[i] for i in va_idx], fold=k,
                   tsv_prefix=prefix, packed_plan=run.plan, train_rows=tr_idx,
                   on_best=on_best)
         with open(os.path.join(out_dir, f"{name}_train_metrics_fold_{k}.json"),
@@ -227,15 +266,83 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
 
 
 @dataclasses.dataclass
+class Prepared2A:
+    """The 2A run's resolved config (attention pooling, 2 classes, CE, the
+    2A TSV rules, the vocab size), the tokenized and bucketed fold data,
+    its ids, the tokenizer and the normalized texts (the MLM corpus)."""
+
+    cfg: TrainConfig
+    data: Dict[str, np.ndarray]
+    ids: List[str]
+    tok: WordPieceTokenizer
+    corpus: List[str]
+
+
+def prepare_2a(cfg: TrainConfig, out_dir: str,
+               vocab_path: Optional[str] = None) -> Prepared2A:
+    """Manifests (train+dev under ``fold_over_train_plus_dev``), the vocab
+    (``vocab_path``, else a corpus vocab over the normalized texts, saved
+    under ``out_dir`` and the checkpoint dir), and the text bucketed to the
+    shortest multiple of ``seq_bucket_multiple`` covering it."""
+    train = read_manifest(cfg.data.train_manifest)
+    dev = read_manifest(cfg.data.dev_manifest)
+    combined = train.concat(dev) if cfg.data.fold_over_train_plus_dev else train
+    texts = [preprocess_arabic_tweet(t) for t in combined.texts]
+    tok = build_tokenizer(texts, vocab_path)
+    _persist_vocab(tok, cfg, out_dir)
+    mcfg = dataclasses.replace(
+        cfg.model, subtask=Subtask.A, num_classes=2,
+        pooling=PoolingType.ATTENTION,
+        text=dataclasses.replace(cfg.model.text,
+                                 vocab_size=max(tok.vocab.values()) + 1))
+    cfg = dataclasses.replace(cfg, model=mcfg, loss=LossType.CROSS_ENTROPY,
+                              emit_threshold=0.5, emit_val_tsv=True,
+                              prob_header="propaganda_probability")
+    ids_arr, mask_arr = prepare_text(combined, tok, mcfg.max_text_len)
+    data = {"text_ids": ids_arr, "text_mask": mask_arr,
+            "label": combined.labels}
+    if cfg.data.seq_bucket_multiple:
+        seq_len = bucket_seq_len([mask_arr], cfg.data.seq_bucket_multiple,
+                                 mcfg.max_text_len)
+        bucket_trim(data, "text_ids", "text_mask", seq_len)
+        log.info("text bucketed to %d tokens (cap %d)", seq_len,
+                 mcfg.max_text_len)
+    return Prepared2A(cfg, data, combined.ids, tok, texts)
+
+
+def run_subtask_2a(cfg: TrainConfig, device: torch.device,
+                   out_dir: str = "outputs/2a",
+                   vocab_path: Optional[str] = None,
+                   folds: Optional[List[int]] = None,
+                   pretrained=None) -> List:
+    """The 2A text model: stratified folds over train+dev, cross-entropy,
+    attention pooling, 2 classes, the val split as the test split, labels
+    at 0.5, the val TSVs and the ``propaganda_probability`` header; the
+    corpus MLM stage first when ``cfg.mlm_epochs`` > 0."""
+    prep = prepare_2a(cfg, out_dir, vocab_path)
+    pretrained = _maybe_mlm_pretrain(
+        prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
+        prep.data["text_ids"].shape[1], out_dir, pretrained, device)
+    _persist_run_meta(prep.cfg, prep.cfg.model, "text", out_dir, prep.data,
+                      augment=False)
+    return _run_folds(prep.cfg, prep.data, prep.ids, None, None, out_dir,
+                      "task2A", device, folds, kind="text",
+                      pretrained=pretrained)
+
+
+@dataclasses.dataclass
 class Prepared2C:
     """The 2C run's resolved config (vocab sizes filled in), tokenized and
-    bucketed train and dev arrays, and their ids."""
+    bucketed train and dev arrays, their ids, the text tokenizer and the
+    normalized train+dev texts (the MLM corpus)."""
 
     cfg: TrainConfig
     data: Dict[str, np.ndarray]
     test: Dict[str, np.ndarray]
     train_ids: List[str]
     dev_ids: List[str]
+    tok: WordPieceTokenizer
+    corpus: List[str]
 
 
 def prepare_2c(cfg: TrainConfig, out_dir: str) -> Prepared2C:
@@ -289,18 +396,25 @@ def prepare_2c(cfg: TrainConfig, out_dir: str) -> Prepared2C:
                 bucket_trim(d, ids_key, mask_key, length)
             log.info("%s bucketed to %d tokens (cap %d)", ids_key, length,
                      cap)
-    return Prepared2C(cfg, data, test, train.ids, dev.ids)
+    corpus = [preprocess_arabic_tweet(t) for t in train.texts + dev.texts]
+    return Prepared2C(cfg, data, test, train.ids, dev.ids, tok, corpus)
 
 
 def run_subtask_2c(cfg: TrainConfig, device: torch.device,
                    out_dir: str = "outputs/2c",
                    folds: Optional[List[int]] = None,
-                   augment: Optional[Callable] = None) -> List:
+                   augment: Optional[Callable] = None,
+                   pretrained=None) -> List:
     """The 2C fine-tune: stratified folds over the train manifest, the dev
-    manifest as the test split, focal loss, placeholder captions."""
+    manifest as the test split, focal loss, placeholder captions; the
+    corpus MLM stage of the text branch first when ``cfg.mlm_epochs`` >
+    0."""
     prep = prepare_2c(cfg, out_dir)
+    pretrained = _maybe_mlm_pretrain(
+        prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
+        prep.data["text_ids"].shape[1], out_dir, pretrained, device)
     _persist_run_meta(prep.cfg, prep.cfg.model, "multimodal", out_dir,
                       prep.data, augment=True)
     return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,
                       prep.dev_ids, out_dir, "task2C", device, folds,
-                      augment=augment)
+                      augment=augment, pretrained=pretrained)

@@ -4,9 +4,12 @@
       --out pred.tsv [--probs-out probs.tsv] [--checkpoint DIR] \\
       [--small] [--tiny] [--simple] [--image-arch A] [--image-size N] \\
       [--binary-head] [--device cuda|cpu] [--batch-size 16]
-  python -m mpmc_tpu_torch.cli.main train --subtask 2c -tr TRAIN -te DEV \\
-      [--recipe fast|reference] [--fold K] [--epochs N] \\
-      [--checkpoint-dir DIR] [--out-dir DIR] [--tiny] [--device cuda|cpu]
+  python -m mpmc_tpu_torch.cli.main train --subtask 2a|2c -tr TRAIN -te DEV \\
+      [--recipe fast|reference] [--small] [--tiny] [--fold K] \\
+      [--num-folds N] [--epochs N] [--lr X] \\
+      [--lr-schedule constant|linear_warmup] [--pack-rows G] [--vocab V] \\
+      [--mlm-epochs N] [--mlm-pack] [--text-params mlm_encoder.npz] \\
+      [--checkpoint-dir DIR] [--out-dir DIR] [--device cuda|cpu]
   python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
   python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
   python -m mpmc_tpu_torch.cli.main combine --files f0.tsv .. --gold G \\
@@ -14,14 +17,23 @@
       [--group-by-run-id] [--scan-family-weight] [--per-member]
   python -m mpmc_tpu_torch.cli.main analyze -g gold.json -p pred.tsv
 
-``train`` follows the JAX package's ``_cmd_train`` for 2C: stratified folds
-over the train manifest, the dev manifest as the test split, and per fold
-the best-test-F1 TSVs and, with ``--checkpoint-dir``, ``fold_<k>/model.pt``
-next to ``run_meta.json`` and the vocab files, which ``predict --checkpoint
-DIR/fold_<k>`` reads.  ``--recipe fast`` (the default) packs the text and
-caption tokens (``--pack-rows 8``), keeps the Adam first moment in bf16 and
-gives the word embeddings factored RMS; ``--recipe reference`` turns all
-three off.  An explicitly passed flag wins over its recipe value.
+``train`` follows the JAX package's ``_cmd_train`` for 2A and 2C.  2A
+trains the text model (attention pooling, 2 classes, cross-entropy, a
+constant LR) over stratified folds of train+dev, each fold's val split
+serving as its test split, with labels at 0.5, the val TSVs and the
+``propaganda_probability`` header; 2C trains the multimodal model over
+folds of the train manifest with the dev manifest as the test split, focal
+loss and linear warmup.  Per fold come the best-test-F1 TSVs and, with
+``--checkpoint-dir``, ``fold_<k>/model.pt`` next to ``run_meta.json`` and
+the vocab files, which ``predict --checkpoint DIR/fold_<k>`` reads.
+``--recipe fast`` (the default) packs the text tokens (2A: batches of
+``--pack-rows 4`` packed rows; 2C: each batch's text and caption tokens in
+rows, ``--pack-rows 8``), keeps the Adam first moment in bf16 and gives the
+word embeddings factored RMS; ``--recipe reference`` turns all three off.
+An explicitly passed flag wins over its recipe value.  ``--mlm-epochs``
+first pretrains the text encoder on the train+dev texts with masked
+language modelling (``--mlm-pack`` packs that corpus) and starts every
+fold from it; ``--text-params`` starts from such an encoder file instead.
 
 ``predict`` follows the JAX package's ``_cmd_predict`` for every model
 kind: ``text`` (2A), ``image`` (2B), ``simple`` (2C ``--simple``, the
@@ -363,14 +375,16 @@ def _cmd_analyze(args) -> int:
 
 def _resolve_recipe(args) -> None:
     """Fill the recipe-controlled flags that were left unset, as the JAX
-    package's ``_resolve_recipe`` does for the flags the port takes."""
+    package's ``_resolve_recipe`` does for the flags the port takes: the
+    fast recipe packs 4 rows a step in 2A and each batch's tokens into rows
+    in 2C (``pack_rows`` 8)."""
     fast = args.recipe == "fast"
     if args.embedding_optimizer is None:
         args.embedding_optimizer = "factored" if fast else "adam"
     if args.adam_mu_dtype is None and fast:
         args.adam_mu_dtype = "bfloat16"
     if args.pack_rows is None:
-        args.pack_rows = 8 if fast else 0
+        args.pack_rows = ({"2a": 4, "2c": 8}[args.subtask] if fast else 0)
 
 
 def train_config(args) -> Tuple[TrainConfig, torch.device]:
@@ -382,22 +396,40 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       dev_manifest=args.dev_file_path,
                       image_root=args.image_root,
                       batch_size=args.batch_size, num_folds=args.num_folds,
+                      fold_over_train_plus_dev=args.subtask == "2a",
                       cache_dir=args.cache_dir, pack_rows=args.pack_rows)
-    model = ModelConfig.tiny_2c() if args.tiny else ModelConfig()
+    if args.small and args.subtask == "2a":
+        model = ModelConfig.small_2a()
+    elif args.small:
+        raise SystemExit("--small for 2c (small_2c) is not ported yet")
+    elif args.tiny:
+        model = ModelConfig.tiny_2c()
+    else:
+        model = ModelConfig()
+    lr_schedule = args.lr_schedule or (
+        "constant" if args.subtask == "2a" else "linear_warmup")
     cfg = TrainConfig(model=model, data=data, epochs=args.epochs,
-                      learning_rate=args.lr, seed=args.seed,
-                      bf16=device.type == "cuda",
+                      learning_rate=args.lr, lr_schedule=lr_schedule,
+                      seed=args.seed, bf16=device.type == "cuda",
                       checkpoint_dir=args.checkpoint_dir,
                       adam_mu_dtype=args.adam_mu_dtype,
-                      embedding_optimizer=args.embedding_optimizer)
+                      embedding_optimizer=args.embedding_optimizer,
+                      mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack)
     return cfg, device
 
 
 def _cmd_train(args) -> int:
-    from mpmc_tpu_torch.cli.experiments import run_subtask_2c
+    from mpmc_tpu_torch.cli.experiments import run_subtask_2a, run_subtask_2c
+    from mpmc_tpu_torch.models.pretrained import PretrainedSpec
     cfg, device = train_config(args)
     folds = [args.fold] if args.fold is not None else None
-    results = run_subtask_2c(cfg, device, out_dir=args.out_dir, folds=folds)
+    kwargs = dict(out_dir=args.out_dir, folds=folds,
+                  pretrained=PretrainedSpec(text=args.text_params))
+    if args.subtask == "2a":
+        results = run_subtask_2a(cfg, device, vocab_path=args.vocab,
+                                 **kwargs)
+    else:
+        results = run_subtask_2c(cfg, device, **kwargs)
     for k, r in zip(folds or range(args.num_folds), results):
         print(f"fold {k}: best macro-F1 {r.best_macro_f1:.4f}")
     return 0
@@ -481,13 +513,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "misclassified samples (0 disables)")
     p.set_defaults(fn=_cmd_analyze)
 
-    p = sub.add_parser("train", help="fine-tune the 2C model over "
-                                     "stratified folds")
-    p.add_argument("--subtask", choices=["2c"], required=True)
+    p = sub.add_parser("train", help="train the 2A text model or the 2C "
+                                     "multimodal model over stratified "
+                                     "folds")
+    p.add_argument("--subtask", choices=["2a", "2c"], required=True,
+                   help="2a: text, folds over train+dev; 2c: text + image "
+                        "+ caption, folds over train, dev as the test split")
     p.add_argument("--recipe", choices=["fast", "reference"], default="fast",
-                   help="fast (default): packed text and caption rows, bf16 "
-                        "Adam first moment, factored-RMS word embeddings; "
-                        "reference: unpacked, f32 Adam everywhere")
+                   help="fast (default): packed text rows (2A: 4 packed "
+                        "rows a step; 2C: each batch's text and caption "
+                        "tokens), bf16 Adam first moment, factored-RMS word "
+                        "embeddings; reference: unpacked, f32 Adam "
+                        "everywhere")
     p.add_argument("--train-file-path", "-tr", required=True)
     p.add_argument("--dev-file-path", "-te", required=True)
     p.add_argument("--image-root", default=".")
@@ -498,9 +535,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--lr-schedule", choices=["constant", "linear_warmup"],
+                   default=None,
+                   help="default: constant for 2a, linear_warmup for 2c")
     p.add_argument("--pack-rows", type=int, default=None,
-                   help="> 0 packs each batch's text and caption tokens "
-                        "(recipe default: 8 fast, 0 reference)")
+                   help="> 0 packs the text tokens: 2a trains on batches of "
+                        "this many packed rows, 2c packs each batch's text "
+                        "and caption tokens (recipe default: fast 4 for 2a "
+                        "and 8 for 2c, reference 0)")
     p.add_argument("--embedding-optimizer", choices=["factored", "adam"],
                    default=None)
     p.add_argument("--adam-mu-dtype", choices=["bfloat16", "float32"],
@@ -509,6 +551,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dir", default=".cache")
     p.add_argument("--tiny", action="store_true",
                    help="the tiny_2c config")
+    p.add_argument("--small", action="store_true",
+                   help="2a: the from-scratch small_2a config")
+    p.add_argument("--vocab", default=None,
+                   help="2a: a WordPiece vocab file instead of the corpus "
+                        "vocab")
+    p.add_argument("--mlm-epochs", type=int, default=0,
+                   help="> 0 first pretrains the text encoder by masked "
+                        "language modelling on the train+dev texts "
+                        "(character-noise copies, 64-row batches) and "
+                        "starts every fold from it (skipped when "
+                        "--text-params is given)")
+    p.add_argument("--mlm-pack", action="store_true",
+                   help="pack the MLM corpus into segment-masked rows")
+    p.add_argument("--text-params", default=None,
+                   help="text-encoder weights to start from: the flax-tree "
+                        ".npz that MLM pretraining writes (mlm_encoder.npz) "
+                        "in either package")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_train)

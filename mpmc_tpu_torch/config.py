@@ -27,6 +27,11 @@ class PoolingType(str, enum.Enum):
     CNN = "cnn"
 
 
+class LossType(str, enum.Enum):
+    FOCAL = "focal"           # sigmoid focal loss (2C: alpha=.25 gamma=2)
+    CROSS_ENTROPY = "ce"      # 2-class CE (2A)
+
+
 class FusionMethod(str, enum.Enum):
     CONCATENATION = "concatenation"
     MCA = "mca"
@@ -195,27 +200,32 @@ class DataConfig:
     batch_size: int = 16
     num_folds: int = 5                # 2C: 5 folds over train
     fold_seed: int = 42
+    fold_over_train_plus_dev: bool = False  # 2A: folds over train+dev
     cache_dir: str = ".cache"         # caption cache
     # Trim token arrays to the shortest multiple of this covering every real
     # token (``max_*_len`` stays the truncation cap).
     seq_bucket_multiple: int = 64
-    # > 0: 2C training packs each batch's text and caption tokens into
-    # segment-masked rows (``train/packed.py``); eval stays unpacked.
+    # > 0: training packs the text tokens into segment-masked rows
+    # (``train/packed.py``): 2A trains on batches of this many packed rows,
+    # 2C packs each batch's text and caption tokens; eval stays unpacked.
     pack_rows: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's ``TrainConfig`` that 2C training and
-    eval read."""
+    """The fields of the JAX package's ``TrainConfig`` that 2A and 2C
+    training and eval read."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    loss: LossType = LossType.FOCAL
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
     learning_rate: float = 1e-5
     encoder_lr_scale: float = 0.8     # text/image encoders at 0.8 * lr
     warmup_fraction: float = 0.1      # linear warmup over 10% of steps
+    # "linear_warmup" (2C) or "constant" (2A: no schedule, the base LR).
+    lr_schedule: str = "linear_warmup"
     grad_clip_norm: float = 1.0
     epochs: int = 8
     seed: int = 42
@@ -223,6 +233,11 @@ class TrainConfig:
     bf16: bool = True
     run_id: str = "mpmc_tpu"
     team_name: str = "kevinmathew"
+    # TSV emission: None labels at the eval's Youden threshold (2C), 0.5
+    # at argmax (2A); 2A also writes the val split's TSV.
+    emit_threshold: Optional[float] = None
+    prob_header: str = "prob"
+    emit_val_tsv: bool = False
     checkpoint_dir: Optional[str] = None
     # Adam first-moment dtype ("bfloat16" under the fast recipe); None keeps
     # it f32.
@@ -230,3 +245,7 @@ class TrainConfig:
     # "adam", or "factored": factored-RMS (Adafactor's second moment, no
     # first moment) for the word-embedding tables.
     embedding_optimizer: str = "adam"
+    # > 0: corpus MLM pretraining (``train/pretrain.py``) of this many
+    # epochs initializes the text encoder; ``mlm_pack`` packs its corpus.
+    mlm_epochs: int = 0
+    mlm_pack: bool = False

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -26,6 +26,26 @@ class Manifest:
 
     def __len__(self) -> int:
         return len(self.ids)
+
+    def select(self, indices: Sequence[int]) -> "Manifest":
+        idx = [int(i) for i in indices]
+        return Manifest(
+            ids=[self.ids[i] for i in idx],
+            texts=[self.texts[i] for i in idx],
+            img_paths=[self.img_paths[i] for i in idx],
+            labels=None if self.labels is None else self.labels[idx],
+        )
+
+    def concat(self, other: "Manifest") -> "Manifest":
+        labels = None
+        if self.labels is not None and other.labels is not None:
+            labels = np.concatenate([self.labels, other.labels])
+        return Manifest(
+            ids=self.ids + other.ids,
+            texts=self.texts + other.texts,
+            img_paths=self.img_paths + other.img_paths,
+            labels=labels,
+        )
 
 
 def read_manifest(path: str, is_test: bool = False) -> Manifest:

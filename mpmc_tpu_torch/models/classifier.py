@@ -2,7 +2,8 @@
 ``mpmc_tpu/models/classifier.py``):
 
 * ``TextClassifier`` (2A): text encoder, ``Pooler`` (any of the six modes),
-  a Linear head named ``output``;
+  a Linear head named ``output``; ``PackedTextClassifier`` is its packed
+  form;
 * ``ImageClassifier`` (2B): image backbone, then a Linear ``output`` or the
   zoo's ``BinaryHead``;
 * ``SimpleMultimodalClassifier`` (the organizers' simple 2C baseline, C28):
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig
+from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig, PoolingType
 from mpmc_tpu_torch.models.bert import TextEncoder
 from mpmc_tpu_torch.models.fusion import make_fusion
 from mpmc_tpu_torch.models.norm import BatchNorm, Dropout
@@ -36,7 +37,7 @@ from mpmc_tpu_torch.models.resnet import (ResNet, TinyResNet, resnet18,
                                           resnet50, resnext50_32x4d,
                                           seresnext50_32x4d)
 from mpmc_tpu_torch.models.vit import BinaryHead
-from mpmc_tpu_torch.ops.packing import unpack_cls
+from mpmc_tpu_torch.ops.packing import packed_sample_view, unpack_cls
 
 _BACKBONES = {"resnet18": resnet18, "resnet50": resnet50,
               "resnext50_32x4d": resnext50_32x4d,
@@ -100,6 +101,37 @@ class TextClassifier(nn.Module):
                 text_mask: torch.Tensor) -> torch.Tensor:
         hidden = self.encoder(text_ids, text_mask)
         return self.output(self.pooler(hidden, text_mask))
+
+
+class PackedTextClassifier(TextClassifier):
+    """``TextClassifier`` over a packed batch (``ops/packing.py``): several
+    samples per row under segment-masked attention with restarting
+    positions; CLS pooling gathers each sample's first token, mean and
+    attention pooling run on each sample's row masked to its own tokens,
+    so every sample's logits are the unpacked forward's.  The same modules
+    and parameters as ``TextClassifier``; only ``forward`` differs.  The
+    unmasked poolings (max, cnn, nopooling) would mix neighbouring samples
+    and are refused.
+
+    ``packed`` holds ``ids``, ``segments``, ``positions`` ``[R, P]`` and
+    the per-sample ``row_of``, ``slot_of``, ``start_of`` ``[B]``."""
+
+    def __init__(self, cfg: ModelConfig):
+        p = PoolingType(cfg.pooling)
+        if p in (PoolingType.MAX, PoolingType.CNN, PoolingType.NOPOOLING):
+            raise ValueError(f"pooling {p.value} is unmasked and cannot be "
+                             "packed (ops/packing.py)")
+        super().__init__(cfg)
+
+    def forward(self, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+        seg = packed["segments"]
+        hidden = self.encoder(packed["ids"], (seg > 0).to(torch.int32),
+                              segments=seg, positions=packed["positions"])
+        if self.pooler.pooling == PoolingType.CLS:
+            pooled = unpack_cls(hidden, packed)
+        else:
+            pooled = self.pooler(*packed_sample_view(hidden, packed))
+        return self.output(pooled)
 
 
 class ImageClassifier(nn.Module):
@@ -268,6 +300,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 MODEL_CLASSES = {cls.kind: cls for cls in (
     TextClassifier, ImageClassifier, SimpleMultimodalClassifier,
     MultimodalClassifier)}
+PACKED_CLASSES = {"text": PackedTextClassifier,
+                  "multimodal": PackedMultimodalClassifier}
 
 
 def build_model(cfg: ModelConfig, device: torch.device,
@@ -275,15 +309,15 @@ def build_model(cfg: ModelConfig, device: torch.device,
                 binary_head: bool = False,
                 packed: bool = False) -> nn.Module:
     """The classifier of ``kind`` (``text``, ``image``, ``simple`` or
-    ``multimodal``; ``packed``: the multimodal model's packed form;
+    ``multimodal``; ``packed``: the text or multimodal model's packed form;
     ``binary_head``: the image model's ``BinaryHead``) on ``device`` in
     eval mode; with ``seed``, random weights from a generator seeded with
     it (otherwise the caller loads a state_dict)."""
     if kind not in MODEL_CLASSES:
         raise ValueError(f"unknown model kind {kind!r}")
-    if packed and kind != "multimodal":
-        raise ValueError(f"the {kind} model has no packed form yet")
-    cls = PackedMultimodalClassifier if packed else MODEL_CLASSES[kind]
+    if packed and kind not in PACKED_CLASSES:
+        raise ValueError(f"the {kind} model has no packed form")
+    cls = PACKED_CLASSES[kind] if packed else MODEL_CLASSES[kind]
     with torch.device(device):
         model = cls(cfg, binary_head) if kind == "image" else cls(cfg)
     if seed is not None:

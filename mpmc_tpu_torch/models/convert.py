@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's classifier variables (text, image, simple
-and multimodal models) to the port's ``state_dict``.
+and multimodal models) to the port's ``state_dict``, and a text encoder's
+weights back to the flax tree (``to_jax_params``).
 
 Module names are the same on both sides, so keys map by path; layouts are
 the inverse of the JAX package's converters (``models/hf_convert.py``,
@@ -25,6 +26,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _MODULE_RENAME = {"ConcatAttention3_0": "fusion", "ConcatAttention_0": "fusion"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -76,3 +78,43 @@ def from_jax_variables(params: Mapping,
     if batch_stats:
         walk(batch_stats, (), True)
     return sd
+
+
+def to_jax_params(encoder: nn.Module) -> Dict:
+    """A port ``TextEncoder``'s weights as the flax parameter tree of the
+    JAX package's encoder (nested dicts of f32 numpy arrays), the inverse
+    of :func:`from_jax_variables` on that subtree: Linear ``[out, in]`` ->
+    kernel ``[in, out]``; the attention's q/k/v weight ``[heads*hd, H]`` ->
+    ``[H, heads, hd]`` (bias ``[heads, hd]``) and ``out`` ``[H, heads*hd]``
+    -> ``[heads, hd, H]``; LayerNorm ``weight`` -> ``scale``; Embedding
+    ``weight`` -> ``embedding``."""
+    heads = encoder.cfg.num_heads
+    tree: Dict = {}
+    for name, mod in encoder.named_modules():
+        if not any(True for _ in mod.parameters(recurse=False)):
+            continue
+        path = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        w = mod.weight.detach().cpu().float().numpy()
+        b = (mod.bias.detach().cpu().float().numpy()
+             if getattr(mod, "bias", None) is not None else None)
+        if isinstance(mod, nn.Embedding):
+            node["embedding"] = w
+            continue
+        if isinstance(mod, nn.LayerNorm):
+            node["scale"], node["bias"] = w, b
+            continue
+        if not isinstance(mod, nn.Linear):
+            raise TypeError(f"no flax layout for {type(mod).__name__} at "
+                            f"{name}")
+        if path[-1] in ("query", "key", "value"):
+            node["kernel"] = w.T.reshape(w.shape[1], heads, -1)
+            node["bias"] = b.reshape(heads, -1)
+        elif path[-1] == "out" and path[-2:-1] == ["attention"]:
+            node["kernel"] = w.T.reshape(heads, -1, w.shape[0])
+            node["bias"] = b
+        else:
+            node["kernel"], node["bias"] = w.T, b
+    return tree

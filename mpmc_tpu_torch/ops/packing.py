@@ -1,5 +1,5 @@
 """Sequence packing: many short samples per transformer row (copy of
-``pack_sequences`` and port of ``unpack_cls`` in
+``pack_sequences`` and port of ``packed_sample_view`` and ``unpack_cls`` in
 ``mpmc_tpu/ops/packing.py``).
 
 Several samples lie end to end in one row and stay independent through
@@ -13,7 +13,7 @@ device side gathers each sample's CLS from its row.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,19 @@ def pack_sequences(ids: np.ndarray, mask: np.ndarray, pack_len: int,
         positions[r, s0:s0 + L] = np.arange(L)
     return PackedBatch(out_ids, segments, positions, row_of, slot_of,
                        start_of)
+
+
+def packed_sample_view(hidden: torch.Tensor,
+                       packed: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample view of packed encoder output for the masked poolers:
+    ``[R, P, H] -> ([B, P, H], [B, P])``, row b being sample b's packed row
+    and the int32 mask selecting exactly its own tokens.  A padding slot
+    (``row_of`` and ``slot_of`` 0) selects row 0's padding tokens, or
+    none."""
+    row_of = packed["row_of"].long()
+    mask = packed["segments"][row_of] == packed["slot_of"][:, None]
+    return hidden[row_of], mask.to(torch.int32)
 
 
 def unpack_cls(hidden: torch.Tensor, packed: Dict[str, torch.Tensor]

@@ -88,6 +88,11 @@ class FitResult:
     steps: List[Dict[str, float]]  # per step: loss, grad_norm
 
 
+def _emit_threshold(cfg: TrainConfig, res: EvalResult) -> float:
+    return (cfg.emit_threshold if cfg.emit_threshold is not None
+            else res.threshold)
+
+
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device
                ) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -100,6 +105,7 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
         test_data: Optional[Dict[str, np.ndarray]] = None,
         val_data: Optional[Dict[str, np.ndarray]] = None,
         test_ids: Optional[List[str]] = None,
+        val_ids: Optional[List[str]] = None,
         fold: int = 0,
         tsv_prefix: Optional[str] = None,
         packed_plan=None,
@@ -108,8 +114,12 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
     """The epoch loop with the reference's cadence, on one device: eval of
     the test (and val) split ``cfg.eval_per_epoch`` times per epoch and at
     its end, and on a new best test macro-F1 the label and probability
-    TSVs (labels at that eval's Youden threshold) and ``on_best(step)``
-    (the checkpoint).
+    TSVs and ``on_best(step)`` (the checkpoint).  Labels are at
+    ``cfg.emit_threshold`` when set, else at that eval's Youden threshold;
+    the probability column is headed ``cfg.prob_header``; with
+    ``cfg.emit_val_tsv`` the val split's probability TSV
+    (``<prefix>_val_fold_<k>.tsv``, ids ``val_ids``) follows the same
+    rule.
 
     Batches are the packed plan's (``packed_plan``) or, unpacked, the
     shuffled ``train_rows`` of the device-resident store as ``idx``; the
@@ -179,6 +189,7 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
                      "Acc: %.4f | F1: %.4f | thresh: %.4f", epoch, bi,
                      steps_per_epoch, t_res.loss, t_res.accuracy,
                      t_res.macro_f1, t_res.threshold)
+            v_res = None
             if val_data is not None:
                 v_res = run_eval(eval_step, val_data, bs, device)
                 log.info("  VAL | Epoch [%d] | F1: %.4f", epoch,
@@ -186,11 +197,20 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
             if t_res.macro_f1 > best_f1:
                 best_f1 = t_res.macro_f1
                 if tsv_prefix and test_ids is not None:
-                    pred = (t_res.probs > t_res.threshold).astype(int)
+                    pred = (t_res.probs > _emit_threshold(cfg, t_res)
+                            ).astype(int)
                     write_label_tsv(f"{tsv_prefix}.tsv", test_ids, pred,
                                     run_id)
                     write_prob_tsv(f"{tsv_prefix}_probs_fold_{fold}.tsv",
-                                   test_ids, pred, t_res.probs, run_id)
+                                   test_ids, pred, t_res.probs, run_id,
+                                   prob_header=cfg.prob_header)
+                    if (cfg.emit_val_tsv and v_res is not None
+                            and val_ids is not None):
+                        vpred = (v_res.probs > _emit_threshold(cfg, v_res)
+                                 ).astype(int)
+                        write_prob_tsv(f"{tsv_prefix}_val_fold_{fold}.tsv",
+                                       val_ids, vpred, v_res.probs, run_id,
+                                       prob_header=cfg.prob_header)
                 if on_best is not None:
                     on_best(step_count)
         flush()

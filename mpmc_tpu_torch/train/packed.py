@@ -1,8 +1,19 @@
-"""Packed 2C training plan (copy of ``PackedMultimodalPlan`` and port of the
-batch adapter ``make_packed_multimodal_apply_fn`` in
+"""Packed training plans (copies of ``PackedTrainPlan`` and
+``PackedMultimodalPlan``, and port of the batch adapters
+``make_packed_text_apply_fn`` and ``make_packed_multimodal_apply_fn`` in
 ``mpmc_tpu/train/packed.py``).
 
-Every training batch keeps the same ``batch_size`` samples as unpacked
+2A (``PackedTrainPlan``): each epoch packs the whole shuffled train split
+once into ``[pack_len]`` rows, and a step takes ``rows_per_batch`` of them.
+The loss stays per sample: each batch carries ``rows_per_batch x
+max_segments`` sample slots (``row_of``, ``slot_of``, ``start_of`` local to
+the batch, ``label``, ``valid``), the unused ones zero with ``valid`` 0.
+First-fit-decreasing places samples in sorted-length order, so its row count
+depends only on the multiset of lengths: one pack of the unshuffled split
+gives every epoch's row budget, and the last row chunk is padded with zero
+rows.
+
+2C (``PackedMultimodalPlan``): every training batch keeps the same ``batch_size`` samples as unpacked
 training (image branch per sample, the same valid-weighted loss), but the
 text and caption tokens of those samples are packed into ``[R, pack_len]``
 rows, so both text encoders run fewer rows.  The row budgets R are the
@@ -20,6 +31,63 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from mpmc_tpu_torch.ops.packing import pack_sequences
+
+
+@dataclasses.dataclass
+class PackedTrainPlan:
+    """Per-epoch packed 2A batch factory for ``train.loop.fit``: batches of
+    ``t_ids``, ``t_segments``, ``t_positions`` ``[G, P]`` and ``t_row_of``,
+    ``t_slot_of``, ``t_start_of``, ``label``, ``valid`` ``[G *
+    max_segments]``."""
+
+    data: Dict[str, np.ndarray]
+    pack_len: int
+    rows_per_batch: int
+    max_segments: int = 16
+
+    def __post_init__(self):
+        probe = pack_sequences(self.data["text_ids"], self.data["text_mask"],
+                               self.pack_len, max_segments=self.max_segments)
+        self.row_budget = probe.num_rows
+        self.steps_per_epoch = -(-self.row_budget // self.rows_per_batch)
+        self.samples_per_batch = self.rows_per_batch * self.max_segments
+
+    @property
+    def row_budgets(self) -> Tuple[int]:
+        """The packed rows per epoch, ``(R,)``."""
+        return (self.row_budget,)
+
+    def epoch_iter(self, rng: np.random.Generator
+                   ) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
+        """Shuffle with ``rng``, pack the whole epoch, then yield
+        ``(batch, n_valid)`` per step of ``rows_per_batch`` rows."""
+        d = self.data
+        perm = rng.permutation(len(d["label"]))
+        packed = pack_sequences(d["text_ids"][perm], d["text_mask"][perm],
+                                self.pack_len, num_rows=self.row_budget,
+                                max_segments=self.max_segments)
+        labels = np.asarray(d["label"])[perm]
+        G, cap = self.rows_per_batch, self.samples_per_batch
+        for start in range(0, self.row_budget, G):
+            rows = slice(start, start + G)
+            pad = ((0, G - packed.ids[rows].shape[0]), (0, 0))
+            members = np.nonzero((packed.row_of >= start)
+                                 & (packed.row_of < start + G))[0]
+            k = len(members)
+            if k > cap:
+                raise ValueError("more samples in a batch than its slots")
+            batch = {"t_ids": np.pad(packed.ids[rows], pad),
+                     "t_segments": np.pad(packed.segments[rows], pad),
+                     "t_positions": np.pad(packed.positions[rows], pad)}
+            for key, src in (("t_row_of", packed.row_of - start),
+                             ("t_slot_of", packed.slot_of),
+                             ("t_start_of", packed.start_of)):
+                batch[key] = np.zeros(cap, np.int32)
+                batch[key][:k] = src[members]
+            batch["label"] = np.zeros(cap, labels.dtype)
+            batch["label"][:k] = labels[members]
+            batch["valid"] = (np.arange(cap) < k).astype(np.float32)
+            yield batch, k
 
 
 @dataclasses.dataclass
@@ -115,8 +183,9 @@ class PackedMultimodalPlan:
 
 
 def packed_model_inputs(batch: Dict) -> Tuple[Dict, Optional[Dict]]:
-    """The plan's batch layout as ``PackedMultimodalClassifier``'s
-    ``(text_packed, caption_packed)`` arguments."""
+    """A plan's batch layout as the packed models' arguments: ``(text_packed,
+    caption_packed)`` (``PackedTextClassifier`` takes the first; a batch
+    without caption rows gives None for the second)."""
 
     def branch(prefix):
         return {key: batch[f"{prefix}_{key}"]

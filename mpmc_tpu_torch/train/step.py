@@ -1,8 +1,9 @@
 """Train and eval steps (port of ``mpmc_tpu/train/step.py``): the eval step
-of every model kind; for the single-logit 2C model the train step, with the
-bf16 policy, the valid-weighted focal loss, the
-global-norm clip, grouped Adam with the fast recipe's bf16 first moment and
-factored-RMS word embeddings, and the linear-warmup schedule.
+of every model kind; the train step of the 2A text model and the 2C model,
+packed or not, with the bf16 policy, the valid-weighted focal (one logit)
+or cross-entropy (two) loss, the global-norm clip, grouped Adam with the
+fast recipe's bf16 first moment and factored-RMS word embeddings, and the
+linear-warmup or constant schedule.
 
 Precision policy under ``bf16``: the master parameters stay f32; every step
 runs the model on bf16 copies (``torch.func.functional_call``), so the
@@ -25,10 +26,10 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from mpmc_tpu_torch.config import TrainConfig
+from mpmc_tpu_torch.config import LossType, TrainConfig
 from mpmc_tpu_torch.image.augment import eval_preprocess, train_augment
-from mpmc_tpu_torch.models.classifier import (MultimodalClassifier,
-                                              PackedMultimodalClassifier,
+from mpmc_tpu_torch.models.classifier import (PackedMultimodalClassifier,
+                                              PackedTextClassifier,
                                               build_model)
 from mpmc_tpu_torch.models.norm import set_dropout_generator
 from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss, softmax_cross_entropy
@@ -120,6 +121,12 @@ def linear_warmup_schedule(base_lr: float, warmup_steps: int,
     return schedule
 
 
+def constant_schedule(base_lr: float) -> Callable[[int], float]:
+    """The 2A schedule (``optax.constant_schedule``): the base LR at every
+    step."""
+    return lambda step: float(base_lr)
+
+
 def param_group(name: str) -> str:
     """The reference's grouping: any parameter under ``text_model``,
     ``caption_text_model`` or ``image_model`` is ``encoder`` (0.8x lr); the
@@ -140,14 +147,64 @@ def _factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
+def clip_by_global_norm(grads: List[torch.Tensor], grad_norm: torch.Tensor,
+                        clip: float) -> List[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: the gradients as they are when their
+    global norm is below ``clip``, else scaled by ``clip / norm`` (divided,
+    then multiplied, as optax rounds)."""
+    if float(grad_norm) < clip:
+        return grads
+    grads = torch._foreach_div(grads, grad_norm)
+    torch._foreach_mul_(grads, clip)
+    return grads
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def adam_updates(g: List[torch.Tensor], states: List[Dict[str, torch.Tensor]],
+                 c: int) -> List[torch.Tensor]:
+    """optax ``scale_by_adam`` at step ``c`` (0-based) for the gradients
+    ``g``: updates each state's ``mu`` (f32 or bf16) and f32 ``nu`` and
+    returns the bias-corrected ``mu_hat / (sqrt(nu_hat) + eps)``."""
+    mu = [st["mu"] for st in states]
+    nu = [st["nu"] for st in states]
+    # The decay product is taken in the moment's dtype (bf16 under the
+    # fast recipe), as JAX multiplies a bf16 array by a Python float; it is
+    # widened into f32 scratch so that every list op below has one dtype
+    # (mixed-dtype lists leave the multi-tensor kernels).
+    decayed = torch._foreach_mul(mu, torch.tensor(ADAM_B1,
+                                                  dtype=mu[0].dtype))
+    if mu[0].dtype != torch.float32:
+        wide = [st.setdefault("mu_f32", torch.empty_like(g_))
+                for st, g_ in zip(states, g)]
+        torch._foreach_copy_(wide, decayed)
+        decayed = wide
+    mu_new = torch._foreach_mul(g, 1 - ADAM_B1)
+    torch._foreach_add_(mu_new, decayed)
+    nu_new = torch._foreach_mul(g, g)
+    torch._foreach_mul_(nu_new, 1 - ADAM_B2)
+    torch._foreach_add_(nu_new, torch._foreach_mul(nu, ADAM_B2))
+    t = np.float32(c + 1)
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** t)
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** t)
+    denom = torch._foreach_sqrt(torch._foreach_div(nu_new, bc2))
+    torch._foreach_add_(denom, ADAM_EPS)
+    updates = torch._foreach_div(torch._foreach_div(mu_new, bc1), denom)
+    torch._foreach_copy_(mu, mu_new)               # rounds to mu's dtype
+    for st, v in zip(states, nu_new):
+        st["nu"] = v
+    return updates
+
+
 class Optimizer:
     """``clip_by_global_norm(grad_clip_norm)`` then, per group, Adam at the
-    head or encoder schedule, or (``embed``: ``word_embeddings`` under
+    head or encoder schedule (``cfg.lr_schedule``: linear warmup over
+    ``total_steps``, or constant), or (``embed``: ``word_embeddings`` under
     ``embedding_optimizer="factored"``) factored RMS with decay 0.8 and
     epsilon 1e-30 at the encoder schedule.  Updates the parameters in
     place; parameters without a gradient take a zero one."""
 
-    B1, B2, EPS = 0.9, 0.999, 1e-8
     RMS_DECAY, RMS_EPS = 0.8, 1e-30
 
     def __init__(self, cfg: TrainConfig, total_steps: int,
@@ -155,13 +212,19 @@ class Optimizer:
         if cfg.embedding_optimizer not in ("adam", "factored"):
             raise ValueError(f"embedding_optimizer "
                              f"{cfg.embedding_optimizer!r} is not ported")
-        warmup = int(cfg.warmup_fraction * total_steps)
-        self.schedules = {
-            "head": linear_warmup_schedule(cfg.learning_rate, warmup,
-                                           total_steps),
-            "encoder": linear_warmup_schedule(
-                cfg.learning_rate * cfg.encoder_lr_scale, warmup,
-                total_steps)}
+        lrs = {"head": cfg.learning_rate,
+               "encoder": cfg.learning_rate * cfg.encoder_lr_scale}
+        if cfg.lr_schedule == "constant":
+            self.schedules = {g: constant_schedule(lr)
+                              for g, lr in lrs.items()}
+        elif cfg.lr_schedule == "linear_warmup":
+            warmup = int(cfg.warmup_fraction * total_steps)
+            self.schedules = {g: linear_warmup_schedule(lr, warmup,
+                                                        total_steps)
+                              for g, lr in lrs.items()}
+        else:
+            raise ValueError(f"unknown lr_schedule: {cfg.lr_schedule!r} "
+                             "(expected 'linear_warmup' or 'constant')")
         self.schedules["embed"] = self.schedules["encoder"]
         self.clip = cfg.grad_clip_norm
         mu_dtype = (getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype
@@ -203,11 +266,8 @@ class Optimizer:
         is the step's one wait on the device."""
         c = self.count
         names = list(self.params)
-        g_list = [grads[n] for n in names]
-        if not float(grad_norm) < self.clip:       # optax: keep if below
-            g_list = torch._foreach_div(g_list, grad_norm)
-            torch._foreach_mul_(g_list, self.clip)
-        g = dict(zip(names, g_list))
+        g = dict(zip(names, clip_by_global_norm(
+            [grads[n] for n in names], grad_norm, self.clip)))
         for label, schedule in self.schedules.items():
             group = [n for n in names if self.label[n] == label]
             if not group:
@@ -218,41 +278,11 @@ class Optimizer:
                 updates = [self._factored_rms(g[n], self.state[n], c)
                            for n in group]
             else:
-                updates = self._adam([g[n] for n in group],
-                                     [self.state[n] for n in group], c)
+                updates = adam_updates([g[n] for n in group],
+                                       [self.state[n] for n in group], c)
             torch._foreach_mul_(updates, lr)
             torch._foreach_add_(params, updates)
         self.count = c + 1
-
-    def _adam(self, g, states, c):
-        mu = [st["mu"] for st in states]
-        nu = [st["nu"] for st in states]
-        # The decay product is taken in the moment's dtype (bf16 under the
-        # fast recipe), as JAX multiplies a bf16 array by a Python float;
-        # it is widened into f32 scratch so that every list op below has
-        # one dtype (mixed-dtype lists leave the multi-tensor kernels).
-        decayed = torch._foreach_mul(mu, torch.tensor(self.B1,
-                                                      dtype=mu[0].dtype))
-        if mu[0].dtype != torch.float32:
-            wide = [st.setdefault("mu_f32", torch.empty_like(g_))
-                    for st, g_ in zip(states, g)]
-            torch._foreach_copy_(wide, decayed)
-            decayed = wide
-        mu_new = torch._foreach_mul(g, 1 - self.B1)
-        torch._foreach_add_(mu_new, decayed)
-        nu_new = torch._foreach_mul(g, g)
-        torch._foreach_mul_(nu_new, 1 - self.B2)
-        torch._foreach_add_(nu_new, torch._foreach_mul(nu, self.B2))
-        t = np.float32(c + 1)
-        bc1 = float(np.float32(1) - np.float32(self.B1) ** t)
-        bc2 = float(np.float32(1) - np.float32(self.B2) ** t)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu_new, bc2))
-        torch._foreach_add_(denom, self.EPS)
-        updates = torch._foreach_div(torch._foreach_div(mu_new, bc1), denom)
-        torch._foreach_copy_(mu, mu_new)           # rounds to mu's dtype
-        for st, v in zip(states, nu_new):
-            st["nu"] = v
-        return updates
 
     def _factored_rms(self, g, st, c):
         decay = np.float32(1) - np.float32(c + 1) ** np.float32(
@@ -279,12 +309,17 @@ class Optimizer:
 
 def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
                       valid: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
-    """Focal loss over the valid rows: ``sum(vec * w) / max(sum(w), 1e-9)``
-    (the replicated rows of a short last batch carry zero weight)."""
-    vec = sigmoid_focal_loss(outputs.to(torch.float32),
-                             labels.to(torch.float32),
-                             alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
-                             reduction="none")
+    """``cfg.loss`` (focal, or softmax cross-entropy over integer labels)
+    over the valid rows: ``sum(vec * w) / max(sum(w), 1e-9)`` (replicated
+    rows of a short last batch and empty packed slots carry zero
+    weight)."""
+    outputs = outputs.to(torch.float32)
+    if cfg.loss == LossType.FOCAL:
+        vec = sigmoid_focal_loss(outputs, labels.to(torch.float32),
+                                 alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
+                                 reduction="none")
+    else:
+        vec = softmax_cross_entropy(outputs, labels, reduction="none")
     w = valid.to(torch.float32)
     return torch.sum(vec * w) / torch.clamp(torch.sum(w), min=1e-9)
 
@@ -308,12 +343,17 @@ class TrainStep:
     """One optimizer step on ``model`` per call: ``step(batch) -> {"loss",
     "grad_norm"}`` (0-dim device tensors; the norm is the pre-clip one).
 
+    The model gets its own batch keys: a packed model the plan's packed
+    rows (``packed_model_inputs``), any other its ``inputs``; an image goes
+    through ``augment`` first, and a model without one needs no image, no
+    augmentation and no image store.
+
     Under ``bf16`` the model runs on bf16 copies of the f32 masters, kept
     as leaves of their own and refreshed from the masters after every
     update; their bf16 gradients widen to f32 exactly, so the optimizer
     sees what the JAX package's cast-inside-the-loss gives."""
 
-    model: MultimodalClassifier
+    model: nn.Module
     cfg: TrainConfig
     optimizer: Optimizer
     store: Dict[str, torch.Tensor]
@@ -333,13 +373,16 @@ class TrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         b = gather_batch(batch, self.store)
-        image = self.augment(b["image"], self.generator).to(self.dtype)
+        if "image" in self.model.inputs:
+            b["image"] = self.augment(b["image"],
+                                      self.generator).to(self.dtype)
         if isinstance(self.model, PackedMultimodalClassifier):
             text, caption = packed_model_inputs(b)
-            args = (text, image, caption)
+            args = (text, b["image"], caption)
+        elif isinstance(self.model, PackedTextClassifier):
+            args = (packed_model_inputs(b)[0],)
         else:
-            args = (b.get("text_ids"), b.get("text_mask"), image,
-                    b.get("caption_ids"), b.get("caption_mask"))
+            args = tuple(b.get(key) for key in self.model.inputs)
         self.model.train()
         params = self.optimizer.params
         if self.compute is None:
@@ -363,7 +406,7 @@ class TrainStep:
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
 
-def build_train_step(model: MultimodalClassifier, cfg: TrainConfig,
+def build_train_step(model: nn.Module, cfg: TrainConfig,
                      total_steps: int, store: Dict[str, torch.Tensor],
                      generator: torch.Generator,
                      augment: Optional[Augment] = None) -> TrainStep:
