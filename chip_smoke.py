@@ -50,7 +50,19 @@ toolkit.  Phases, each of which raises on failure:
    MLM encoder bit for bit; then ``train --subtask 2a --recipe reference
    --mlm-epochs 2 --mlm-pack`` (a packed MLM stage, its npz spliced into an
    unpacked fine-tune) and ``train --subtask 2a --text-params`` with that
-   npz, launches checked as before.
+   npz, launches checked as before;
+9. hold the attention pair at ViT's shapes in mode none (``[16,197,12,64]``,
+   ``[16,50,12,64]``, ``[16,577,12,64]``, ``[16,577,16,64]``) against the
+   plain versions in f32 and bf16, and time it in bf16 beside SDPA; the
+   image kernel likewise at ``[16,384,384,3]``; drive the 2B ``train``
+   command line at full width on phase 5's manifests (folds over train,
+   dev as the test split, fold 0, one epoch, bf16, unpacked), once with
+   ResNet-18 at 224 and once with ViT-B/16 at 384, launch counts zeroed
+   before and read after (the image kernel once a step; for the ViT 12
+   forward and 12 backward launches a step and 12 forward per eval batch);
+   ``predict --checkpoint`` from the ViT run reproduces its best eval; warm
+   steps with device and host profiles; and ViT-B/32, ViT-L/16,
+   EfficientNet-B3 and ConvNeXt-Tiny card vs CPU in f32.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -66,9 +78,9 @@ segment ids) and at the MLM shapes, packed and unpacked, after holding
 the forward and backward kernels against their plain versions there.
 
 Prints the card's name and power limit, each phase's result, the
-``predict_kinds`` and ``train_2a``/``mlm`` JSON lines, a ``kernels`` JSON
-line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
-without a CUDA device or outside the repository.
+``predict_kinds``, ``train_2a``/``mlm`` and ``train_2b`` JSON lines, a
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
+non-zero without a CUDA device or outside the repository.
 """
 
 from __future__ import annotations
@@ -604,13 +616,13 @@ def phase_kernels_bwd(torch):
     return results, err_main
 
 
-def phase_image_kernel(torch):
-    """The fused image kernel vs its plain version at the train step's
-    image shape, both flip values present; timings."""
+def phase_image_kernel(torch, shape=IMAGE_SHAPE):
+    """The fused image kernel vs its plain version at a train step's image
+    shape, both flip values present; timings."""
     from mpmc_tpu_torch.ops import image_ops as I
     gen = torch.Generator(device="cuda").manual_seed(2)
-    B = IMAGE_SHAPE[0]
-    u8 = torch.randint(0, 256, IMAGE_SHAPE, device="cuda", generator=gen,
+    B = shape[0]
+    u8 = torch.randint(0, 256, shape, device="cuda", generator=gen,
                        dtype=torch.uint8)
     flip = torch.arange(B, device="cuda") % 2 == 0
     bright = 0.9 + 0.2 * torch.rand(B, device="cuda", generator=gen)
@@ -629,12 +641,12 @@ def phase_image_kernel(torch):
     t_bytes, t_ops = 5 * n / PEAK_BYTES_S, 5 * n / PEAK_FLOPS["float32"]
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"  image_normalize {IMAGE_SHAPE} uint8 -> f32, flips "
+    print(f"  image_normalize {shape} uint8 -> f32, flips "
           f"{int(flip.sum())}/{B}: max|out-plain| {err:.3g} (tol 1e-6); "
           f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes "
           f"this function")
-    return dict(shape=list(IMAGE_SHAPE), dtype="uint8->float32", ms=ms,
+    return dict(shape=list(shape), dtype="uint8->float32", ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=err)
 
@@ -719,22 +731,27 @@ def read_probs(path: str):
 
 
 def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None):
-    """Fold 0 of a phase 5 (2C) or phase 8 (2A) run rebuilt from its command
-    line: prepared data, the epoch's packed batches (host arrays), and the
-    fold's model and steps (weights from the run's seed)."""
+    """Fold 0 of a phase 5 (2C), phase 8 (2A) or phase 9 (2B) run rebuilt
+    from its command line: prepared data, the epoch's batches (host arrays:
+    the plan's packed batches, or unpacked the shuffled row indices), and
+    the fold's model and steps (weights from the run's seed)."""
     import dataclasses
     import numpy as np
     from mpmc_tpu_torch.cli.experiments import (_select, build_fold,
-                                                prepare_2a, prepare_2c,
-                                                resident_store)
+                                                prepare_2a, prepare_2b,
+                                                prepare_2c, resident_store)
     from mpmc_tpu_torch.cli.main import build_parser, train_config
     from mpmc_tpu_torch.cv.kfold import stratified_kfold
+    from mpmc_tpu_torch.train.loop import batch_iter
     args = build_parser().parse_args(argv)
     cfg, _ = train_config(args)
-    prepare, kind = ((prepare_2a, "text") if args.subtask == "2a"
-                     else (prepare_2c, "multimodal"))
-    prep = prepare(dataclasses.replace(cfg, checkpoint_dir=None),
-                   tempfile.mkdtemp(dir=os.getcwd()))
+    cfg = dataclasses.replace(cfg, checkpoint_dir=None)
+    if args.subtask == "2b":
+        prep, kind = prepare_2b(cfg), "image"
+    else:
+        prepare, kind = ((prepare_2a, "text") if args.subtask == "2a"
+                         else (prepare_2c, "multimodal"))
+        prep = prepare(cfg, tempfile.mkdtemp(dir=os.getcwd()))
     cfg = dataclasses.replace(prep.cfg, bf16=bf16)
     if dropout_zero:
         m = cfg.model
@@ -749,20 +766,24 @@ def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None):
     store = resident_store(cfg, prep.data, device)
     run = build_fold(cfg, _select(prep.data, tr_idx), tr_idx, store, device,
                      0, augment, kind)
-    batches = [b for b, _ in run.plan.epoch_iter(
-        np.random.default_rng(cfg.seed))]
-    return cfg, run, batches
+    rng = np.random.default_rng(cfg.seed)
+    it = (run.plan.epoch_iter(rng) if run.plan is not None else batch_iter(
+        {"idx": tr_idx.astype(np.int64)}, cfg.data.batch_size, shuffle=True,
+        rng=rng, with_valid=True))
+    return cfg, run, [b for b, _ in it]
 
 
-def time_attention_at(torch, mask, mode: str, dtype, gen, what: str):
-    """The attention pair at one main-path shape ``[rows, S, 12, 64]``,
-    ``mask`` the path's own key mask or segment ids: forward and backward
-    kernels held against their plain versions on the same inputs, then
-    timed beside the plain versions, the autograd pair, and SDPA with the
-    same additive bias (for segments a ``[B,1,S,S]`` bias from the ids)."""
+def time_attention_at(torch, mask, mode: str, dtype, gen, what: str,
+                      heads: int = 12, rows_seq=None):
+    """The attention pair at one main-path shape ``[rows, S, heads, 64]``,
+    ``mask`` the path's own key mask or segment ids (None in mode none,
+    with ``rows_seq = (rows, S)``): forward and backward kernels held
+    against their plain versions on the same inputs, then timed beside the
+    plain versions, the autograd pair, and SDPA with the same additive bias
+    (for segments a ``[B,1,S,S]`` bias from the ids; none in mode none)."""
     from mpmc_tpu_torch.ops import attention as A
-    rows, S = mask.shape
-    q, k, v, do = (torch.randn(rows, S, 12, 64, device="cuda",
+    rows, S = rows_seq or mask.shape
+    q, k, v, do = (torch.randn(rows, S, heads, 64, device="cuda",
                                generator=gen).to(dtype) for _ in range(4))
     out, lse = A.attention_forward_cuda(q, k, v, mask, mode)
     got = A.attention_backward_cuda(q, k, v, mask, mode, out, lse, do)
@@ -787,18 +808,20 @@ def time_attention_at(torch, mask, mode: str, dtype, gen, what: str):
     else:
         pair = lambda: torch.autograd.grad(A.dot_product_attention(  # noqa
             *leaves, mask), leaves, do)
-        bias = ((1.0 - mask) * -1e9).to(dtype)[:, None, None, :]
+        bias = (None if mask is None
+                else ((1.0 - mask) * -1e9).to(dtype)[:, None, None, :])
     pair_ms = graph_ms(torch, pair)
     sdpa_fwd, sdpa_bwd, sdpa_pair = sdpa_times(torch, q, k, v, bias, do)
     bound_ms, bound_by = backward_bound_ms(q, k, mode)
     fwd_bound_ms, _ = attention_bound_ms(q, k, mode)
-    print(f"  attention at {what} [{rows},{S},12,64] {str(dtype)[6:]} {mode}: "
+    print(f"  attention at {what} [{rows},{S},{heads},64] {str(dtype)[6:]} "
+          f"{mode}: "
           f"backward {ms:.5f} ms (sdpa backward alone {sdpa_bwd:.5f}, plain "
           f"{plain_ms:.5f}, bound {bound_ms:.5f} {bound_by}), forward "
           f"{fwd_ms:.5f} ms (sdpa {sdpa_fwd:.5f}, plain {fwd_plain_ms:.5f}, "
           f"bound {fwd_bound_ms:.5f}), forward+backward {pair_ms:.5f} ms "
           f"(sdpa {sdpa_pair:.5f})")
-    return dict(shape=[rows, S, 12, 64], mode=mode, dtype=str(dtype),
+    return dict(shape=[rows, S, heads, 64], mode=mode, dtype=str(dtype),
                 max_abs_err=bwd_err, fwd_max_abs_err=fwd_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
@@ -807,12 +830,13 @@ def time_attention_at(torch, mask, mode: str, dtype, gen, what: str):
                 library_pair_ms=sdpa_pair)
 
 
-def warm_steps(torch, run, batches, per_step: int):
+def warm_steps(torch, run, batches, per_step: int, bwd_kernels: int = 1):
     """Warm train steps of a fold: ms per step (the first step excluded), a
-    device-time profile by kernel of 3 steps (which must launch one
-    backward kernel ``per_step`` times a step) and a host profile of 3
-    more.  Returns the warm times, the profile's wall and kernel ms, and the
-    batches on the card."""
+    device-time profile by kernel of 3 steps (which must launch
+    ``bwd_kernels`` backward kernels ``per_step`` times a step each: one at
+    S <= 128, dQ and dK/dV beyond; none when ``per_step`` is 0) and a host
+    profile of 3 more.  Returns the warm times, the profile's wall and
+    kernel ms, and the batches on the card."""
     dev = torch.device("cuda")
     to_dev = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
               for b in batches]
@@ -824,8 +848,9 @@ def warm_steps(torch, run, batches, per_step: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     warm = sorted(times[1:])
-    print(f"  warm train steps ({len(warm)} after the first, packed row "
-          f"budgets {tuple(run.plan.row_budgets)}): median "
+    rows = (f"packed row budgets {tuple(run.plan.row_budgets)}"
+            if run.plan is not None else "unpacked")
+    print(f"  warm train steps ({len(warm)} after the first, {rows}): median "
           f"{warm[len(warm) // 2]:.3f} ms/step, mean "
           f"{sum(warm) / len(warm):.3f} ms/step (first step "
           f"{times[0]:.3f} ms)")
@@ -857,9 +882,10 @@ def warm_steps(torch, run, batches, per_step: int):
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:100]}")
     bwd = [(e.key, e.count) for e in ours if "attention_bwd" in e.key]
-    check(len(bwd) == 1 and bwd[0][1] == per_step * 3,
-          f"the backward should be one kernel launched {per_step} times a "
-          f"step at S <= 128, got {bwd}")
+    want = bwd_kernels if per_step else 0
+    check(len(bwd) == want and all(n == per_step * 3 for _, n in bwd),
+          f"the backward should be {want} kernels launched {per_step} times "
+          f"a step each, got {bwd}")
     # Where the host's time goes (Python's profiler, 3 more steps).
     import cProfile
     import pstats
@@ -1516,6 +1542,210 @@ def phase_submission(work: str, prob_files, label_files):
           f"the plain {macro}")
 
 
+# Phase 9: full-width 2B train (name, flags, attention layers; launches of
+# each attention kernel a step and per eval batch).
+TRAIN_2B = [("train_2b_resnet18", [], 0),
+            ("train_2b_vit", ["--image-arch", "vit_base_16", "--image-size",
+                              "384"], 12)]
+# ViT's attention shapes at batch 16, mode none: [16, 1 + (size/patch)^2,
+# heads, 64] (name, rows, S, heads).
+VIT_SHAPES = [("vit_b16_224", 16, 197, 12), ("vit_b32_224", 16, 50, 12),
+              ("vit_b16_384", 16, 577, 12), ("vit_l16_384", 16, 577, 16)]
+IMAGE_SHAPE_384 = (16, 384, 384, 3)  # the ViT run's image batch
+# Each new backbone class at full width, card vs CPU in f32: (label, arch,
+# image size, images, attention launches of one forward).
+BACKBONE_CHECKS = [("ViT-B/32", "vit_base_32", 224, 3, 12),
+                   ("ViT-L/16", "vit_large_16", 384, 1, 24),
+                   ("EfficientNet-B3", "efficientnet_b3", 384, 3, 0),
+                   ("ConvNeXt-Tiny", "convnext_tiny", 224, 3, 0)]
+
+
+def phase_vit_kernels(torch):
+    """The attention pair at ViT's shapes: in f32 held against the plain
+    versions; in bf16 (the train path's type) held and then timed beside
+    the plain versions and SDPA (no mask) by ``time_attention_at``.  Then
+    the image kernel at the ViT run's 384-pixel batch."""
+    from mpmc_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fwd_err = bwd_err = 0.0
+    for name, rows, S, heads in VIT_SHAPES:
+        q, k, v, do = (torch.randn(rows, S, heads, 64, device="cuda",
+                                   generator=gen) for _ in range(4))
+        out, lse = A.attention_forward_cuda(q, k, v, None, "none")
+        got = A.attention_backward_cuda(q, k, v, None, "none", out, lse, do)
+        torch.cuda.synchronize()
+        tag = f"{name} none {tuple(q.shape)} float32"
+        fwd_err = max(fwd_err, check_forward(A, q, k, v, None, "none", out,
+                                             lse, tag))
+        bwd_err = max(bwd_err, check_backward(A, q, k, v, None, "none", out,
+                                              lse, do, got, tag))
+        del q, k, v, do, out, lse, got
+    shapes = {}
+    for name, rows, S, heads in VIT_SHAPES:
+        shapes[name] = time_attention_at(torch, None, "none", torch.bfloat16,
+                                         gen, name, heads, (rows, S))
+    torch.cuda.empty_cache()
+    image = phase_image_kernel(torch, IMAGE_SHAPE_384)
+    return shapes, dict(fwd_max_abs_err=fwd_err, max_abs_err=bwd_err), image
+
+
+def train_2b_cli(torch, work: str, name: str, flags, layers: int):
+    """``train --subtask 2b`` through the command line on phase 5's
+    manifests (folds over train, dev as the test split, fold 0, one epoch,
+    batch 16, bf16), launch counts zeroed before and read after: the image
+    kernel once a step, and ``layers`` attention launches a step (forward
+    and backward) and per eval batch (forward; test and val passes).
+    Checks the finite losses, no packing, and the two TSVs."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.io.tsv import check_format
+    from mpmc_tpu_torch.ops import build
+    out_dir = os.path.join(work, f"{name}_out")
+    argv = ["train", "--subtask", "2b",
+            "-tr", os.path.join(work, "train.json"),
+            "-te", os.path.join(work, "dev.json"), "--image-root", work,
+            "--fold", "0", "--epochs", "1",
+            "--checkpoint-dir", os.path.join(work, f"{name}_ck"),
+            "--out-dir", out_dir, "--device", "cuda"] + flags
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"train --subtask 2b {' '.join(flags)} returned {rc}")
+    with open(os.path.join(out_dir, "task2B_train_metrics_fold_0.json")) as f:
+        metrics = json.load(f)
+    steps = len(metrics["steps"])
+    check(steps == metrics["steps_per_epoch"] > 0, "steps missing")
+    check(metrics["row_budgets"] is None, "2B packed its batches")
+    evals = len(metrics["evals"])
+    eval_batches = evals * (math.ceil(metrics["n_test"] / BATCH)
+                            + math.ceil(metrics["n_val"] / BATCH))
+    want = {"attention_fwd": layers * (steps + eval_batches),
+            "attention_bwd": layers * steps, "image_normalize": steps}
+    check(launches == want, f"{name} launches {launches}, expected {want}")
+    bad = [s for s in metrics["steps"]
+           if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+    check(not bad, f"non-finite loss or grad norm: {bad}")
+    prefix = os.path.join(out_dir, "task2B_kevinmathew")
+    check(check_format(prefix + ".tsv"), "the 2B label TSV fails check_format")
+    probs = read_probs(prefix + "_probs_fold_0.tsv")
+    check(len(probs) == N_DEV and all(0.0 <= p <= 1.0 for p in probs),
+          "2B probabilities missing or out of range")
+    print(f"  train --subtask 2b {' '.join(flags)} --fold 0 --epochs 1, "
+          f"{metrics['n_train']} train / {metrics['n_val']} val / "
+          f"{metrics['n_test']} test memes, batch {BATCH}, bf16, unpacked: rc "
+          f"0, {wall:.3f} s wall (model build, image decode, {evals} evals "
+          f"and first-call set-up included)")
+    print(f"  {steps} steps; losses "
+          f"{[round(s['loss'], 5) for s in metrics['steps']]}, grad norms "
+          f"{[round(s['grad_norm'], 4) for s in metrics['steps']]}")
+    print(f"  launches: attention_fwd {launches['attention_fwd']} = {layers} "
+          f"x ({steps} steps + {eval_batches} eval batches), attention_bwd "
+          f"{launches['attention_bwd']} = {layers} x {steps}, image_normalize "
+          f"{launches['image_normalize']} = {steps}; TSVs pass check_format")
+    return argv, launches, wall, prefix + "_probs_fold_0.tsv"
+
+
+def phase_train_2b(torch, work: str):
+    """Full-width 2B train through the command line, ResNet-18 at 224 and
+    ViT-B/16 at 384: launch counts, TSVs, ``predict --checkpoint`` from the
+    ViT run reproducing its best eval, and warm steps with device and host
+    profiles."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    results = {}
+    for name, flags, layers in TRAIN_2B:
+        argv, launches, wall, probs_tsv = train_2b_cli(torch, work, name,
+                                                       flags, layers)
+        if layers:
+            pred_out, pred_probs = (os.path.join(work, n)
+                                    for n in ("p2b.tsv", "pp2b.tsv"))
+            check(cli_main(["predict", "--subtask", "2b", "--manifest",
+                            os.path.join(work, "dev.json"), "--checkpoint",
+                            os.path.join(work, f"{name}_ck", "fold_0"),
+                            "--image-root", work, "--out", pred_out,
+                            "--probs-out", pred_probs, "--device",
+                            "cuda"]) == 0, "predict --subtask 2b failed")
+            got, best = read_probs(pred_probs), read_probs(probs_tsv)
+            err = max(abs(a - b) for a, b in zip(got, best))
+            check(len(got) == len(best) == N_DEV and err <= 1e-4,
+                  f"2B predict from the checkpoint differs from the best "
+                  f"eval by {err}")
+            print(f"  predict --subtask 2b --checkpoint (ViT-B/16 at 384 "
+                  f"from run_meta.json) on the dev manifest: max |prob - "
+                  f"best eval prob| {err:.3g} (tol 1e-4)")
+        _, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
+                                 device=torch.device("cuda"))
+        warm, wall_ms, busy_ms, _ = warm_steps(torch, run, batches, layers,
+                                               bwd_kernels=2)
+        results[name] = dict(launches=launches, wall_s=wall,
+                             warm_step_ms_median=warm[len(warm) // 2],
+                             warm_steps=len(warm), profiled_wall_ms=wall_ms,
+                             profiled_kernel_ms=busy_ms)
+        del run, batches
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_backbones_card_vs_cpu(torch):
+    """Each new backbone class at full width inside ``ImageClassifier``,
+    same weights, on the card (kernels) and the CPU (plain versions) in f32
+    with TF32 off, on random images through ``eval_preprocess``, in train
+    mode (BatchNorm on the batch statistics: with the initial running
+    statistics EfficientNet's features all but vanish): the backbone's
+    features and the logits within 1e-4 of max(1, their largest CPU
+    value)."""
+    from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig
+    from mpmc_tpu_torch.image.augment import eval_preprocess
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(10)
+    for label, arch, size, n, launches in BACKBONE_CHECKS:
+        cfg = ModelConfig(num_classes=2, image=ImageEncoderConfig(
+            arch=arch, image_size=size))
+        gpu = build_model(cfg, torch.device("cuda"), seed=7, kind="image")
+        cpu = build_model(cfg, torch.device("cpu"), kind="image")
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+        u8 = torch.randint(0, 256, (n, size, size, 3), generator=gen,
+                           dtype=torch.uint8)
+
+        def run(model, device):
+            feats = {}
+            hook = model.backbone.register_forward_hook(
+                lambda mod, inp, out: feats.__setitem__("x", out.cpu()))
+            with torch.no_grad():
+                logits = model.train()(eval_preprocess(u8.to(device))).cpu()
+            hook.remove()
+            return feats["x"], logits
+
+        t0 = time.perf_counter()
+        before = A.launch_counts["attention_fwd"]
+        on_card = run(gpu, torch.device("cuda"))
+        check(A.launch_counts["attention_fwd"] - before == launches,
+              f"{label}: the card forward launched attention_fwd "
+              f"{A.launch_counts['attention_fwd'] - before} times, expected "
+              f"{launches}")
+        on_cpu = run(cpu, torch.device("cpu"))
+        errs = []
+        for what, g, c in zip(("features", "logits"), on_card, on_cpu):
+            err = (g - c).abs().max().item()
+            scale = max(1.0, c.abs().max().item())
+            errs.append(f"{what} {tuple(c.shape)} {err:.3g} (tol 1e-4 x "
+                        f"{scale:.4g})")
+            check(bool(torch.isfinite(g).all()),
+                  f"{label}: non-finite {what} on the card")
+            check(err <= 1e-4 * scale,
+                  f"{label}: card and CPU disagree in f32 on the {what}")
+        print(f"  f32 {label} at {size}, {n} image(s), card vs CPU max abs "
+              f"diff: {'; '.join(errs)}; attention_fwd launches {launches}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+
 T_START = time.perf_counter()
 
 
@@ -1592,6 +1822,10 @@ def main() -> int:
             mlm = phase_mlm(torch, argv_2a)
             print("  the reference recipe with packed MLM, and --text-params:")
             more_2a = phase_train_2a_more(torch, work, mlm["npz"])
+            print("phase 9 full-width 2B train and the image zoo:")
+            vit_shapes, vit_f32, image_384 = phase_vit_kernels(torch)
+            train_2b = phase_train_2b(torch, work)
+            phase_backbones_card_vs_cpu(torch)
         finally:
             os.chdir(cwd)
 
@@ -1617,7 +1851,9 @@ def main() -> int:
                 "attention_fwd"],
             "mlm_pack": more_2a["mlm_pack"]["launches"]["attention_fwd"],
             "train_2a_text_params": more_2a["text_params"]["launches"][
-                "attention_fwd"]},
+                "attention_fwd"],
+            **{k: v["launches"]["attention_fwd"]
+               for k, v in train_2b.items()}},
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
                 "library_ms": v["library_fwd_ms"],
@@ -1628,7 +1864,12 @@ def main() -> int:
             "fwd_plain_ms", "library_fwd_ms", "fwd_bound_ms")}
            for name, shape in (("train_2a", warm_2a["shape"]),
                                ("mlm", mlm["shape"]),
-                               ("mlm_pack", more_2a["mlm_pack"]["shape"]))}}, {
+                               ("mlm_pack", more_2a["mlm_pack"]["shape"]))},
+        "vit_shapes": {name: {m: shape[m] for m in (
+            "shape", "mode", "dtype", "fwd_max_abs_err", "fwd_ms",
+            "fwd_plain_ms", "library_fwd_ms", "fwd_bound_ms")}
+            for name, shape in vit_shapes.items()},
+        "vit_f32_max_abs_err": vit_f32["fwd_max_abs_err"]}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "mpmc_tpu/ops/attention.py:182",
@@ -1650,10 +1891,14 @@ def main() -> int:
                 "attention_bwd"],
             "mlm_pack": more_2a["mlm_pack"]["launches"]["attention_bwd"],
             "train_2a_text_params": more_2a["text_params"]["launches"][
-                "attention_bwd"]},
+                "attention_bwd"],
+            **{k: v["launches"]["attention_bwd"]
+               for k, v in train_2b.items()}},
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
-        "mlm_pack_shape": more_2a["mlm_pack"]["shape"]}, {
+        "mlm_pack_shape": more_2a["mlm_pack"]["shape"],
+        "vit_shapes": vit_shapes,
+        "vit_f32_max_abs_err": vit_f32["max_abs_err"]}, {
         "name": "image_normalize", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/image_normalize.cu",
         "replaces": "mpmc_tpu/ops/image_ops.py:20",
@@ -1663,7 +1908,12 @@ def main() -> int:
         "bound_by": image["bound_by"], "library_ms": None,
         "library": "none: no single PyTorch call flips, scales, clips and "
                    "normalizes",
-        "shape": image["shape"], "dtype": image["dtype"]}]
+        "shape": image["shape"], "dtype": image["dtype"],
+        "shape_384": image_384,
+        "launches_by_path": {
+            "train": train_launches["image_normalize"],
+            **{k: v["launches"]["image_normalize"]
+               for k, v in train_2b.items()}}}]
     print(json.dumps({"predict_kinds": {
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
                               "profiled_wall_ms", "profiled_kernel_ms")}
@@ -1681,9 +1931,13 @@ def main() -> int:
         "mlm_pack": {k: v for k, v in more_2a["mlm_pack"].items()
                      if k != "shape"},
         "train_2a_text_params": more_2a["text_params"]}))
+    print(json.dumps({"train_2b": train_2b}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
-          f"{w2a[len(w2a) // 2]:.3f} ms; whole run "
-          f"{time.perf_counter() - T_START:.1f} s")
+          f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
+          f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "
+          f"ViT-B/16 at 384 "
+          f"{train_2b['train_2b_vit']['warm_step_ms_median']:.3f} ms; "
+          f"whole run {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """The port's experiment drivers (port of ``mpmc_tpu/cli/experiments.py``):
 corpus vocabulary, tokenization and sequence-length bucketing shared by
 the entry points, the optional corpus MLM stage (``_maybe_mlm_pretrain``),
-and the training drivers ``run_subtask_2a`` (text) and ``run_subtask_2c``
-(multimodal) over ``_run_folds`` on one device.  Packed (``pack_rows > 0``)
-2A is fed from the host by a ``PackedTrainPlan``; packed 2C keeps its
-images on the device; unpacked, every array stays on the device and
-batches carry row indices."""
+and the training entry points ``run_subtask_2a`` (text), ``run_subtask_2b``
+(image) and ``run_subtask_2c`` (multimodal) over ``_run_folds`` on one
+device.  Packed (``pack_rows > 0``) 2A is fed from the host by a
+``PackedTrainPlan``; packed 2C keeps its images on the device; unpacked
+(2B always), every array stays on the device and batches carry row
+indices."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 from mpmc_tpu_torch.config import (LossType, PoolingType, Subtask,
                                    TrainConfig, model_config_to_dict)
 from mpmc_tpu_torch.cv.kfold import stratified_kfold
+from mpmc_tpu_torch.image.augment import eval_preprocess
 from mpmc_tpu_torch.image.decode import decode_batch
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.models.captioner import precompute_captions
@@ -159,12 +161,15 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                tr_idx: np.ndarray, store: Dict[str, torch.Tensor],
                device: torch.device, fold: int,
                augment: Optional[Callable] = None, kind: str = "multimodal",
-               pretrained=None) -> FoldRun:
-    """Model of ``kind``, plan and steps of fold ``fold`` over its train
-    rows ``tr_idx`` of the resident ``store``: random weights from
-    ``cfg.seed`` (the same for every fold, as the JAX package initializes)
-    with the ``pretrained`` text encoder spliced in, dropout and
-    augmentation from a generator seeded with ``cfg.seed + fold``.
+               pretrained=None, grayscale: bool = False,
+               binary_head: bool = False) -> FoldRun:
+    """Model of ``kind`` (the image model with ``binary_head``), plan and
+    steps of fold ``fold`` over its train rows ``tr_idx`` of the resident
+    ``store``: random weights from ``cfg.seed`` (the same for every fold,
+    as the JAX package initializes) with the ``pretrained`` text encoder
+    spliced in, dropout and augmentation from a generator seeded with
+    ``cfg.seed + fold``, and eval normalizing with the grayscale statistics
+    under ``grayscale``.
     Packing gives 2A a ``PackedTrainPlan`` of ``pack_rows`` rows a step
     over the host arrays, and 2C a ``PackedMultimodalPlan`` that indexes
     the resident images."""
@@ -186,12 +191,14 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
     steps_per_epoch = (plan.steps_per_epoch if plan is not None
                        else (len(tr_idx) + bs - 1) // bs)
     model = apply_pretrained(build_model(cfg.model, device, seed=cfg.seed,
-                                         kind=kind, packed=packing),
+                                         kind=kind, packed=packing,
+                                         binary_head=binary_head),
                              kind, pretrained)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + fold)
     train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
                                   store, generator, augment)
-    eval_step = make_eval_step(model, cfg, cast_in_place=False)
+    eval_step = make_eval_step(model, cfg, grayscale=grayscale,
+                               cast_in_place=False)
     return FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
 
 
@@ -210,7 +217,8 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                test_ids: Optional[List[str]], out_dir: str, name: str,
                device: torch.device, folds: Optional[List[int]] = None,
                augment: Optional[Callable] = None, kind: str = "multimodal",
-               pretrained=None) -> List:
+               pretrained=None, grayscale: bool = False,
+               binary_head: bool = False) -> List:
     """Train the selected stratified folds of the ``kind`` model one after
     another on ``device`` (:func:`build_fold`).  Without a test split the
     fold's val split is the test split too, evaluated twice per check as in
@@ -235,7 +243,7 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         t_data = test_data if test_data is not None else val_d
         t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
         run = build_fold(cfg, train_d, tr_idx, store, device, k, augment,
-                         kind, pretrained)
+                         kind, pretrained, grayscale, binary_head)
         on_best = None
         if cfg.checkpoint_dir:
             fold_dir = os.path.join(cfg.checkpoint_dir, f"fold_{k}")
@@ -330,6 +338,68 @@ def run_subtask_2a(cfg: TrainConfig, device: torch.device,
                       pretrained=pretrained)
 
 
+def grayscale_eval_transform(images_u8: torch.Tensor,
+                             generator: torch.Generator) -> torch.Tensor:
+    """The grayscale 2B variant's training transform: the deterministic
+    eval normalization with grayscale statistics, no random draw."""
+    return eval_preprocess(images_u8, grayscale=True)
+
+
+@dataclasses.dataclass
+class Prepared2B:
+    """The 2B run's resolved config (2 classes, cross-entropy), the decoded
+    train and dev images with their labels, and their ids."""
+
+    cfg: TrainConfig
+    data: Dict[str, np.ndarray]
+    test: Dict[str, np.ndarray]
+    train_ids: List[str]
+    dev_ids: List[str]
+
+
+def prepare_2b(cfg: TrainConfig) -> Prepared2B:
+    """Manifests and their images decoded at ``image.image_size`` (one
+    channel for the grayscale variant); 2 classes, cross-entropy, and no
+    packing (an image batch has no tokens to pack)."""
+    train = read_manifest(cfg.data.train_manifest)
+    dev = read_manifest(cfg.data.dev_manifest)
+    mcfg = dataclasses.replace(cfg.model, subtask=Subtask.B, num_classes=2)
+    cfg = dataclasses.replace(cfg, model=mcfg, loss=LossType.CROSS_ENTROPY,
+                              data=dataclasses.replace(cfg.data, pack_rows=0))
+    size, gray = mcfg.image.image_size, mcfg.image.grayscale
+    data = {"image": decode_batch(train.img_paths, size, gray,
+                                  cfg.data.image_root),
+            "label": train.labels}
+    test = {"image": decode_batch(dev.img_paths, size, gray,
+                                  cfg.data.image_root),
+            "label": dev.labels}
+    return Prepared2B(cfg, data, test, train.ids, dev.ids)
+
+
+def run_subtask_2b(cfg: TrainConfig, device: torch.device,
+                   out_dir: str = "outputs/2b", binary_head: bool = False,
+                   folds: Optional[List[int]] = None,
+                   pretrained=None) -> List:
+    """The 2B image model (``cfg.model.image``'s backbone, a Linear head or
+    ``binary_head``): stratified folds over the train manifest, the dev
+    manifest as the test split, cross-entropy over 2 classes, never packed.
+    Color images train through ``train_augment`` (the image kernel once a
+    step); the grayscale variant trains on the deterministic eval
+    transform with grayscale statistics, as the JAX package does.  A
+    ``pretrained`` text checkpoint is refused: the model has no text
+    encoder."""
+    prep = prepare_2b(cfg)
+    gray = prep.cfg.model.image.grayscale
+    _persist_run_meta(prep.cfg, prep.cfg.model, "image", out_dir, prep.data,
+                      augment=True, grayscale=gray, eval_transform_only=gray,
+                      binary_head=binary_head)
+    return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,
+                      prep.dev_ids, out_dir, "task2B", device, folds,
+                      augment=grayscale_eval_transform if gray else None,
+                      kind="image", pretrained=pretrained, grayscale=gray,
+                      binary_head=binary_head)
+
+
 @dataclasses.dataclass
 class Prepared2C:
     """The 2C run's resolved config (vocab sizes filled in), tokenized and
@@ -345,15 +415,17 @@ class Prepared2C:
     corpus: List[str]
 
 
-def prepare_2c(cfg: TrainConfig, out_dir: str) -> Prepared2C:
-    """Manifests, corpus vocabularies (text over the train texts, captions
-    over both splits, saved under ``out_dir`` and the checkpoint dir),
-    decoded images, placeholder captions, and text and caption lengths
-    bucketed jointly over both splits."""
+def prepare_2c(cfg: TrainConfig, out_dir: str,
+               vocab_path: Optional[str] = None) -> Prepared2C:
+    """Manifests, vocabularies (text: ``vocab_path``, else a corpus vocab
+    over the train texts; captions: a corpus vocab over both splits; both
+    saved under ``out_dir`` and the checkpoint dir), decoded images,
+    placeholder captions, and text and caption lengths bucketed jointly
+    over both splits."""
     train = read_manifest(cfg.data.train_manifest)
     dev = read_manifest(cfg.data.dev_manifest)
     tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
-                          None)
+                          vocab_path)
     _persist_vocab(tok, cfg, out_dir)
     mcfg = dataclasses.replace(
         cfg.model, subtask=Subtask.C, num_classes=1,
@@ -402,14 +474,15 @@ def prepare_2c(cfg: TrainConfig, out_dir: str) -> Prepared2C:
 
 def run_subtask_2c(cfg: TrainConfig, device: torch.device,
                    out_dir: str = "outputs/2c",
+                   vocab_path: Optional[str] = None,
                    folds: Optional[List[int]] = None,
                    augment: Optional[Callable] = None,
                    pretrained=None) -> List:
     """The 2C fine-tune: stratified folds over the train manifest, the dev
-    manifest as the test split, focal loss, placeholder captions; the
-    corpus MLM stage of the text branch first when ``cfg.mlm_epochs`` >
-    0."""
-    prep = prepare_2c(cfg, out_dir)
+    manifest as the test split, focal loss, placeholder captions, the text
+    vocab from ``vocab_path`` when given; the corpus MLM stage of the text
+    branch first when ``cfg.mlm_epochs`` > 0."""
+    prep = prepare_2c(cfg, out_dir, vocab_path)
     pretrained = _maybe_mlm_pretrain(
         prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
         prep.data["text_ids"].shape[1], out_dir, pretrained, device)

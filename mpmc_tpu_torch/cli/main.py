@@ -4,11 +4,12 @@
       --out pred.tsv [--probs-out probs.tsv] [--checkpoint DIR] \\
       [--small] [--tiny] [--simple] [--image-arch A] [--image-size N] \\
       [--binary-head] [--device cuda|cpu] [--batch-size 16]
-  python -m mpmc_tpu_torch.cli.main train --subtask 2a|2c -tr TRAIN -te DEV \\
-      [--recipe fast|reference] [--small] [--tiny] [--fold K] \\
+  python -m mpmc_tpu_torch.cli.main train --subtask 2a|2b|2c -tr TRAIN \\
+      -te DEV [--recipe fast|reference] [--small] [--tiny] [--fold K] \\
       [--num-folds N] [--epochs N] [--lr X] \\
       [--lr-schedule constant|linear_warmup] [--pack-rows G] [--vocab V] \\
       [--mlm-epochs N] [--mlm-pack] [--text-params mlm_encoder.npz] \\
+      [--image-arch A] [--image-size N] [--binary-head] \\
       [--checkpoint-dir DIR] [--out-dir DIR] [--device cuda|cpu]
   python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
   python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
@@ -17,15 +18,18 @@
       [--group-by-run-id] [--scan-family-weight] [--per-member]
   python -m mpmc_tpu_torch.cli.main analyze -g gold.json -p pred.tsv
 
-``train`` follows the JAX package's ``_cmd_train`` for 2A and 2C.  2A
-trains the text model (attention pooling, 2 classes, cross-entropy, a
+``train`` follows the JAX package's ``_cmd_train`` for 2A, 2B and 2C.
+2A trains the text model (attention pooling, 2 classes, cross-entropy, a
 constant LR) over stratified folds of train+dev, each fold's val split
 serving as its test split, with labels at 0.5, the val TSVs and the
-``propaganda_probability`` header; 2C trains the multimodal model over
-folds of the train manifest with the dev manifest as the test split, focal
-loss and linear warmup.  Per fold come the best-test-F1 TSVs and, with
-``--checkpoint-dir``, ``fold_<k>/model.pt`` next to ``run_meta.json`` and
-the vocab files, which ``predict --checkpoint DIR/fold_<k>`` reads.
+``propaganda_probability`` header; 2B trains the image model (the
+``--image-arch`` backbone at ``--image-size``, a Linear head or
+``--binary-head``, 2 classes, cross-entropy, linear warmup, never packed)
+and 2C the multimodal model (focal loss, linear warmup), both over folds
+of the train manifest with the dev manifest as the test split.  Per fold
+come the best-test-F1 TSVs and, with ``--checkpoint-dir``,
+``fold_<k>/model.pt`` next to ``run_meta.json`` and the vocab files, which
+``predict --checkpoint DIR/fold_<k>`` reads.
 ``--recipe fast`` (the default) packs the text tokens (2A: batches of
 ``--pack-rows 4`` packed rows; 2C: each batch's text and caption tokens in
 rows, ``--pack-rows 8``), keeps the Adam first moment in bf16 and gives the
@@ -83,6 +87,9 @@ from mpmc_tpu_torch.train.step import make_eval_step
 log = logging.getLogger(__name__)
 
 KIND_OF_SUBTASK = {"2a": "text", "2b": "image", "2c": "multimodal"}
+IMAGE_ARCHS = ("resnet18, resnet50, resnext50_32x4d, seresnext50_32x4d, "
+               "vit_base_16, vit_base_32, vit_large_16, convnext_tiny, "
+               "efficientnet_b0..b4, tiny_resnet")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -377,19 +384,24 @@ def _resolve_recipe(args) -> None:
     """Fill the recipe-controlled flags that were left unset, as the JAX
     package's ``_resolve_recipe`` does for the flags the port takes: the
     fast recipe packs 4 rows a step in 2A and each batch's tokens into rows
-    in 2C (``pack_rows`` 8)."""
+    in 2C (``pack_rows`` 8); 2B has no tokens and never packs."""
     fast = args.recipe == "fast"
     if args.embedding_optimizer is None:
         args.embedding_optimizer = "factored" if fast else "adam"
     if args.adam_mu_dtype is None and fast:
         args.adam_mu_dtype = "bfloat16"
     if args.pack_rows is None:
-        args.pack_rows = ({"2a": 4, "2c": 8}[args.subtask] if fast else 0)
+        args.pack_rows = {"2a": 4, "2c": 8}.get(args.subtask, 0) if fast else 0
 
 
 def train_config(args) -> Tuple[TrainConfig, torch.device]:
     """The ``TrainConfig`` and device of a parsed ``train`` command line;
-    raises when CUDA is asked for and absent."""
+    raises when CUDA is asked for and absent.  ``--image-arch`` and
+    ``--image-size`` swap the image backbone or its resolution of the
+    chosen preset, as in the JAX package."""
+    if args.simclr_epochs > 0:
+        raise SystemExit("--simclr-epochs (SimCLR image pretraining) is not "
+                         "ported yet")
     device = resolve_device(args.device)
     _resolve_recipe(args)
     data = DataConfig(train_manifest=args.train_file_path,
@@ -400,12 +412,16 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       cache_dir=args.cache_dir, pack_rows=args.pack_rows)
     if args.small and args.subtask == "2a":
         model = ModelConfig.small_2a()
-    elif args.small:
+    elif args.small and args.subtask == "2c":
         raise SystemExit("--small for 2c (small_2c) is not ported yet")
     elif args.tiny:
         model = ModelConfig.tiny_2c()
     else:
         model = ModelConfig()
+    if args.image_arch or args.image_size:
+        model = dataclasses.replace(model, image=dataclasses.replace(
+            model.image, arch=args.image_arch or model.image.arch,
+            image_size=args.image_size or model.image.image_size))
     lr_schedule = args.lr_schedule or (
         "constant" if args.subtask == "2a" else "linear_warmup")
     cfg = TrainConfig(model=model, data=data, epochs=args.epochs,
@@ -419,7 +435,9 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
 
 
 def _cmd_train(args) -> int:
-    from mpmc_tpu_torch.cli.experiments import run_subtask_2a, run_subtask_2c
+    from mpmc_tpu_torch.cli.experiments import (run_subtask_2a,
+                                                run_subtask_2b,
+                                                run_subtask_2c)
     from mpmc_tpu_torch.models.pretrained import PretrainedSpec
     cfg, device = train_config(args)
     folds = [args.fold] if args.fold is not None else None
@@ -428,8 +446,12 @@ def _cmd_train(args) -> int:
     if args.subtask == "2a":
         results = run_subtask_2a(cfg, device, vocab_path=args.vocab,
                                  **kwargs)
+    elif args.subtask == "2b":
+        results = run_subtask_2b(cfg, device, binary_head=args.binary_head,
+                                 **kwargs)
     else:
-        results = run_subtask_2c(cfg, device, **kwargs)
+        results = run_subtask_2c(cfg, device, vocab_path=args.vocab,
+                                 **kwargs)
     for k, r in zip(folds or range(args.num_folds), results):
         print(f"fold {k}: best macro-F1 {r.best_macro_f1:.4f}")
     return 0
@@ -462,7 +484,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--caption-vocab", default=None)
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--batch-size", type=int, default=16)
-    p.add_argument("--run-id", default="mpmc_tpu_torch")
+    p.add_argument("--run-id", default="mpmc_tpu")
     p.add_argument("--tiny", action="store_true",
                    help="the tiny_2c config (when no run_meta.json)")
     p.add_argument("--small", action="store_true",
@@ -471,9 +493,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="2C: the organizers' simple baseline (C28), "
                         "distilbert + resnet50 logits, no captions")
     p.add_argument("--image-arch", default=None,
-                   help="image backbone (resnet18, resnet50, "
-                        "resnext50_32x4d, seresnext50_32x4d, tiny_resnet) "
-                        "when no run_meta.json")
+                   help=f"image backbone ({IMAGE_ARCHS}) when no "
+                        f"run_meta.json")
     p.add_argument("--image-size", type=int, default=None,
                    help="input resolution when no run_meta.json")
     p.add_argument("--binary-head", action="store_true",
@@ -513,12 +534,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "misclassified samples (0 disables)")
     p.set_defaults(fn=_cmd_analyze)
 
-    p = sub.add_parser("train", help="train the 2A text model or the 2C "
-                                     "multimodal model over stratified "
-                                     "folds")
-    p.add_argument("--subtask", choices=["2a", "2c"], required=True,
-                   help="2a: text, folds over train+dev; 2c: text + image "
-                        "+ caption, folds over train, dev as the test split")
+    p = sub.add_parser("train", help="train the 2A text model, the 2B "
+                                     "image model or the 2C multimodal "
+                                     "model over stratified folds")
+    p.add_argument("--subtask", choices=["2a", "2b", "2c"], required=True,
+                   help="2a: text, folds over train+dev; 2b: image, 2c: "
+                        "text + image + caption, folds over train, dev as "
+                        "the test split")
     p.add_argument("--recipe", choices=["fast", "reference"], default="fast",
                    help="fast (default): packed text rows (2A: 4 packed "
                         "rows a step; 2C: each batch's text and caption "
@@ -554,8 +576,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--small", action="store_true",
                    help="2a: the from-scratch small_2a config")
     p.add_argument("--vocab", default=None,
-                   help="2a: a WordPiece vocab file instead of the corpus "
-                        "vocab")
+                   help="2a, 2c: a WordPiece text vocab file instead of the "
+                        "corpus vocab")
     p.add_argument("--mlm-epochs", type=int, default=0,
                    help="> 0 first pretrains the text encoder by masked "
                         "language modelling on the train+dev texts "
@@ -568,6 +590,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="text-encoder weights to start from: the flax-tree "
                         ".npz that MLM pretraining writes (mlm_encoder.npz) "
                         "in either package")
+    p.add_argument("--image-arch", default=None,
+                   help=f"image backbone from the 2B zoo ({IMAGE_ARCHS})")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="input resolution (the zoo uses 384 for its ViT "
+                        "and EfficientNet variants)")
+    p.add_argument("--binary-head", action="store_true",
+                   help="2b: the l2-normalized scaled BinaryHead")
+    p.add_argument("--simclr-epochs", type=int, default=0,
+                   help="SimCLR image pretraining: not ported yet, > 0 "
+                        "raises")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_train)

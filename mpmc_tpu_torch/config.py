@@ -91,7 +91,8 @@ class TextEncoderConfig:
 @dataclasses.dataclass(frozen=True)
 class ImageEncoderConfig:
     # resnet18 | resnet50 | resnext50_32x4d | seresnext50_32x4d | tiny_resnet
-    # in this port
+    # | vit_base_16 | vit_base_32 | vit_large_16 | convnext_tiny |
+    # efficientnet_b0..b4, and the JAX factory's aliases
     arch: str = "resnet18"
     image_size: int = 224
     feature_dim: int = 512

@@ -48,14 +48,17 @@
 // one 16-wide chunk per mma and the chunks in IEEE f32 (chunked_product),
 // so that dS rounds to bf16 as near the reference as an f32 dot product.
 //
-// bf16 design, 128 < S <= 512 (real manifests): two tensor-core launches,
-// each recomputing s and P, no atomics.  attention_bwd_dq_tc_kernel, one
+// bf16 design, 128 < S <= 1024 (real manifests; ViT-B/16 and L/16, S =
+// 197 at 224 pixels and 577 at 384): two tensor-core launches, each
+// recomputing s and P, no atomics.  attention_bwd_dq_tc_kernel, one
 // block per (64-query tile, head, batch), walks the key tiles (twice more
 // first in segments mode, for the exact max and then the sum) and writes
 // dQ plus each row's delta, m and l; attention_bwd_dkdv_tc_kernel, one
 // block per (64-key tile, head, batch), walks the query tiles in the
 // transposed form (s^T = k.qs^T, so P^T and dS^T go from the accumulators
-// to the dV and dK products in registers).
+// to the dV and dK products in registers).  A ragged last tile (577 = 9 x
+// 64 + 1 holds one row) is zero-filled by cp.async past Sq or Sk, and
+// only rows below Sq or Sk are written.
 //
 // f32 design (kept on the CUDA cores: TF32 tensor cores would break the
 // 1e-4 + 1e-5|x| card-vs-CPU checks): three launches, a row-statistics
@@ -1168,8 +1171,9 @@ bool aligned16(const void* p) {
 // [B, Sk, H, D] (bf16: D % 8 == 0 and 16-byte aligned); lse, delta, row_m,
 // row_l are f32 [B, H, Sq] (delta, row_m and row_l are scratch, used by the
 // f32 path and the bf16 path at S > 128; row_m and row_l written only in
-// segments mode); mask is f32 [B, Sk] (unused in mode 0).  Returns the
-// CUDA error code of the first launch that fails (0 on success).
+// segments mode); mask is f32 [B, Sk] (unused in mode 0); Sq, Sk <=
+// mma::kMaxSeq.  Returns the CUDA error code of the first launch that
+// fails (0 on success).
 extern "C" int mpmc_attention_bwd(const void* q, const void* k, const void* v,
                                   const float* mask, const void* out,
                                   const float* lse, const void* dout,
@@ -1177,8 +1181,9 @@ extern "C" int mpmc_attention_bwd(const void* q, const void* k, const void* v,
                                   float* row_m, float* row_l, int dtype,
                                   int mode, int B, int H, int Sq, int Sk,
                                   int D, float scale, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || mode < 0 ||
-      mode > 2 || (mode != 0 && mask == nullptr) ||
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || Sq > mma::kMaxSeq ||
+      Sk > mma::kMaxSeq || D < 1 || D > 128 || mode < 0 || mode > 2 ||
+      (mode != 0 && mask == nullptr) ||
       (mode == 2 && Sq != Sk) || dtype < 0 || dtype > 1 || B > 65535 ||
       H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -24,13 +24,16 @@
 // straight from [B,S,H,D] (a 64-wide head row is 128 contiguous bytes) into
 // XOR-swizzled shared memory (mma_bf16.cuh), with v in a second group that
 // lands while q.k^T runs.  ldmatrix feeds mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  At Sk <= 128, every shape the main paths launch, a warp's
+// accumulate).  At Sk <= 128 (the text paths, ViT-B/32's 50) a warp's
 // whole score row sits in its accumulators (64 f32 per thread), so the
 // kernel takes the exact row max before any exponent, as the TPU kernel
 // does, and the rounded e goes from the accumulators to the e.V product in
-// registers.  For 128 < Sk <= 512 it goes over the key blocks twice: first
-// for the max, then for exp, sum and e.V (recomputing q.k^T is cheap: the
-// tensor cores are idle).  The scale multiplies the f32 score, as in the
+// registers.  For 128 < Sk <= 1024 (ViT-B/16 and L/16: 197 at 224 pixels,
+// 577 at 384) it goes over the key blocks twice, computing q.k^T in both:
+// first for the max, then for exp, sum and e.V.  The last key block may be
+// ragged (577 = 4 x 128 + 65): cp.async zero-fills its rows past Sk up to
+// the next multiple of 16, and no product reads a row past that multiple.
+// The scale multiplies the f32 score, as in the
 // plain version (bit-equal to the TPU's pre-scaled q for D = 64).  Keys
 // past Sk get -inf; masked keys get the -1e9 bias, never -inf.  At D <= 64
 // three blocks share an SM (at most 168 registers), so the text shape's 384
@@ -410,8 +413,8 @@ bool aligned16(const void* p, long long sb, long long ss, long long sh) {
 // dtype: 0 = float32, 1 = bfloat16.  mode: 0 none, 1 padding, 2 segments.
 // Strides are in elements, for [B, S, H, D] tensors whose last dim is
 // contiguous; bf16 needs D % 8 == 0 and 16-byte aligned q, k, v rows.
-// mask is f32 [B, Sk] (unused in mode 0).  Returns the CUDA error code of
-// the launch (0 on success).
+// mask is f32 [B, Sk] (unused in mode 0).  Sq, Sk <= mma::kMaxSeq.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int mpmc_attention_fwd(
     const void* q, const void* k, const void* v, const float* mask,
     void* out, float* lse, int dtype, int mode, int B, int H, int Sq, int Sk,
@@ -419,8 +422,9 @@ extern "C" int mpmc_attention_fwd(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || mode < 0 ||
-      mode > 2 || (mode != 0 && mask == nullptr) || dtype < 0 || dtype > 1 ||
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || Sq > mma::kMaxSeq ||
+      Sk > mma::kMaxSeq || D < 1 || D > 128 || mode < 0 || mode > 2 ||
+      (mode != 0 && mask == nullptr) || dtype < 0 || dtype > 1 ||
       B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

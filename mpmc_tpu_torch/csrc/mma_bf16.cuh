@@ -183,6 +183,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool (&done)[64]) {
 // ------------------------------------------------ attention's score tile --
 
 constexpr float kNegInf = -1e9f;           // the reference's additive mask
+// Longest Sq and Sk the entry points take (ops/attention.py MAX_SEQ): the
+// card tests and chip_smoke.py cover the tile loops up to here, ragged
+// tails (S = 17, 50, 197, 577) included.
+constexpr int kMaxSeq = 1024;
 
 // Per-key mask information of keys [k0, k0 + nk) into shared memory: the
 // additive bias in padding mode (1), the segment id in segments mode (2).

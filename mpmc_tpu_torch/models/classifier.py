@@ -30,29 +30,47 @@ from torch import nn
 
 from mpmc_tpu_torch.config import ImageEncoderConfig, ModelConfig, PoolingType
 from mpmc_tpu_torch.models.bert import TextEncoder
+from mpmc_tpu_torch.models.convnext import ConvNeXt, ConvNeXtBlock
+from mpmc_tpu_torch.models.efficientnet import EfficientNet
 from mpmc_tpu_torch.models.fusion import make_fusion
 from mpmc_tpu_torch.models.norm import BatchNorm, Dropout
 from mpmc_tpu_torch.models.pooling import Pooler
-from mpmc_tpu_torch.models.resnet import (ResNet, TinyResNet, resnet18,
-                                          resnet50, resnext50_32x4d,
-                                          seresnext50_32x4d)
-from mpmc_tpu_torch.models.vit import BinaryHead
+from mpmc_tpu_torch.models.resnet import (TinyResNet, resnet18, resnet50,
+                                          resnext50_32x4d, seresnext50_32x4d)
+from mpmc_tpu_torch.models.vit import BinaryHead, ViT
 from mpmc_tpu_torch.ops.packing import packed_sample_view, unpack_cls
 
 _BACKBONES = {"resnet18": resnet18, "resnet50": resnet50,
               "resnext50_32x4d": resnext50_32x4d,
               "seresnext50_32x4d": seresnext50_32x4d,
               "tiny_resnet": TinyResNet}
+VIT_LARGE = dict(hidden_size=1024, num_layers=24, num_heads=16, mlp_dim=4096)
 
 
 def create_image_backbone(cfg: ImageEncoderConfig,
-                          num_classes: int = 0) -> ResNet:
-    """The backbone of ``cfg.arch``; ``num_classes`` > 0 keeps its
-    classifier head."""
-    if cfg.arch not in _BACKBONES:
-        raise ValueError(f"image arch {cfg.arch!r} is not ported yet")
-    return _BACKBONES[cfg.arch](num_classes=num_classes,
-                                in_channels=1 if cfg.grayscale else 3)
+                          num_classes: int = 0) -> nn.Module:
+    """The backbone of ``cfg.arch``, every name and alias the JAX factory
+    takes: the ResNets, ``vit_base_16`` (``vit_base_patch16_224``,
+    ``vit_base_patch16_384``), ``vit_base_32`` (``clip_vit_b32``),
+    ``vit_large_16`` (``vit_large_patch16_384``), ``convnext_tiny`` and
+    ``efficientnet_b0`` .. ``b4``; a ViT's positions are built for
+    ``cfg.image_size``.  ``num_classes`` > 0 keeps its classifier head."""
+    a = cfg.arch
+    kw = dict(num_classes=num_classes, in_channels=1 if cfg.grayscale else 3)
+    if a in _BACKBONES:
+        return _BACKBONES[a](**kw)
+    if a in ("vit_base_16", "vit_base_patch16_224", "vit_base_patch16_384"):
+        return ViT(cfg.image_size, **kw)
+    if a in ("vit_base_32", "clip_vit_b32"):
+        return ViT(cfg.image_size, patch_size=32, **kw)
+    if a in ("vit_large_16", "vit_large_patch16_384"):
+        return ViT(cfg.image_size, **VIT_LARGE, **kw)
+    if a == "convnext_tiny":
+        return ConvNeXt(**kw)
+    if a in ("efficientnet_b0", "efficientnet_b1", "efficientnet_b2",
+             "efficientnet_b3", "efficientnet_b4"):
+        return EfficientNet(a[-2:], **kw)
+    raise ValueError(f"Unknown image arch: {a}")
 
 
 class ImageEncoderWithHead(nn.Module):
@@ -279,16 +297,25 @@ class PackedMultimodalClassifier(MultimodalClassifier):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights drawn from ``generator``: normal(0, 0.02) for linear
-    and embedding weights (BERT's initializer range), He-normal for convs,
-    zero biases, unit norm scales, running statistics (0, 1)."""
+    and embedding weights (BERT's initializer range) and a ViT's positions,
+    He-normal for convs, zero biases and class tokens, unit norm scales,
+    running statistics (0, 1), and ConvNeXt's layer scale at its initial
+    value, as the JAX modules initialize it."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Embedding)):
+        if isinstance(mod, ViT):
+            nn.init.zeros_(mod.cls_token)
+            nn.init.normal_(mod.pos_embed, 0.0, 0.02, generator=generator)
+        elif isinstance(mod, ConvNeXtBlock):
+            nn.init.constant_(mod.gamma, mod.layer_scale_init)
+        elif isinstance(mod, (nn.Linear, nn.Embedding)):
             nn.init.normal_(mod.weight, 0.0, 0.02, generator=generator)
             if getattr(mod, "bias", None) is not None:
                 nn.init.zeros_(mod.bias)
         elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
             nn.init.kaiming_normal_(mod.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
         elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)

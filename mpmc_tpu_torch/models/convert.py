@@ -14,7 +14,11 @@ the inverse of the JAX package's converters (``models/hf_convert.py``,
   sides); the CNN pooler's 1-D conv kernel ``[k, in, out]`` -> ``[out, in,
   k]``, told from a q/k/v kernel, also 3-D, by its module name ``conv1d``;
 * LayerNorm / BatchNorm ``scale`` -> ``weight``, batch stats ``mean`` /
-  ``var`` -> ``running_mean`` / ``running_var``; ``embedding`` -> ``weight``.
+  ``var`` -> ``running_mean`` / ``running_var``; ``embedding`` -> ``weight``;
+* parameters the modules declare themselves keep their name and layout:
+  a ViT's ``cls_token`` ``[1, 1, H]`` and ``pos_embed`` ``[1, 1+N, H]``,
+  ConvNeXt's layer scale ``gamma`` ``[dim]``.  A depthwise conv kernel
+  (HW1C, ``feature_group_count`` = C) is a grouped conv like any other.
 
 Flax names the fusion module itself (``make_fusion`` passes no name):
 ``ConcatAttention3_0`` or ``ConcatAttention_0`` becomes ``fusion``.
@@ -30,6 +34,7 @@ from torch import nn
 
 _MODULE_RENAME = {"ConcatAttention3_0": "fusion", "ConcatAttention_0": "fusion"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_AS_IS = ("cls_token", "pos_embed", "gamma")
 
 
 def _param(path: Tuple[str, ...], name: str, x: np.ndarray
@@ -39,6 +44,8 @@ def _param(path: Tuple[str, ...], name: str, x: np.ndarray
         return "weight", x
     if name == "bias":
         return "bias", x.reshape(-1)          # q/k/v bias [heads, hd]
+    if name in _AS_IS:
+        return name, x
     if name != "kernel":
         raise KeyError(f"unknown parameter {'/'.join(path + (name,))}")
     if x.ndim == 2:

@@ -28,7 +28,9 @@ from mpmc_tpu_torch.ops import build
 
 NEG_INF = -1e9  # the reference's additive mask value, not -inf
 MODES = {"none": 0, "padding": 1, "segments": 2}
-MAX_SEQ = 512
+# Longest Sq and Sk the kernels take (csrc/mma_bf16.cuh kMaxSeq): ViT-B/16
+# and ViT-L/16 at 384 pixels need 577; the card tests reach 1024.
+MAX_SEQ = 1024
 MAX_HEAD_DIM = 128
 
 launch_counts = build.launch_counts
@@ -92,19 +94,19 @@ def _check(q, k, v, mask, mode):
 
 
 def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
-    """What both kernels take: one CUDA device, f32 or bf16, D and S in
-    range (``tensors`` starts with q and k)."""
+    """What both kernels take: D and S in range, one CUDA device, f32 or
+    bf16 (``tensors`` starts with q and k)."""
     q, k = tensors[0], tensors[1]
+    D, Sq, Sk = q.shape[-1], q.shape[1], k.shape[1]
+    if D > MAX_HEAD_DIM or Sq > MAX_SEQ or Sk > MAX_SEQ:
+        raise ValueError(f"kernel takes D <= {MAX_HEAD_DIM} and Sq, Sk <= "
+                         f"{MAX_SEQ}, got D={D}, Sq={Sq}, Sk={Sk}")
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{who} needs its tensors on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != q.dtype for t in tensors):
         raise ValueError(f"kernel takes float32 or bfloat16 tensors of one "
                          f"type, got {[t.dtype for t in tensors]}")
-    D, Sq, Sk = q.shape[-1], q.shape[1], k.shape[1]
-    if D > MAX_HEAD_DIM or Sq > MAX_SEQ or Sk > MAX_SEQ:
-        raise ValueError(f"kernel takes D <= {MAX_HEAD_DIM} and Sq, Sk <= "
-                         f"{MAX_SEQ}, got D={D}, Sq={Sq}, Sk={Sk}")
 
 
 def _check_bf16_layout(who: str, *tensors: torch.Tensor) -> None:

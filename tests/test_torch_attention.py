@@ -177,3 +177,34 @@ def test_cuda_kernel_matches_plain_version(mode, shape, dtype, atol):
     ref_out, ref_lse = A.attention_forward_reference(*args, m, mode)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+
+
+# ViT's sequences, 1 + (size / patch)^2 in mode none: 17 (the tests' tiny
+# ViT), 50 (B/32 at 224), 197 (B/16 and L/16 at 224), 577 (at 384: the last
+# 64-row tile holds one row) and the cap; H = 12 (ViT-B) and 16 (ViT-L).
+VIT_CASES = [(17, 12), (50, 12), (197, 12), (577, 12), (577, 16), (1024, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("S,H", VIT_CASES)
+def test_cuda_kernel_takes_vit_sequences(S, H, dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    test_cuda_kernel_matches_plain_version(
+        "none", {"Sq": S, "Sk": S, "H": H, "D": 64}, dtype, atol)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_point_refuses_sequences_above_the_cap():
+    """The C entry point returns cudaErrorInvalidValue (1) above the cap
+    before it reads any pointer, whatever the wrapper lets through."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    lib = A._library()
+    for Sq, Sk in ((A.MAX_SEQ + 1, 16), (16, A.MAX_SEQ + 1)):
+        rc = lib.mpmc_attention_fwd(None, None, None, None, None, None, 1, 0,
+                                    1, 1, Sq, Sk, 64, *([0] * 12), 0.125,
+                                    None)
+        assert rc == 1

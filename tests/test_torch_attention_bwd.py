@@ -241,3 +241,31 @@ def test_cuda_autograd_launches_the_backward_kernel():
     assert A.launch_counts["attention_fwd"] == before["attention_fwd"] + 1
     assert A.launch_counts["attention_bwd"] == before["attention_bwd"] + 1
     assert tq.grad is not None and torch.isfinite(tq.grad).all()
+
+
+# ViT's sequences in mode none (see test_torch_attention.py): ragged last
+# tiles of the two-launch path (197 = 3 x 64 + 5, 577 = 9 x 64 + 1), the
+# one-launch path at 17 and 50, and the cap; H = 12 and 16.
+VIT_CASES = [(17, 12), (50, 12), (197, 12), (577, 12), (577, 16), (1024, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("S,H", VIT_CASES)
+def test_cuda_backward_takes_vit_sequences(S, H, dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    test_cuda_backward_matches_plain_version(
+        "none", {"Sq": S, "Sk": S, "H": H, "D": 64}, dtype, atol)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_entry_point_refuses_sequences_above_the_cap():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    lib = A._library_bwd()
+    for Sq, Sk in ((A.MAX_SEQ + 1, 16), (16, A.MAX_SEQ + 1)):
+        rc = lib.mpmc_attention_bwd(*([None] * 13), 1, 0, 1, 1, Sq, Sk, 64,
+                                    0.125, None)
+        assert rc == 1
