@@ -62,7 +62,24 @@ toolkit.  Phases, each of which raises on failure:
    forward and 12 backward launches a step and 12 forward per eval batch);
    ``predict --checkpoint`` from the ViT run reproduces its best eval; warm
    steps with device and host profiles; and ViT-B/32, ViT-L/16,
-   EfficientNet-B3 and ConvNeXt-Tiny card vs CPU in f32.
+   EfficientNet-B3 and ConvNeXt-Tiny card vs CPU in f32;
+10. hold the image kernel at the SimCLR batch ``[64,224,224,3]`` and at
+   small_2c's ``[16,64,64,3]``, and the f32 attention pair at ViT-B/16's
+   SimCLR batch ``[128,197,12,64]`` (mode none), against the plain
+   versions, and time them; drive ``train`` on phase 5's manifests, launch
+   counts zeroed before and read after, for ``--subtask 2b --simclr-epochs
+   2`` (ResNet-18 at 224: 2 SimCLR steps an epoch at batch 64, the image
+   kernel twice a SimCLR step and once a train step; the fold starts from
+   the SimCLR npz bit for bit; warm SimCLR steps and a profiled one),
+   ``--subtask 2c --simclr-epochs 1 --fusion mca`` (the flagship with the
+   SimCLR stage and the MCA fusion), ``--simple`` and ``--small``, each
+   followed by ``predict --checkpoint``; the attention pair at the
+   ``--small`` run's packed text shape (bf16, segments, 4 heads of D = 32,
+   its own segment ids) held and timed; ``simclr_pretrain`` over ViT-B/16
+   at 224 for two steps (12 forward and 12 backward calls a step, three
+   f32 backward kernels a call); two SimCLR steps of ResNet-18 card vs CPU in
+   f32; and the flagship with the cross-modal and the self-attention
+   fusions card vs CPU in f32.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -78,7 +95,8 @@ segment ids) and at the MLM shapes, packed and unpacked, after holding
 the forward and backward kernels against their plain versions there.
 
 Prints the card's name and power limit, each phase's result, the
-``predict_kinds``, ``train_2a``/``mlm`` and ``train_2b`` JSON lines, a
+``predict_kinds``, ``train_2a``/``mlm``, ``train_2b`` and
+``train_variants`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -774,16 +792,17 @@ def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None):
 
 
 def time_attention_at(torch, mask, mode: str, dtype, gen, what: str,
-                      heads: int = 12, rows_seq=None):
-    """The attention pair at one main-path shape ``[rows, S, heads, 64]``,
-    ``mask`` the path's own key mask or segment ids (None in mode none,
-    with ``rows_seq = (rows, S)``): forward and backward kernels held
-    against their plain versions on the same inputs, then timed beside the
-    plain versions, the autograd pair, and SDPA with the same additive bias
-    (for segments a ``[B,1,S,S]`` bias from the ids; none in mode none)."""
+                      heads: int = 12, rows_seq=None, head_dim: int = 64):
+    """The attention pair at one main-path shape ``[rows, S, heads,
+    head_dim]``, ``mask`` the path's own key mask or segment ids (None in
+    mode none, with ``rows_seq = (rows, S)``): forward and backward kernels
+    held against their plain versions on the same inputs, then timed beside
+    the plain versions, the autograd pair, and SDPA with the same additive
+    bias (for segments a ``[B,1,S,S]`` bias from the ids; none in mode
+    none)."""
     from mpmc_tpu_torch.ops import attention as A
     rows, S = rows_seq or mask.shape
-    q, k, v, do = (torch.randn(rows, S, heads, 64, device="cuda",
+    q, k, v, do = (torch.randn(rows, S, heads, head_dim, device="cuda",
                                generator=gen).to(dtype) for _ in range(4))
     out, lse = A.attention_forward_cuda(q, k, v, mask, mode)
     got = A.attention_backward_cuda(q, k, v, mask, mode, out, lse, do)
@@ -814,14 +833,15 @@ def time_attention_at(torch, mask, mode: str, dtype, gen, what: str,
     sdpa_fwd, sdpa_bwd, sdpa_pair = sdpa_times(torch, q, k, v, bias, do)
     bound_ms, bound_by = backward_bound_ms(q, k, mode)
     fwd_bound_ms, _ = attention_bound_ms(q, k, mode)
-    print(f"  attention at {what} [{rows},{S},{heads},64] {str(dtype)[6:]} "
-          f"{mode}: "
+    print(f"  attention at {what} [{rows},{S},{heads},{head_dim}] "
+          f"{str(dtype)[6:]} {mode}: "
           f"backward {ms:.5f} ms (sdpa backward alone {sdpa_bwd:.5f}, plain "
           f"{plain_ms:.5f}, bound {bound_ms:.5f} {bound_by}), forward "
           f"{fwd_ms:.5f} ms (sdpa {sdpa_fwd:.5f}, plain {fwd_plain_ms:.5f}, "
           f"bound {fwd_bound_ms:.5f}), forward+backward {pair_ms:.5f} ms "
           f"(sdpa {sdpa_pair:.5f})")
-    return dict(shape=[rows, S, heads, 64], mode=mode, dtype=str(dtype),
+    return dict(shape=[rows, S, heads, head_dim], mode=mode,
+                dtype=str(dtype),
                 max_abs_err=bwd_err, fwd_max_abs_err=fwd_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
@@ -1017,54 +1037,108 @@ def tsv_rows(path: str):
 
 
 @contextlib.contextmanager
-def watch_mlm(torch, profiled=None):
-    """While active, wrap ``pretrain_and_save``, ``MLMTrainer.step`` and
-    ``apply_pretrained`` (the port's own functions, called as a run calls
-    them) and record: each MLM run and the launch counts at its end, each
-    step's wall time (synchronized before and after), the first step's key
-    mask or segment ids, the text checkpoint each splice read, and a device
-    profile of steps ``profiled = (first, last)``."""
+def watch_stage(torch, module, stage: str, trainer_cls, record_splice,
+                record_first=None, profiled: range = range(0)):
+    """While active, wrap a pretraining stage (``module.<stage>``), its
+    ``trainer_cls.step`` and ``apply_pretrained`` (the port's own
+    functions, called as a run calls them) and record: each stage run and
+    the launch counts at its end, each step's wall time (synchronized
+    before and after), ``record_first`` of the first step's arguments,
+    ``record_splice(model, kind, spec)`` after each splice (None is not
+    kept), and a device profile of the steps in ``profiled``."""
     from torch.profiler import ProfilerActivity, profile
     from mpmc_tpu_torch.models import pretrained as PT
     from mpmc_tpu_torch.ops import build
-    from mpmc_tpu_torch.train import pretrain as P
-    seen = dict(runs=[], launches=None, step_ms=[], keys=None, spliced=[],
+    seen = dict(runs=[], launches=None, step_ms=[], first=None, spliced=[],
+                profiled=profiled,
                 prof=profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]))
-    save, step, splice = (P.pretrain_and_save, P.MLMTrainer.step,
-                          PT.apply_pretrained)
+    run, step, splice = (getattr(module, stage), trainer_cls.step,
+                         PT.apply_pretrained)
 
-    def saved(*args, **kwargs):
-        seen["runs"].append(save(*args, **kwargs))
+    def ran(*args, **kwargs):
+        seen["runs"].append(run(*args, **kwargs))
         seen["launches"] = dict(build.launch_counts)
         return seen["runs"][-1]
 
-    def timed(self, ids, mask, sel, inp, segments=None, positions=None):
+    def timed(self, *args, **kwargs):
         i = len(seen["step_ms"])
-        if seen["keys"] is None:
-            seen["keys"] = (mask if segments is None else segments).float()
+        if i == 0 and record_first is not None:
+            seen["first"] = record_first(*args, **kwargs)
         if profiled and i == profiled[0]:
             seen["prof"].start()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = step(self, ids, mask, sel, inp, segments, positions)
+        out = step(self, *args, **kwargs)
         torch.cuda.synchronize()
         seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        if profiled and i == profiled[1]:
+        if profiled and i == profiled[-1]:
             seen["prof"].stop()
-        return loss
+        return out
 
     def spliced(model, kind, spec):
-        seen["spliced"].append(spec and spec.text)
-        return splice(model, kind, spec)
+        out = splice(model, kind, spec)
+        record = record_splice(model, kind, spec)
+        if record is not None:
+            seen["spliced"].append(record)
+        return out
 
-    P.pretrain_and_save, P.MLMTrainer.step = saved, timed
-    PT.apply_pretrained = spliced
+    setattr(module, stage, ran)
+    trainer_cls.step, PT.apply_pretrained = timed, spliced
     try:
         yield seen
     finally:
-        P.pretrain_and_save, P.MLMTrainer.step = save, step
-        PT.apply_pretrained = splice
+        setattr(module, stage, run)
+        trainer_cls.step, PT.apply_pretrained = step, splice
+
+
+def watch_mlm(torch, profiled: range = range(0)):
+    """``watch_stage`` over corpus MLM: ``first`` is the first step's key
+    mask or segment ids, ``spliced`` the text checkpoint of each splice."""
+    from mpmc_tpu_torch.train import pretrain as P
+    return watch_stage(
+        torch, P, "pretrain_and_save", P.MLMTrainer,
+        lambda model, kind, spec: spec and spec.text,
+        lambda ids, mask, sel, inp, segments=None, positions=None: (
+            mask if segments is None else segments).float(), profiled)
+
+
+def watch_simclr(torch, profiled: range = range(0)):
+    """``watch_stage`` over SimCLR: ``spliced`` holds each image checkpoint
+    a splice read with the backbone it left (on the CPU)."""
+    from mpmc_tpu_torch.models.pretrained import IMAGE_SUBMODULE
+    from mpmc_tpu_torch.train import pretrain_image as PI
+
+    def record(model, kind, spec):
+        if spec and spec.image:
+            backbone = model.get_submodule(IMAGE_SUBMODULE[kind])
+            return spec.image, {k: v.detach().cpu().clone()
+                                for k, v in backbone.state_dict().items()}
+        return None
+
+    return watch_stage(torch, PI, "simclr_pretrain", PI.SimCLRTrainer,
+                       record, profiled=profiled)
+
+
+def profiled_share(torch, seen, what: str):
+    """The profiled steps of a ``watch_stage`` run: their wall ms, kernel
+    ms, and the kernels of this port in them (name -> count)."""
+    events = [e for e in seen["prof"].key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours = {e.key: e.count for e in events
+            if "attention_" in e.key or "image_normalize" in e.key}
+    wall_ms = sum(seen["step_ms"][i] for i in seen["profiled"])
+    names = {re.search(r"(?:attention|image)_[a-z0-9_]*kernel(?:<\d+>)?",
+                       k).group(0): n for k, n in ours.items()}
+    print(f"  {what}: {wall_ms:.3f} ms wall, kernels {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} % of wall) in "
+          f"{sum(e.count for e in events)} launches; this port's kernels "
+          f"{names}; top:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+    return wall_ms, busy_ms, ours
 
 
 def train_2a_cli(torch, work: str, name: str, flags):
@@ -1228,7 +1302,7 @@ def phase_mlm(torch, argv):
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
-    with watch_mlm(torch, profiled=(2, 3)) as seen:
+    with watch_mlm(torch, profiled=range(2, 4)) as seen:
         run = P.pretrain_and_save(prep.cfg.model.text, prep.corpus, prep.tok,
                                   path, P.MLMConfig(epochs=1, seed=cfg.seed),
                                   max_len=seq_len, device=dev)
@@ -1263,20 +1337,13 @@ def phase_mlm(torch, argv):
     # and the device's share of the 2 profiled ones.
     step_ms = seen["step_ms"]
     warm = sorted(step_ms[1:2] + step_ms[4:])
-    wall_ms = step_ms[2] + step_ms[3]
-    events = [e for e in seen["prof"].key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  its steps at [64,{seq_len}] f32: "
-          f"{[round(t, 3) for t in step_ms]} ms; warm median {warm[len(warm) // 2]:.3f} ms/step of "
-          f"{len(warm)}; steps 2 and 3 profiled: {wall_ms:.3f} ms wall, "
-          f"kernels {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} % of "
-          f"wall) in {sum(e.count for e in events)} launches; top:")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-              f"{e.key[:90]}")
+          f"{[round(t, 3) for t in step_ms]} ms; warm median "
+          f"{warm[len(warm) // 2]:.3f} ms/step of {len(warm)}")
+    wall_ms, busy_ms, _ = profiled_share(torch, seen,
+                                         "MLM steps 2 and 3 profiled")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    shape = time_attention_at(torch, seen["keys"], "padding", torch.float32,
+    shape = time_attention_at(torch, seen["first"], "padding", torch.float32,
                               gen, "the MLM shape")
     result = dict(steps=run.steps, wall_s=wall, loss=run.epoch_losses[0],
                   launches=launches, shape=shape, step_ms=step_ms,
@@ -1302,17 +1369,17 @@ def phase_train_2a_more(torch, work: str, npz: str):
     check(metrics["row_budgets"] is None, "the reference recipe packed rows")
     check(len(mlm["runs"]) == 1 and mlm["spliced"] == [mlm_npz],
           f"the MLM stage's npz was not spliced: {mlm['spliced']}")
-    rows = mlm["keys"].shape[0]
-    check(bool((mlm["keys"] > 1).any()),
+    rows = mlm["first"].shape[0]
+    check(bool((mlm["first"] > 1).any()),
           "the packed MLM stage ran no row with two segments")
     mlm_steps = mlm["runs"][0].steps
     print(f"  its packed MLM stage: {mlm_steps} steps of [{rows},"
-          f"{mlm['keys'].shape[1]}] rows (up to {int(mlm['keys'].max())} "
+          f"{mlm['first'].shape[1]}] rows (up to {int(mlm['first'].max())} "
           f"texts a row), losses {mlm['runs'][0].epoch_losses}, step ms "
           f"{[round(t, 3) for t in mlm['step_ms']]}; its npz spliced into the "
           f"fine-tune")
     gen = torch.Generator(device="cuda").manual_seed(8)
-    shape = time_attention_at(torch, mlm["keys"], "segments", torch.float32,
+    shape = time_attention_at(torch, mlm["first"], "segments", torch.float32,
                               gen, "the packed MLM shape")
     mlm_launches = mlm["launches"]
     ref_launches = {k: launches[k] - mlm_launches[k] for k in launches}
@@ -1746,6 +1813,395 @@ def phase_backbones_card_vs_cpu(torch):
         torch.cuda.empty_cache()
 
 
+# Phase 10: SimCLR and the 2C training variants.  The image kernel at the
+# SimCLR batch (64 images a view, two views a step) and at small_2c's 64
+# pixels; the f32 attention pair at ViT-B/16's SimCLR batch (both views:
+# 128 rows of 197 tokens), mode none.
+SIMCLR_IMAGE_SHAPE = (64, 224, 224, 3)
+SMALL_IMAGE_SHAPE = (16, 64, 64, 3)
+SIMCLR_VIT_ROWS = 128
+# Full-width train runs on phase 5's manifests (name, subtask, flags,
+# attention launches a forward, image kernel launches a train step, the
+# SimCLR steps to profile).  The 2C SimCLR run takes the MCA fusion, so one
+# flagship run covers both.
+TRAIN_VARIANTS = [
+    ("train_2b_simclr", "2b", ["--simclr-epochs", "2"], 0, 1, range(3, 4)),
+    ("train_2c_simclr_mca", "2c", ["--simclr-epochs", "1", "--fusion",
+                                    "mca"], 24, 1, range(0)),
+    ("train_2c_simple", "2c", ["--simple"], 6, 0, range(0)),
+    ("train_2c_small", "2c", ["--small"], 4, 1, range(0)),
+]
+FUSION_CHECKS = ["cross_modal", "self_attention"]
+# Train mode normalizes over the batch: 8 memes keep the statistics well
+# conditioned.
+FUSION_MEMES = 8
+SIMCLR_CARD_VS_CPU_IMAGES = 4
+
+
+def phase_simclr_kernels(torch):
+    """The image kernel at the SimCLR batch and at small_2c's, and the f32
+    attention pair at ViT-B/16's SimCLR batch, each held against its plain
+    version and then timed beside its bound (and SDPA for the pair)."""
+    image_simclr = phase_image_kernel(torch, SIMCLR_IMAGE_SHAPE)
+    image_small = phase_image_kernel(torch, SMALL_IMAGE_SHAPE)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    vit = time_attention_at(torch, None, "none", torch.float32, gen,
+                            "SimCLR ViT-B/16", 12, (SIMCLR_VIT_ROWS, 197))
+    torch.cuda.empty_cache()
+    return image_simclr, image_small, vit
+
+
+def train_variant_cli(torch, work: str, name: str, subtask: str, flags,
+                      layers: int, images_per_step: int, profiled):
+    """``train --subtask 2b|2c`` through the command line on phase 5's
+    manifests (fold 0, one epoch, batch 16, bf16, the given ``flags``),
+    launch counts zeroed before and read after: ``layers`` attention
+    launches a step (forward and backward) and per eval batch (forward),
+    the image kernel ``images_per_step`` times a step and twice a SimCLR
+    step.  Checks the SimCLR stage (its npz is the backbone the fold
+    starts from, bit for bit), the finite losses, the TSVs, and that
+    ``predict --checkpoint`` reproduces the best eval.  Returns the argv
+    and the launches, the wall time, the steps and the SimCLR stage's
+    numbers."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.io.tsv import check_format
+    from mpmc_tpu_torch.models.convert import from_jax_variables
+    from mpmc_tpu_torch.models.pretrained import read_image_params
+    from mpmc_tpu_torch.ops import build
+    out_dir = os.path.join(work, f"{name}_out")
+    ckpt = os.path.join(work, f"{name}_ck")
+    dev_m = os.path.join(work, "dev.json")
+    argv = ["train", "--subtask", subtask,
+            "-tr", os.path.join(work, "train.json"), "-te", dev_m,
+            "--image-root", work, "--fold", "0", "--epochs", "1",
+            "--checkpoint-dir", ckpt, "--out-dir", out_dir,
+            "--device", "cuda"] + flags
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    with watch_simclr(torch, profiled) as sim:
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    label = f"train --subtask {subtask} {' '.join(flags)}"
+    check(rc == 0, f"{label} returned {rc}")
+    task = "task2B" if subtask == "2b" else "task2C"
+    with open(os.path.join(out_dir, f"{task}_train_metrics_fold_0.json")) as f:
+        metrics = json.load(f)
+    steps = len(metrics["steps"])
+    check(steps == metrics["steps_per_epoch"] > 0, f"{label}: steps missing")
+    evals = len(metrics["evals"])
+    eval_batches = evals * (math.ceil(metrics["n_test"] / BATCH)
+                            + math.ceil(metrics["n_val"] / BATCH))
+    simclr_steps = sum(r.steps for r in sim["runs"])
+    check(simclr_steps == len(sim["step_ms"]), "SimCLR steps miscounted")
+    want = {"attention_fwd": layers * (steps + eval_batches),
+            "attention_bwd": layers * steps,
+            "image_normalize": images_per_step * steps + 2 * simclr_steps}
+    check(launches == want, f"{label} launches {launches}, expected {want}")
+    result = dict(launches=launches, wall_s=wall, steps=steps,
+                  eval_batches=eval_batches, row_budgets=metrics["row_budgets"])
+    if "--simclr-epochs" in flags:
+        want = {"attention_fwd": 0, "attention_bwd": 0,
+                "image_normalize": 2 * simclr_steps}
+        check(len(sim["runs"]) == 1 and sim["launches"] == want,
+              f"SimCLR stage launches {sim['launches']}, expected {want}")
+        check(all(math.isfinite(x) for x in sim["runs"][0].epoch_losses),
+              f"non-finite SimCLR loss {sim['runs'][0].epoch_losses}")
+        npz = os.path.join(out_dir, "simclr_backbone.npz")
+        check([p for p, _ in sim["spliced"]] == [npz],
+              f"the fold did not start from the SimCLR npz: "
+              f"{[p for p, _ in sim['spliced']]}")
+        tree = read_image_params(npz)
+        in_file = from_jax_variables(tree["params"], tree["batch_stats"])
+        got = sim["spliced"][0][1]
+        check(set(got) == set(in_file)
+              and all(torch.equal(got[k], in_file[k]) for k in in_file),
+              "the fold's initial backbone differs from the SimCLR npz")
+        step_ms = sim["step_ms"]
+        warm = sorted(step_ms[1:profiled.start] if profiled else step_ms[1:])
+        result["simclr"] = dict(steps=simclr_steps, step_ms=step_ms,
+                                loss=sim["runs"][0].epoch_losses,
+                                warm_step_ms_median=(warm[len(warm) // 2]
+                                                     if warm else None))
+        print(f"  its SimCLR stage: {simclr_steps} steps at batch "
+              f"{min(4 * BATCH, N_TRAIN)} (two views a step, f32), step ms "
+              f"{[round(t, 3) for t in step_ms]}, losses "
+              f"{sim['runs'][0].epoch_losses}; the fold's initial backbone "
+              f"equals the npz bit for bit ({len(in_file)} tensors)")
+        if profiled:
+            wall_ms, busy_ms, _ = profiled_share(
+                torch, sim, f"SimCLR step {profiled.start} (ResNet-18) "
+                            f"profiled")
+            result["simclr"].update(profiled_wall_ms=wall_ms,
+                                    profiled_kernel_ms=busy_ms)
+    bad = [s for s in metrics["steps"]
+           if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+    check(not bad, f"{label}: non-finite loss or grad norm: {bad}")
+    prefix = os.path.join(out_dir, f"{task}_kevinmathew")
+    check(check_format(prefix + ".tsv"), f"{label}: the TSV fails check_format")
+    pred_out, pred_probs = (os.path.join(work, f"{name}_{n}")
+                            for n in ("p.tsv", "pp.tsv"))
+    check(cli_main(["predict", "--subtask", subtask, "--manifest", dev_m,
+                    "--checkpoint", os.path.join(ckpt, "fold_0"),
+                    "--image-root", work, "--out", pred_out, "--probs-out",
+                    pred_probs, "--device", "cuda"]) == 0,
+          f"predict after {label} failed")
+    got, best = read_probs(pred_probs), read_probs(prefix + "_probs_fold_0.tsv")
+    err = max(abs(a - b) for a, b in zip(got, best))
+    check(len(got) == len(best) == N_DEV and err <= 1e-4,
+          f"{label}: predict from the checkpoint differs from the best eval "
+          f"by {err}")
+    with open(os.path.join(ckpt, "run_meta.json")) as f:
+        meta = json.load(f)
+    rows = (f"packed row budgets {tuple(metrics['row_budgets'])}"
+            if metrics["row_budgets"] else "unpacked")
+    print(f"  {label} --fold 0 --epochs 1 ({meta['kind']} model, fusion "
+          f"{meta['model']['fusion']}, {rows}): rc 0, {wall:.3f} s wall "
+          f"(model build, image decode, {evals} evals and first-call set-up "
+          f"included); {steps} steps, losses "
+          f"{[round(s['loss'], 5) for s in metrics['steps']]}")
+    print(f"  launches: attention_fwd {launches['attention_fwd']} = {layers} "
+          f"x ({steps} steps + {eval_batches} eval batches), attention_bwd "
+          f"{launches['attention_bwd']} = {layers} x {steps}, image_normalize "
+          f"{launches['image_normalize']} = {images_per_step} x {steps} + 2 x "
+          f"{simclr_steps} SimCLR steps; predict --checkpoint: max |prob - "
+          f"best eval prob| {err:.3g} (tol 1e-4)")
+    torch.cuda.empty_cache()
+    return argv, result
+
+
+def phase_simclr_vit(torch):
+    """``simclr_pretrain`` over ViT-B/16 at 224 for two steps (64 images,
+    batch 64, f32): launches (12 forward and 12 backward calls a step at
+    ``[128,197,12,64]``, three f32 backward kernels a call; the image
+    kernel twice a step), finite losses, the warm step's time and device
+    share."""
+    import numpy as np
+    from mpmc_tpu_torch.config import ImageEncoderConfig
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train import pretrain_image as PI
+    images = np.random.default_rng(11).integers(
+        0, 256, (SIMCLR_VIT_ROWS // 2, 224, 224, 3), dtype=np.uint8)
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    with watch_simclr(torch, profiled=range(1, 2)) as sim:
+        run = PI.simclr_pretrain(
+            ImageEncoderConfig(arch="vit_base_16", image_size=224), images,
+            PI.SimCLRConfig(epochs=2, batch_size=SIMCLR_VIT_ROWS // 2),
+            device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    want = {"attention_fwd": 12 * run.steps, "attention_bwd": 12 * run.steps,
+            "image_normalize": 2 * run.steps}
+    check(run.steps == 2 and launches == want,
+          f"ViT SimCLR launches {launches} in {run.steps} steps, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in run.epoch_losses),
+          f"non-finite ViT SimCLR loss {run.epoch_losses}")
+    print(f"  simclr_pretrain ViT-B/16 at 224, 64 images, batch 64 (attention "
+          f"at [128,197,12,64] f32), 2 epochs of 1 step: {wall:.3f} s wall "
+          f"(model build included), step ms "
+          f"{[round(t, 3) for t in sim['step_ms']]}, losses "
+          f"{run.epoch_losses}; launches attention_fwd "
+          f"{launches['attention_fwd']} and attention_bwd "
+          f"{launches['attention_bwd']} = 12 x {run.steps}, image_normalize "
+          f"{launches['image_normalize']} = 2 x {run.steps}")
+    wall_ms, busy_ms, ours = profiled_share(
+        torch, sim, "SimCLR step 1 (ViT-B/16) profiled")
+    # The f32 backward: a row-statistics pass, dK/dV and dQ, each once a
+    # call.
+    bwd = [n for k, n in ours.items() if "attention_bwd" in k]
+    check(len(bwd) == 3 and all(n == 12 for n in bwd),
+          f"the f32 ViT backward should be 3 kernels launched 12 times a "
+          f"step, got {ours}")
+    del run, sim
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, step_ms=wall_ms,
+                profiled_kernel_ms=busy_ms)
+
+
+def phase_simclr_card_vs_cpu(torch):
+    """Two SimCLR steps of ResNet-18 at 224 on a few images in f32 (TF32
+    off), on the card (kernels) and the CPU (plain versions): the same
+    weights, and the same two views (the card's, after holding them
+    against the CPU's own from the same draws).  The first step runs at lr
+    0 (warmup), the second at the peak: losses, BatchNorm statistics and
+    parameters after both."""
+    import numpy as np
+    from mpmc_tpu_torch.config import ImageEncoderConfig
+    from mpmc_tpu_torch.train import pretrain_image as PI
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = SIMCLR_CARD_VS_CPU_IMAGES
+    cfg = PI.SimCLRConfig(batch_size=n)
+    icfg = ImageEncoderConfig()
+    rng = np.random.default_rng(13)
+    u8 = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    draws = [(rng.random(n) < 0.5, rng.uniform(0.9, 1.1, n).astype(np.float32),
+              (rng.uniform(-15, 15, n) * math.pi / 180).astype(np.float32))
+             for _ in range(2)]
+    trainers, views, losses = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        dev = torch.device(where)
+        with torch.device(dev):
+            model = PI.SimCLRModel(icfg, cfg.proj_dim)
+        if where == "cuda":
+            PI.init_weights(model, torch.Generator(device=dev).manual_seed(3))
+            init = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        trainers[where] = PI.SimCLRTrainer(model, 2, cfg)
+        views[where] = trainers[where].views(
+            torch.from_numpy(u8).to(dev),
+            *([torch.from_numpy(x).to(dev) for x in d] for d in draws))
+    img_err, _ = within(views["cuda"].cpu(), views["cpu"], 0, 0)
+    same = float((views["cuda"].cpu() == views["cpu"]).float().mean())
+    check(img_err <= 1.6e-2 and same >= 0.99, "SimCLR views: card and CPU "
+                                              "disagree")
+    shared = {"cuda": views["cuda"], "cpu": views["cuda"].cpu()}
+    for where, trainer in trainers.items():
+        trainer.views = lambda *args, v=shared[where]: v
+        dev = torch.device(where)
+        u8_dev = torch.from_numpy(u8).to(dev)
+        losses[where] = [float(trainer.step(u8_dev, None, None))
+                         for _ in range(2)]
+    lr = trainers["cpu"].optimizer.schedule(1)
+    gpu_sd = {k: v.cpu() for k, v in trainers["cuda"].model.state_dict().items()}
+    cpu_sd = trainers["cpu"].model.state_dict()
+    p_max = s_max = 0.0
+    off = count = 0
+    for name, w in cpu_sd.items():
+        d = (gpu_sd[name] - w).abs()
+        if "running_" in name:
+            s_max = max(s_max, d.max().item())
+            continue
+        p_max = max(p_max, d.max().item())
+        off += int((d > 0.1 * lr).sum())
+        count += d.numel()
+    print(f"  two SimCLR steps, ResNet-18 at 224, {n} images (views "
+          f"[{2 * n},224,224,3]), f32, TF32 off: views card vs CPU max |diff| "
+          f"{img_err:.3g} (tol 1.6e-2), {100 * same:.3f} % identical, then "
+          f"the card's views on both; losses card {losses['cuda']} cpu "
+          f"{losses['cpu']} (tol 1e-4 relative); after step 2 (lr {lr:.3g}) "
+          f"parameters max |diff| {p_max:.3g} (bound {2 * 3.17 * lr:.3g}), "
+          f"{off} of {count} entries beyond 0.1 lr (tol 1 %), batch "
+          f"statistics max |diff| {s_max:.3g} (tol 1e-5)")
+    for lg, lc in zip(losses["cuda"], losses["cpu"]):
+        check(abs(lg - lc) <= 1e-4 * abs(lc), "SimCLR loss: card and CPU "
+                                              "disagree")
+    check(p_max <= 2 * 3.17 * lr and off <= 0.01 * count,
+          "SimCLR parameters: card and CPU disagree")
+    check(s_max <= 1e-5, "SimCLR batch statistics: card and CPU disagree")
+    del trainers, views, shared
+    torch.cuda.empty_cache()
+
+
+def phase_fusions_card_vs_cpu(torch, work: str):
+    """The flagship 2C model with the cross-modal and the self-attention
+    fusion at full width (dropout 0), same weights, card (kernels) vs CPU
+    (plain versions) in f32 with TF32 off, on the first memes of phase 3's
+    manifest: in eval mode the logits, in train mode the fusion's output
+    (its BatchNorm on the batch statistics), each within 1e-4 of max(1,
+    its largest CPU value)."""
+    import dataclasses
+    from mpmc_tpu_torch.cli.main import build_parser, prepare_inputs
+    from mpmc_tpu_torch.config import FusionMethod
+    from mpmc_tpu_torch.image.augment import eval_preprocess
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = build_parser().parse_args(predict_argv(
+        work, os.path.join(work, "memes.json"), "cmp", ["--subtask", "2c"]))
+    inputs = prepare_inputs(args)
+    batch = {k: torch.from_numpy(a[:FUSION_MEMES])
+             for k, a in inputs.data.items()}
+    m = inputs.variant.model_cfg
+    enc = dict(hidden_dropout=0.0, attention_dropout=0.0)
+    base = dataclasses.replace(
+        m, dropout=0.0, text=dataclasses.replace(m.text, **enc),
+        caption=dataclasses.replace(m.caption, **enc),
+        image=dataclasses.replace(m.image, finetune_dropout=0.0))
+    for fusion in FUSION_CHECKS:
+        cfg = dataclasses.replace(base, fusion=FusionMethod(fusion))
+        gpu = build_model(cfg, torch.device("cuda"), seed=7)
+        cpu = build_model(cfg, torch.device("cpu"))
+        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+        errs = []
+        for train in (False, True):
+            def run(model, device):
+                seen = {}
+                hook = model.fusion.register_forward_hook(
+                    lambda mod, inp, out: seen.__setitem__("x", out))
+                b = {k: t.to(device) for k, t in batch.items()}
+                xs = [eval_preprocess(b["image"]) if key == "image" else b[key]
+                      for key in model.inputs]
+                with torch.no_grad():
+                    logits = model.train(train)(*xs)
+                hook.remove()
+                return (seen["x"] if train else logits).float().cpu()
+
+            before = A.launch_counts["attention_fwd"]
+            on_card = run(gpu, torch.device("cuda"))
+            check(A.launch_counts["attention_fwd"] - before == 24,
+                  f"{fusion}: the card forward launched attention_fwd "
+                  f"{A.launch_counts['attention_fwd'] - before} times, "
+                  f"expected 24")
+            on_cpu = run(cpu, torch.device("cpu"))
+            err = (on_card - on_cpu).abs().max().item()
+            scale = max(1.0, on_cpu.abs().max().item())
+            check(bool(torch.isfinite(on_card).all()),
+                  f"{fusion}: non-finite output on the card")
+            check(err <= 1e-4 * scale,
+                  f"{fusion}: card and CPU disagree in f32 (train={train})")
+            errs.append(f"{'train, fusion output' if train else 'eval, logits'}"
+                        f" {tuple(on_cpu.shape)} {err:.3g} (tol 1e-4 x "
+                        f"{scale:.4g})")
+        print(f"  f32 MultimodalClassifier with {fusion} fusion, card vs CPU "
+              f"max abs diff: {'; '.join(errs)}; 24 attention_fwd launches a "
+              f"forward")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+
+def phase_small_attention(torch, argv):
+    """The attention pair at the ``--small`` run's own packed text shape
+    (bf16, segments, 4 heads of D = 32): the segment ids of its fold's
+    second packed batch, rebuilt from its command line, held against the
+    plain versions and timed."""
+    _, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
+                             device=torch.device("cuda"))
+    del run
+    seg = torch.from_numpy(batches[1]["t_segments"]).to("cuda").float()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    shape = time_attention_at(torch, seg, "segments", torch.bfloat16, gen,
+                              "the packed --small 2C shape", heads=4,
+                              head_dim=32)
+    torch.cuda.empty_cache()
+    return shape
+
+
+def phase_train_variants(torch, work: str):
+    """The full-width train runs of ``TRAIN_VARIANTS`` through the command
+    line, the attention pair at the ``--small`` run's shape, then SimCLR
+    over ViT-B/16, one SimCLR step pair card vs CPU, and the attention
+    fusions card vs CPU.  Returns the runs' numbers and the ``--small``
+    attention shape's."""
+    results, argvs = {}, {}
+    for name, subtask, flags, layers, images, profiled in TRAIN_VARIANTS:
+        argvs[name], results[name] = train_variant_cli(
+            torch, work, name, subtask, flags, layers, images, profiled)
+    small = phase_small_attention(torch, argvs["train_2c_small"])
+    results["simclr_vit"] = phase_simclr_vit(torch)
+    phase_simclr_card_vs_cpu(torch)
+    phase_fusions_card_vs_cpu(torch, work)
+    return results, small
+
+
 T_START = time.perf_counter()
 
 
@@ -1826,6 +2282,9 @@ def main() -> int:
             vit_shapes, vit_f32, image_384 = phase_vit_kernels(torch)
             train_2b = phase_train_2b(torch, work)
             phase_backbones_card_vs_cpu(torch)
+            print("phase 10 SimCLR pretraining and the 2C training variants:")
+            image_simclr, image_small, simclr_vit = phase_simclr_kernels(torch)
+            variants, small_2c = phase_train_variants(torch, work)
         finally:
             os.chdir(cwd)
 
@@ -1853,7 +2312,9 @@ def main() -> int:
             "train_2a_text_params": more_2a["text_params"]["launches"][
                 "attention_fwd"],
             **{k: v["launches"]["attention_fwd"]
-               for k, v in train_2b.items()}},
+               for k, v in train_2b.items()},
+            **{k: v["launches"]["attention_fwd"]
+               for k, v in variants.items()}},
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
                 "library_ms": v["library_fwd_ms"],
@@ -1864,7 +2325,9 @@ def main() -> int:
             "fwd_plain_ms", "library_fwd_ms", "fwd_bound_ms")}
            for name, shape in (("train_2a", warm_2a["shape"]),
                                ("mlm", mlm["shape"]),
-                               ("mlm_pack", more_2a["mlm_pack"]["shape"]))},
+                               ("mlm_pack", more_2a["mlm_pack"]["shape"]),
+                               ("simclr_vit", simclr_vit),
+                               ("small_2c", small_2c))},
         "vit_shapes": {name: {m: shape[m] for m in (
             "shape", "mode", "dtype", "fwd_max_abs_err", "fwd_ms",
             "fwd_plain_ms", "library_fwd_ms", "fwd_bound_ms")}
@@ -1893,12 +2356,15 @@ def main() -> int:
             "train_2a_text_params": more_2a["text_params"]["launches"][
                 "attention_bwd"],
             **{k: v["launches"]["attention_bwd"]
-               for k, v in train_2b.items()}},
+               for k, v in train_2b.items()},
+            **{k: v["launches"]["attention_bwd"]
+               for k, v in variants.items()}},
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
         "mlm_pack_shape": more_2a["mlm_pack"]["shape"],
         "vit_shapes": vit_shapes,
-        "vit_f32_max_abs_err": vit_f32["max_abs_err"]}, {
+        "vit_f32_max_abs_err": vit_f32["max_abs_err"],
+        "simclr_vit_shape": simclr_vit, "small_2c_shape": small_2c}, {
         "name": "image_normalize", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/image_normalize.cu",
         "replaces": "mpmc_tpu/ops/image_ops.py:20",
@@ -1909,11 +2375,14 @@ def main() -> int:
         "library": "none: no single PyTorch call flips, scales, clips and "
                    "normalizes",
         "shape": image["shape"], "dtype": image["dtype"],
-        "shape_384": image_384,
+        "shape_384": image_384, "shape_simclr": image_simclr,
+        "shape_small_2c": image_small,
         "launches_by_path": {
             "train": train_launches["image_normalize"],
             **{k: v["launches"]["image_normalize"]
-               for k, v in train_2b.items()}}}]
+               for k, v in train_2b.items()},
+            **{k: v["launches"]["image_normalize"]
+               for k, v in variants.items()}}}]
     print(json.dumps({"predict_kinds": {
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
                               "profiled_wall_ms", "profiled_kernel_ms")}
@@ -1932,11 +2401,15 @@ def main() -> int:
                      if k != "shape"},
         "train_2a_text_params": more_2a["text_params"]}))
     print(json.dumps({"train_2b": train_2b}))
+    print(json.dumps({"train_variants": variants}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "
           f"ViT-B/16 at 384 "
-          f"{train_2b['train_2b_vit']['warm_step_ms_median']:.3f} ms; "
+          f"{train_2b['train_2b_vit']['warm_step_ms_median']:.3f} ms; SimCLR "
+          f"ResNet-18 "
+          f"{variants['train_2b_simclr']['simclr']['warm_step_ms_median']:.3f}"
+          f" ms, ViT-B/16 {variants['simclr_vit']['step_ms']:.3f} ms; "
           f"whole run {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,13 @@
 """The port's experiment drivers (port of ``mpmc_tpu/cli/experiments.py``):
 corpus vocabulary, tokenization and sequence-length bucketing shared by
-the entry points, the optional corpus MLM stage (``_maybe_mlm_pretrain``),
-and the training entry points ``run_subtask_2a`` (text), ``run_subtask_2b``
-(image) and ``run_subtask_2c`` (multimodal) over ``_run_folds`` on one
-device.  Packed (``pack_rows > 0``) 2A is fed from the host by a
-``PackedTrainPlan``; packed 2C keeps its images on the device; unpacked
-(2B always), every array stays on the device and batches carry row
-indices."""
+the entry points, the optional corpus MLM stage (``_maybe_mlm_pretrain``)
+and SimCLR image stage (``_maybe_simclr_pretrain``), and the training
+entry points ``run_subtask_2a`` (text), ``run_subtask_2b`` (image) and
+``run_subtask_2c`` (multimodal, or the simple baseline) over
+``_run_folds`` on one device.  Packed (``pack_rows > 0``) 2A is fed from
+the host by a ``PackedTrainPlan``; packed 2C keeps its images on the
+device; unpacked (2B and the simple 2C always), every array stays on the
+device and batches carry row indices."""
 
 from __future__ import annotations
 
@@ -79,6 +80,24 @@ def bucket_trim(data: Dict[str, np.ndarray], ids_key: str, mask_key: str,
     data[mask_key] = np.ascontiguousarray(data[mask_key][:, :length])
 
 
+_UNMASKED_POOLINGS = (PoolingType.MAX, PoolingType.CNN, PoolingType.NOPOOLING)
+
+
+def bucketing_enabled(cfg: TrainConfig) -> bool:
+    """Bucketing is exact only for the masked poolings (cls, mean,
+    attention): max, cnn and nopooling run over every position, padding
+    included, so trimming would change their logits; they keep the fixed
+    length."""
+    if not cfg.data.seq_bucket_multiple:
+        return False
+    if cfg.model.pooling in _UNMASKED_POOLINGS:
+        log.warning("sequence bucketing auto-disabled: %s pooling is "
+                    "unmasked; running at the fixed max length",
+                    cfg.model.pooling.value)
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Training drivers
 # ---------------------------------------------------------------------------
@@ -114,6 +133,28 @@ def _maybe_mlm_pretrain(cfg: TrainConfig, mcfg, tok, corpus_texts,
                       max_len=seq_len, device=device)
     return (dataclasses.replace(pretrained, text=mlm_path)
             if pretrained else PretrainedSpec(text=mlm_path))
+
+
+def _maybe_simclr_pretrain(cfg: TrainConfig, mcfg, images_u8: np.ndarray,
+                           out_dir: str, pretrained, device: torch.device):
+    """The SimCLR stage (``cfg.simclr_epochs`` > 0) over the train images on
+    ``device``, batch ``min(4 * batch_size, N)``: its backbone npz becomes
+    the spec's image checkpoint, unless the spec already has one."""
+    from mpmc_tpu_torch.models.pretrained import PretrainedSpec
+    from mpmc_tpu_torch.train.pretrain_image import (SimCLRConfig,
+                                                     pretrain_and_save_image)
+    if cfg.simclr_epochs <= 0 or (pretrained is not None and pretrained.image):
+        return pretrained
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "simclr_backbone.npz")
+    pretrain_and_save_image(
+        mcfg.image, images_u8, path,
+        SimCLRConfig(epochs=cfg.simclr_epochs, seed=cfg.seed,
+                     batch_size=min(cfg.data.batch_size * 4,
+                                    len(images_u8))),
+        device=device)
+    return (dataclasses.replace(pretrained, image=path)
+            if pretrained else PretrainedSpec(image=path))
 
 
 def _persist_run_meta(cfg: TrainConfig, mcfg, kind: str, out_dir: str,
@@ -309,7 +350,7 @@ def prepare_2a(cfg: TrainConfig, out_dir: str,
     ids_arr, mask_arr = prepare_text(combined, tok, mcfg.max_text_len)
     data = {"text_ids": ids_arr, "text_mask": mask_arr,
             "label": combined.labels}
-    if cfg.data.seq_bucket_multiple:
+    if bucketing_enabled(cfg):
         seq_len = bucket_seq_len([mask_arr], cfg.data.seq_bucket_multiple,
                                  mcfg.max_text_len)
         bucket_trim(data, "text_ids", "text_mask", seq_len)
@@ -385,11 +426,15 @@ def run_subtask_2b(cfg: TrainConfig, device: torch.device,
     manifest as the test split, cross-entropy over 2 classes, never packed.
     Color images train through ``train_augment`` (the image kernel once a
     step); the grayscale variant trains on the deterministic eval
-    transform with grayscale statistics, as the JAX package does.  A
-    ``pretrained`` text checkpoint is refused: the model has no text
-    encoder."""
+    transform with grayscale statistics, as the JAX package does.  The
+    SimCLR stage runs first over the train images when
+    ``cfg.simclr_epochs`` > 0 (color only).  A ``pretrained`` text
+    checkpoint is refused: the model has no text encoder."""
     prep = prepare_2b(cfg)
     gray = prep.cfg.model.image.grayscale
+    pretrained = _maybe_simclr_pretrain(prep.cfg, prep.cfg.model,
+                                        prep.data["image"], out_dir,
+                                        pretrained, device)
     _persist_run_meta(prep.cfg, prep.cfg.model, "image", out_dir, prep.data,
                       augment=True, grayscale=gray, eval_transform_only=gray,
                       binary_head=binary_head)
@@ -398,6 +443,13 @@ def run_subtask_2b(cfg: TrainConfig, device: torch.device,
                       augment=grayscale_eval_transform if gray else None,
                       kind="image", pretrained=pretrained, grayscale=gray,
                       binary_head=binary_head)
+
+
+def eval_transform(images_u8: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """The simple 2C baseline's training transform: the deterministic eval
+    normalization, no random draw (no image kernel)."""
+    return eval_preprocess(images_u8)
 
 
 @dataclasses.dataclass
@@ -416,19 +468,24 @@ class Prepared2C:
 
 
 def prepare_2c(cfg: TrainConfig, out_dir: str,
-               vocab_path: Optional[str] = None) -> Prepared2C:
+               vocab_path: Optional[str] = None,
+               simple: bool = False) -> Prepared2C:
     """Manifests, vocabularies (text: ``vocab_path``, else a corpus vocab
-    over the train texts; captions: a corpus vocab over both splits; both
-    saved under ``out_dir`` and the checkpoint dir), decoded images,
-    placeholder captions, and text and caption lengths bucketed jointly
-    over both splits."""
+    over the train texts; captions, when the model has a caption branch: a
+    corpus vocab over both splits; both saved under ``out_dir`` and the
+    checkpoint dir), decoded images, placeholder captions, and text and
+    caption lengths bucketed jointly over both splits.  ``simple``: the
+    simple baseline's config (at least 2 classes, cross-entropy, no
+    captions, never bucketed or packed: it pools the last position)."""
     train = read_manifest(cfg.data.train_manifest)
     dev = read_manifest(cfg.data.dev_manifest)
     tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
                           vocab_path)
     _persist_vocab(tok, cfg, out_dir)
     mcfg = dataclasses.replace(
-        cfg.model, subtask=Subtask.C, num_classes=1,
+        cfg.model, subtask=Subtask.C,
+        num_classes=max(cfg.model.num_classes, 2) if simple else 1,
+        caption=None if simple else cfg.model.caption,
         text=dataclasses.replace(cfg.model.text,
                                  vocab_size=max(tok.vocab.values()) + 1))
     size = mcfg.image.image_size
@@ -436,32 +493,44 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
                                   cfg.data.image_root),
             "dev": decode_batch(dev.img_paths, size, False,
                                 cfg.data.image_root)}
-    caps = {"train": precompute_captions(train.img_paths,
-                                         cache_dir=cfg.data.cache_dir),
-            "dev": precompute_captions(dev.img_paths,
-                                       cache_dir=cfg.data.cache_dir)}
-    cap_tok = build_tokenizer(caps["train"] + caps["dev"], None)
-    _persist_vocab(cap_tok, cfg, out_dir, "caption_vocab.txt")
-    mcfg = dataclasses.replace(mcfg, caption=dataclasses.replace(
-        mcfg.caption, vocab_size=max(cap_tok.vocab.values()) + 1))
-    cfg = dataclasses.replace(cfg, model=mcfg)
+    cap_tok, caps = None, {}
+    if mcfg.caption is not None:
+        caps = {"train": precompute_captions(train.img_paths,
+                                             cache_dir=cfg.data.cache_dir),
+                "dev": precompute_captions(dev.img_paths,
+                                           cache_dir=cfg.data.cache_dir)}
+        cap_tok = build_tokenizer(caps["train"] + caps["dev"], None)
+        _persist_vocab(cap_tok, cfg, out_dir, "caption_vocab.txt")
+        mcfg = dataclasses.replace(mcfg, caption=dataclasses.replace(
+            mcfg.caption, vocab_size=max(cap_tok.vocab.values()) + 1))
+    data_cfg = cfg.data
+    if simple and data_cfg.pack_rows > 0:
+        log.warning("--pack-rows %d ignored: the simple model trains "
+                    "unpacked", data_cfg.pack_rows)
+        data_cfg = dataclasses.replace(data_cfg, pack_rows=0)
+    cfg = dataclasses.replace(
+        cfg, model=mcfg, data=data_cfg,
+        loss=LossType.CROSS_ENTROPY if simple else LossType.FOCAL)
 
     def prep(split: Manifest, key: str) -> Dict[str, np.ndarray]:
         ids_arr, mask_arr = prepare_text(split, tok, mcfg.max_text_len)
         d = {"text_ids": ids_arr, "text_mask": mask_arr, "image": imgs[key]}
-        d["caption_ids"], d["caption_mask"] = cap_tok.encode_batch(
-            caps[key], mcfg.max_caption_len)
+        if cap_tok is not None:
+            d["caption_ids"], d["caption_mask"] = cap_tok.encode_batch(
+                caps[key], mcfg.max_caption_len)
         if split.labels is not None:
             d["label"] = split.labels
         return d
 
     data = prep(train, "train")
     test = prep(dev, "dev")
-    mult = cfg.data.seq_bucket_multiple
-    if mult:
-        for ids_key, mask_key, cap in (
-                ("text_ids", "text_mask", mcfg.max_text_len),
-                ("caption_ids", "caption_mask", mcfg.max_caption_len)):
+    if bucketing_enabled(cfg) and not simple:
+        mult = cfg.data.seq_bucket_multiple
+        pairs = [("text_ids", "text_mask", mcfg.max_text_len)]
+        if cap_tok is not None:
+            pairs.append(("caption_ids", "caption_mask",
+                          mcfg.max_caption_len))
+        for ids_key, mask_key, cap in pairs:
             length = bucket_seq_len([data[mask_key], test[mask_key]], mult,
                                     cap)
             for d in (data, test):
@@ -477,15 +546,31 @@ def run_subtask_2c(cfg: TrainConfig, device: torch.device,
                    vocab_path: Optional[str] = None,
                    folds: Optional[List[int]] = None,
                    augment: Optional[Callable] = None,
-                   pretrained=None) -> List:
+                   pretrained=None, simple: bool = False) -> List:
     """The 2C fine-tune: stratified folds over the train manifest, the dev
-    manifest as the test split, focal loss, placeholder captions, the text
-    vocab from ``vocab_path`` when given; the corpus MLM stage of the text
-    branch first when ``cfg.mlm_epochs`` > 0."""
-    prep = prepare_2c(cfg, out_dir, vocab_path)
+    manifest as the test split, focal loss, placeholder captions (when the
+    model has a caption branch), the text vocab from ``vocab_path`` when
+    given; the corpus MLM stage of the text branch first when
+    ``cfg.mlm_epochs`` > 0, then the SimCLR stage of the image backbone
+    when ``cfg.simclr_epochs`` > 0.  ``simple``: the organizers' simple
+    baseline instead (C28: ``SimpleMultimodalClassifier``, 2-class
+    cross-entropy, no captions, unbucketed and unpacked, trained on the
+    deterministic eval transform), which takes no SimCLR stage: its
+    backbone keeps the 1000-logit head a headless backbone cannot fill."""
+    prep = prepare_2c(cfg, out_dir, vocab_path, simple)
     pretrained = _maybe_mlm_pretrain(
         prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
         prep.data["text_ids"].shape[1], out_dir, pretrained, device)
+    if simple:
+        _persist_run_meta(prep.cfg, prep.cfg.model, "simple", out_dir,
+                          prep.data, augment=True, eval_transform_only=True)
+        return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,
+                          prep.dev_ids, out_dir, "task2C", device, folds,
+                          augment=augment or eval_transform, kind="simple",
+                          pretrained=pretrained)
+    pretrained = _maybe_simclr_pretrain(prep.cfg, prep.cfg.model,
+                                        prep.data["image"], out_dir,
+                                        pretrained, device)
     _persist_run_meta(prep.cfg, prep.cfg.model, "multimodal", out_dir,
                       prep.data, augment=True)
     return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,

@@ -5,11 +5,13 @@
       [--small] [--tiny] [--simple] [--image-arch A] [--image-size N] \\
       [--binary-head] [--device cuda|cpu] [--batch-size 16]
   python -m mpmc_tpu_torch.cli.main train --subtask 2a|2b|2c -tr TRAIN \\
-      -te DEV [--recipe fast|reference] [--small] [--tiny] [--fold K] \\
-      [--num-folds N] [--epochs N] [--lr X] \\
+      -te DEV [--recipe fast|reference] [--small] [--tiny] [--simple] \\
+      [--fold K] [--num-folds N] [--epochs N] [--lr X] \\
       [--lr-schedule constant|linear_warmup] [--pack-rows G] [--vocab V] \\
       [--mlm-epochs N] [--mlm-pack] [--text-params mlm_encoder.npz] \\
+      [--simclr-epochs N] [--image-params simclr_backbone.npz] \\
       [--image-arch A] [--image-size N] [--binary-head] \\
+      [--pooling P] [--fusion concatenation|mca|cross_modal|self_attention] \\
       [--checkpoint-dir DIR] [--out-dir DIR] [--device cuda|cpu]
   python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
   python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
@@ -38,6 +40,12 @@ An explicitly passed flag wins over its recipe value.  ``--mlm-epochs``
 first pretrains the text encoder on the train+dev texts with masked
 language modelling (``--mlm-pack`` packs that corpus) and starts every
 fold from it; ``--text-params`` starts from such an encoder file instead.
+``--simclr-epochs`` likewise pretrains the image backbone contrastively
+(SimCLR) on the train images before 2B or the 2C flagship, and
+``--image-params`` starts from such a backbone file instead.  For 2C,
+``--small`` trains the small_2c model (no captions), ``--simple`` the
+organizers' simple baseline (C28), ``--fusion`` picks the fusion family
+and ``--pooling`` the pooling mode (the unmasked ones turn bucketing off).
 
 ``predict`` follows the JAX package's ``_cmd_predict`` for every model
 kind: ``text`` (2A), ``image`` (2B), ``simple`` (2C ``--simple``, the
@@ -73,9 +81,9 @@ import torch
 
 from mpmc_tpu_torch.cli.experiments import (build_tokenizer, bucket_seq_len,
                                             bucket_trim, prepare_text)
-from mpmc_tpu_torch.config import (DataConfig, ModelConfig, PoolingType,
-                                   TextEncoderConfig, TrainConfig,
-                                   model_config_from_dict)
+from mpmc_tpu_torch.config import (DataConfig, FusionMethod, ModelConfig,
+                                   PoolingType, TextEncoderConfig,
+                                   TrainConfig, model_config_from_dict)
 from mpmc_tpu_torch.image.decode import decode_batch
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
@@ -384,24 +392,27 @@ def _resolve_recipe(args) -> None:
     """Fill the recipe-controlled flags that were left unset, as the JAX
     package's ``_resolve_recipe`` does for the flags the port takes: the
     fast recipe packs 4 rows a step in 2A and each batch's tokens into rows
-    in 2C (``pack_rows`` 8); 2B has no tokens and never packs."""
+    in 2C (``pack_rows`` 8); 2B has no tokens and the simple 2C model pools
+    the last position, so neither packs."""
     fast = args.recipe == "fast"
     if args.embedding_optimizer is None:
         args.embedding_optimizer = "factored" if fast else "adam"
     if args.adam_mu_dtype is None and fast:
         args.adam_mu_dtype = "bfloat16"
     if args.pack_rows is None:
-        args.pack_rows = {"2a": 4, "2c": 8}.get(args.subtask, 0) if fast else 0
+        packs = {"2a": 4} if args.simple else {"2a": 4, "2c": 8}
+        args.pack_rows = packs.get(args.subtask, 0) if fast else 0
 
 
 def train_config(args) -> Tuple[TrainConfig, torch.device]:
     """The ``TrainConfig`` and device of a parsed ``train`` command line;
-    raises when CUDA is asked for and absent.  ``--image-arch`` and
-    ``--image-size`` swap the image backbone or its resolution of the
-    chosen preset, as in the JAX package."""
-    if args.simclr_epochs > 0:
-        raise SystemExit("--simclr-epochs (SimCLR image pretraining) is not "
-                         "ported yet")
+    raises when CUDA is asked for and absent.  As in the JAX package:
+    ``--image-arch`` and ``--image-size`` swap the image backbone or its
+    resolution of the chosen preset; ``--pooling`` and ``--fusion`` set
+    those fields, and a fusion other than concatenation sets the image
+    branch's ``finetune_dim`` to ``proj_dim`` (it needs equal widths);
+    ``--simple`` without ``--tiny`` swaps in ``simple_2c`` after all of
+    that."""
     device = resolve_device(args.device)
     _resolve_recipe(args)
     data = DataConfig(train_manifest=args.train_file_path,
@@ -413,7 +424,7 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
     if args.small and args.subtask == "2a":
         model = ModelConfig.small_2a()
     elif args.small and args.subtask == "2c":
-        raise SystemExit("--small for 2c (small_2c) is not ported yet")
+        model = ModelConfig.small_2c()
     elif args.tiny:
         model = ModelConfig.tiny_2c()
     else:
@@ -422,6 +433,20 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
         model = dataclasses.replace(model, image=dataclasses.replace(
             model.image, arch=args.image_arch or model.image.arch,
             image_size=args.image_size or model.image.image_size))
+    if args.pooling or args.fusion:
+        model = dataclasses.replace(
+            model,
+            pooling=PoolingType(args.pooling) if args.pooling
+            else model.pooling,
+            fusion=FusionMethod(args.fusion) if args.fusion
+            else model.fusion)
+        if (model.fusion != FusionMethod.CONCATENATION
+                and model.image is not None
+                and model.image.finetune_dim != model.proj_dim):
+            model = dataclasses.replace(model, image=dataclasses.replace(
+                model.image, finetune_dim=model.proj_dim))
+    if args.simple and args.subtask == "2c" and not args.tiny:
+        model = ModelConfig.simple_2c()
     lr_schedule = args.lr_schedule or (
         "constant" if args.subtask == "2a" else "linear_warmup")
     cfg = TrainConfig(model=model, data=data, epochs=args.epochs,
@@ -430,7 +455,8 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       checkpoint_dir=args.checkpoint_dir,
                       adam_mu_dtype=args.adam_mu_dtype,
                       embedding_optimizer=args.embedding_optimizer,
-                      mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack)
+                      mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack,
+                      simclr_epochs=args.simclr_epochs)
     return cfg, device
 
 
@@ -442,7 +468,8 @@ def _cmd_train(args) -> int:
     cfg, device = train_config(args)
     folds = [args.fold] if args.fold is not None else None
     kwargs = dict(out_dir=args.out_dir, folds=folds,
-                  pretrained=PretrainedSpec(text=args.text_params))
+                  pretrained=PretrainedSpec(text=args.text_params,
+                                            image=args.image_params))
     if args.subtask == "2a":
         results = run_subtask_2a(cfg, device, vocab_path=args.vocab,
                                  **kwargs)
@@ -451,7 +478,7 @@ def _cmd_train(args) -> int:
                                  **kwargs)
     else:
         results = run_subtask_2c(cfg, device, vocab_path=args.vocab,
-                                 **kwargs)
+                                 simple=args.simple, **kwargs)
     for k, r in zip(folds or range(args.num_folds), results):
         print(f"fold {k}: best macro-F1 {r.best_macro_f1:.4f}")
     return 0
@@ -574,7 +601,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="the tiny_2c config")
     p.add_argument("--small", action="store_true",
-                   help="2a: the from-scratch small_2a config")
+                   help="the from-scratch small config (2a: small_2a; 2c: "
+                        "small_2c, a tiny ResNet at 64 pixels and no "
+                        "captions)")
+    p.add_argument("--simple", action="store_true",
+                   help="2c: the organizers' simple baseline (C28), "
+                        "distilbert + resnet50 logits, CE, no captions, "
+                        "trained on the eval transform")
     p.add_argument("--vocab", default=None,
                    help="2a, 2c: a WordPiece text vocab file instead of the "
                         "corpus vocab")
@@ -598,8 +631,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--binary-head", action="store_true",
                    help="2b: the l2-normalized scaled BinaryHead")
     p.add_argument("--simclr-epochs", type=int, default=0,
-                   help="SimCLR image pretraining: not ported yet, > 0 "
-                        "raises")
+                   help="> 0 first pretrains the image backbone with SimCLR "
+                        "on the train images (2b, and 2c without --simple) "
+                        "and starts every fold from it (skipped when "
+                        "--image-params is given; color images only)")
+    p.add_argument("--image-params", default=None,
+                   help="image-backbone weights to start from: the "
+                        "flax-tree .npz that SimCLR pretraining writes "
+                        "(simclr_backbone.npz) in either package")
+    p.add_argument("--pooling", default=None,
+                   choices=["cls", "nopooling", "max", "mean", "attention",
+                            "cnn"],
+                   help="pooling mode (default: the preset's); max, cnn "
+                        "and nopooling turn sequence bucketing off")
+    p.add_argument("--fusion", default=None,
+                   choices=["concatenation", "mca", "cross_modal",
+                            "self_attention"],
+                   help="2c fusion family (default: the preset's)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_train)

@@ -136,6 +136,21 @@ class ModelConfig:
             caption=None, image=None, num_classes=2, max_text_len=64)
 
     @staticmethod
+    def small_2c() -> "ModelConfig":
+        """The from-scratch small 2C model: small_2a's text encoder, a tiny
+        ResNet image branch at 64 pixels, no caption branch, one logit."""
+        return ModelConfig(
+            subtask=Subtask.C,
+            text=TextEncoderConfig(vocab_size=512, hidden_size=128,
+                                   num_layers=4, num_heads=4,
+                                   intermediate_size=256,
+                                   max_position_embeddings=128),
+            caption=None,
+            image=ImageEncoderConfig(arch="tiny_resnet", image_size=64,
+                                     feature_dim=64, finetune_dim=64),
+            proj_dim=128, num_classes=1, max_text_len=64)
+
+    @staticmethod
     def captions_2b() -> "ModelConfig":
         """The image + caption variant: no Arabic-text branch."""
         return ModelConfig(text=None)
@@ -250,3 +265,7 @@ class TrainConfig:
     # epochs initializes the text encoder; ``mlm_pack`` packs its corpus.
     mlm_epochs: int = 0
     mlm_pack: bool = False
+    # > 0: SimCLR contrastive pretraining (``train/pretrain_image.py``) of
+    # this many epochs over the train images initializes the image backbone
+    # (2B, and the 2C flagship).
+    simclr_epochs: int = 0

@@ -1,6 +1,7 @@
 """Weight bridge: the JAX package's classifier variables (text, image, simple
-and multimodal models) to the port's ``state_dict``, and a text encoder's
-weights back to the flax tree (``to_jax_params``).
+and multimodal models) to the port's ``state_dict``, and a port module's
+weights back to the flax trees (``to_jax_variables``: a text encoder, an
+image backbone with its BatchNorm statistics).
 
 Module names are the same on both sides, so keys map by path; layouts are
 the inverse of the JAX package's converters (``models/hf_convert.py``,
@@ -20,8 +21,11 @@ the inverse of the JAX package's converters (``models/hf_convert.py``,
   ConvNeXt's layer scale ``gamma`` ``[dim]``.  A depthwise conv kernel
   (HW1C, ``feature_group_count`` = C) is a grouped conv like any other.
 
-Flax names the fusion module itself (``make_fusion`` passes no name):
-``ConcatAttention3_0`` or ``ConcatAttention_0`` becomes ``fusion``.
+Flax names the fusion module itself (``make_fusion`` passes no name): its
+class name with ``_0`` (``ConcatAttention_0``, ``MCA3_0``,
+``CrossModalAttention_0`` ...) becomes ``fusion``.  The single-token and
+self-attention fusions' q/k/v and ``out`` are DenseGeneral kernels like the
+encoders'.
 """
 
 from __future__ import annotations
@@ -32,9 +36,14 @@ import numpy as np
 import torch
 from torch import nn
 
-_MODULE_RENAME = {"ConcatAttention3_0": "fusion", "ConcatAttention_0": "fusion"}
+from mpmc_tpu_torch.models.norm import BatchNorm
+
+_MODULE_RENAME = {f"{cls}_0": "fusion" for cls in (
+    "ConcatAttention", "ConcatAttention3", "MCA", "MCA3",
+    "CrossModalAttention", "SelfAttentionFusion")}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _AS_IS = ("cls_token", "pos_embed", "gamma")
+_QKV = ("query", "key", "value", "q", "k", "v")
 
 
 def _param(path: Tuple[str, ...], name: str, x: np.ndarray
@@ -87,41 +96,76 @@ def from_jax_variables(params: Mapping,
     return sd
 
 
-def to_jax_params(encoder: nn.Module) -> Dict:
-    """A port ``TextEncoder``'s weights as the flax parameter tree of the
-    JAX package's encoder (nested dicts of f32 numpy arrays), the inverse
-    of :func:`from_jax_variables` on that subtree: Linear ``[out, in]`` ->
-    kernel ``[in, out]``; the attention's q/k/v weight ``[heads*hd, H]`` ->
-    ``[H, heads, hd]`` (bias ``[heads, hd]``) and ``out`` ``[H, heads*hd]``
-    -> ``[heads, hd, H]``; LayerNorm ``weight`` -> ``scale``; Embedding
-    ``weight`` -> ``embedding``."""
-    heads = encoder.cfg.num_heads
-    tree: Dict = {}
-    for name, mod in encoder.named_modules():
-        if not any(True for _ in mod.parameters(recurse=False)):
-            continue
-        path = name.split(".")
-        node = tree
+def to_jax_variables(module: nn.Module) -> Tuple[Dict, Dict]:
+    """A port module's weights as the flax trees of its JAX counterpart,
+    ``(params, batch_stats)`` (nested dicts of f32 numpy arrays), the
+    inverse of :func:`from_jax_variables`: Linear ``[out, in]`` -> kernel
+    ``[in, out]``; an attention's q/k/v weight ``[heads*hd, H]`` -> ``[H,
+    heads, hd]`` (bias ``[heads, hd]``) and its ``out`` ``[H, heads*hd]``
+    -> ``[heads, hd, H]`` (the Linears named ``query``/``key``/``value``/
+    ``q``/``k``/``v``/``out`` of a module with ``num_heads``); conv OIHW ->
+    HWIO, the CNN pooler's ``conv1d`` ``[out, in, k]`` -> ``[k, in, out]``;
+    LayerNorm and BatchNorm ``weight`` -> ``scale``, BatchNorm running
+    statistics -> ``batch_stats`` ``mean`` / ``var``; Embedding ``weight``
+    -> ``embedding``; parameters a module declares itself keep their name
+    and layout."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def node(tree: Dict, path) -> Dict:
         for p in path:
-            node = node.setdefault(p, {})
-        w = mod.weight.detach().cpu().float().numpy()
-        b = (mod.bias.detach().cpu().float().numpy()
-             if getattr(mod, "bias", None) is not None else None)
+            tree = tree.setdefault(p, {})
+        return tree
+
+    def f32(t: torch.Tensor) -> np.ndarray:
+        # A copy: the numpy view of an f32 CPU tensor shares its memory,
+        # which the module's next step would overwrite.
+        return np.array(t.detach().cpu().float().numpy())
+
+    mods = dict(module.named_modules())
+    for name, mod in mods.items():
+        own = dict(mod.named_parameters(recurse=False))
+        if not own:
+            continue
+        path = name.split(".") if name else []
+        leaf = node(params, path)
+        parent = mods.get(".".join(path[:-1]))
+        heads = getattr(parent, "num_heads", None) if path else None
+        w, b = own.get("weight"), own.get("bias")
         if isinstance(mod, nn.Embedding):
-            node["embedding"] = w
-            continue
-        if isinstance(mod, nn.LayerNorm):
-            node["scale"], node["bias"] = w, b
-            continue
-        if not isinstance(mod, nn.Linear):
-            raise TypeError(f"no flax layout for {type(mod).__name__} at "
-                            f"{name}")
-        if path[-1] in ("query", "key", "value"):
-            node["kernel"] = w.T.reshape(w.shape[1], heads, -1)
-            node["bias"] = b.reshape(heads, -1)
-        elif path[-1] == "out" and path[-2:-1] == ["attention"]:
-            node["kernel"] = w.T.reshape(heads, -1, w.shape[0])
-            node["bias"] = b
+            leaf["embedding"] = f32(w)
+        elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+            leaf["scale"], leaf["bias"] = f32(w), f32(b)
+            if isinstance(mod, BatchNorm):
+                st = node(stats, path)
+                st["mean"] = f32(mod.running_mean)
+                st["var"] = f32(mod.running_var)
+        elif isinstance(mod, nn.Linear):
+            w = f32(w)
+            if heads and path[-1] in _QKV:
+                leaf["kernel"] = w.T.reshape(w.shape[1], heads, -1)
+                leaf["bias"] = f32(b).reshape(heads, -1)
+            elif heads and path[-1] == "out":
+                leaf["kernel"] = w.T.reshape(heads, -1, w.shape[0])
+                leaf["bias"] = f32(b)
+            else:
+                leaf["kernel"] = w.T
+                if b is not None:
+                    leaf["bias"] = f32(b)
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+            leaf["kernel"] = (f32(w).transpose(2, 1, 0) if w.dim() == 3
+                              else f32(w).transpose(2, 3, 1, 0))
+            if b is not None:
+                leaf["bias"] = f32(b)
         else:
-            node["kernel"], node["bias"] = w.T, b
-    return tree
+            for pname, p in own.items():
+                if pname not in _AS_IS:
+                    raise TypeError(f"no flax layout for {pname} of "
+                                    f"{type(mod).__name__} at {name}")
+                leaf[pname] = f32(p)
+    return params, stats
+
+
+def to_jax_params(module: nn.Module) -> Dict:
+    """The flax parameter tree of :func:`to_jax_variables`."""
+    return to_jax_variables(module)[0]

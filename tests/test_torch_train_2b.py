@@ -301,8 +301,10 @@ def test_train_2b_refuses_what_is_not_ported(tmp_path):
             "-te", str(tmp_path / "t.json"), "--image-arch", "tiny_resnet",
             "--image-size", "32", "--out-dir", str(tmp_path / "o"),
             "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(base + ["--simclr-epochs", "1"])
+    np.savez(tmp_path / "torchvision.npz",
+             **{"conv1.weight": np.zeros((64, 3, 7, 7), np.float32)})
+    with pytest.raises(ValueError, match="not ported yet"):
+        main(base + ["--image-params", str(tmp_path / "torchvision.npz")])
     with pytest.raises(ValueError, match="no text encoder"):
         main(base + ["--text-params", "enc.npz"])
     if not torch.cuda.is_available():
