@@ -76,7 +76,7 @@ toolkit.  Phases, each of which raises on failure:
    followed by ``predict --checkpoint``; the attention pair at the
    ``--small`` run's packed text shape (bf16, segments, 4 heads of D = 32,
    its own segment ids) held and timed; ``simclr_pretrain`` over ViT-B/16
-   at 224 for two steps (12 forward and 12 backward calls a step, three
+   at 224 for two steps (12 forward and 12 backward calls a step, two
    f32 backward kernels a call); two SimCLR steps of ResNet-18 card vs CPU in
    f32; and the flagship with the cross-modal and the self-attention
    fusions card vs CPU in f32.
@@ -85,7 +85,8 @@ Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
 attention backward kernel (padding with a fully masked sample, segments with
 id-0 rows, none with Sq != Sk; bf16 and f32; the main paths' shapes, text
-buckets of 256 and 512, D = 128 and D = 8), with two runs bit-equal, and the
+buckets of 256 and 512, D = 128 and D = 8), with two runs bit-equal (also
+in f32 at the MLM shape ``[64,128,12,64]``), and the
 fused image kernel ([16,224,224,3], both flip values) against their plain
 versions, and times them beside SDPA (forward, backward alone, and the
 pair).  Phases 5 and 8 also check that the profiled steps launch one
@@ -139,6 +140,12 @@ ARABIC_LETTERS = "ابتثجحخدذرزسشصضطظعغفقكلمنهوي"
 # P or dS to bf16 (an ulp is 2^-8 relative) flipped by that order.
 FWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
 BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 1.6e-2)}
+# Kernels the backward launches a call, by path (csrc/attention_bwd.cu):
+# bf16 one fused launch at Sq, Sk <= 128 and dQ then dK/dV beyond; f32 dQ
+# then dK/dV at every length.
+BWD_LAUNCHES = {"bfloat16, S <= 128": 1, "bfloat16, S > 128": 2,
+                "float32": 2}
+MLM_SHAPE = (64, 128, 12, 64)        # corpus MLM: batch 64, f32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -186,13 +193,16 @@ def graph_ms(torch, fn, reps: int = 20, trials: int = 5,
 
 
 def kernel_name(line: str) -> str:
-    """``attention_bwd_fused_kernel<64>`` from a line naming a mangled
-    kernel (the name follows its length, the template argument ILi64E)."""
-    m = re.search(r"\d((?:attention|image)_[a-z0-9_]*?kernel)(?:ILi(\d+)E)?",
-                  line)
+    """``attention_bwd_fused_kernel<64>`` or ``..._f32_kernel<64, true>``
+    from a line naming a mangled kernel (the name follows its length, the
+    template arguments ILi64E and Lb1E)."""
+    m = re.search(r"\d((?:attention|image)_[a-z0-9_]*?kernel)"
+                  r"(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
     if not m:
         return line.strip()[-60:]
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    args = [a for a in (m.group(2), {"0": "false", "1": "true"}.get(
+        m.group(3) or "")) if a]
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def tensor_core_instructions(lib_path: str):
@@ -589,6 +599,20 @@ def phase_kernels_bwd(torch):
                 err_main = max(err_main, err)
                 if name in ("text", "caption"):
                     timed[name] = (q, k, v, mask, out, lse, do)
+    # The f32 kernels at the MLM shape: two runs bit-equal.
+    q, k, v, mask = attention_inputs(torch, MLM_SHAPE, "padding",
+                                     torch.float32, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    out, lse = A.attention_forward_cuda(q, k, v, mask, "padding")
+    runs = [A.attention_backward_cuda(q, k, v, mask, "padding", out, lse, do)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    tag = f"mlm padding {tuple(q.shape)} {q.dtype}"
+    check_backward(A, q, k, v, mask, "padding", out, lse, do, runs[0], tag)
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{tag}: two runs of the backward differ")
+    print("    a second run bit-equal")
+    del q, k, v, mask, do, out, lse, runs
     # One autograd round trip through AttentionFunction.
     q, k, v, mask = attention_inputs(torch, TEXT_SHAPE, "segments",
                                      torch.bfloat16, gen)
@@ -1129,7 +1153,7 @@ def profiled_share(torch, seen, what: str):
     ours = {e.key: e.count for e in events
             if "attention_" in e.key or "image_normalize" in e.key}
     wall_ms = sum(seen["step_ms"][i] for i in seen["profiled"])
-    names = {re.search(r"(?:attention|image)_[a-z0-9_]*kernel(?:<\d+>)?",
+    names = {re.search(r"(?:attention|image)_[a-z0-9_]*kernel(?:<[^>]*>)?",
                        k).group(0): n for k, n in ours.items()}
     print(f"  {what}: {wall_ms:.3f} ms wall, kernels {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f} % of wall) in "
@@ -1745,7 +1769,8 @@ def phase_train_2b(torch, work: str):
         _, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
                                  device=torch.device("cuda"))
         warm, wall_ms, busy_ms, _ = warm_steps(torch, run, batches, layers,
-                                               bwd_kernels=2)
+                                               bwd_kernels=BWD_LAUNCHES[
+                                                   "bfloat16, S > 128"])
         results[name] = dict(launches=launches, wall_s=wall,
                              warm_step_ms_median=warm[len(warm) // 2],
                              warm_steps=len(warm), profiled_wall_ms=wall_ms,
@@ -1975,7 +2000,7 @@ def train_variant_cli(torch, work: str, name: str, subtask: str, flags,
 def phase_simclr_vit(torch):
     """``simclr_pretrain`` over ViT-B/16 at 224 for two steps (64 images,
     batch 64, f32): launches (12 forward and 12 backward calls a step at
-    ``[128,197,12,64]``, three f32 backward kernels a call; the image
+    ``[128,197,12,64]``, two f32 backward kernels a call; the image
     kernel twice a step), finite losses, the warm step's time and device
     share."""
     import numpy as np
@@ -2012,12 +2037,12 @@ def phase_simclr_vit(torch):
           f"{launches['image_normalize']} = 2 x {run.steps}")
     wall_ms, busy_ms, ours = profiled_share(
         torch, sim, "SimCLR step 1 (ViT-B/16) profiled")
-    # The f32 backward: a row-statistics pass, dK/dV and dQ, each once a
-    # call.
+    # The f32 backward: dQ then dK/dV, each once a call.
     bwd = [n for k, n in ours.items() if "attention_bwd" in k]
-    check(len(bwd) == 3 and all(n == 12 for n in bwd),
-          f"the f32 ViT backward should be 3 kernels launched 12 times a "
-          f"step, got {ours}")
+    want = BWD_LAUNCHES["float32"]
+    check(len(bwd) == want and all(n == 12 for n in bwd),
+          f"the f32 ViT backward should be {want} kernels launched 12 times "
+          f"a step, got {ours}")
     del run, sim
     torch.cuda.empty_cache()
     return dict(launches=launches, wall_s=wall, step_ms=wall_ms,
@@ -2342,7 +2367,7 @@ def main() -> int:
         "library_ms": bwd["library_ms"], "library": bwd["library"],
         "fwd_bwd_pair_ms": bwd["fwd_bwd_pair_ms"],
         "library_pair_ms": bwd["library_pair_ms"],
-        "launches_per_call": 1,
+        "launches_per_call": BWD_LAUNCHES,
         "tensor_core_instructions": tensor_core["attention_bwd"],
         "shape": bwd["shape"],
         "dtype": bwd["dtype"], "caption_shape": bwd_timings["caption"],

@@ -1,5 +1,5 @@
 // Exact softmax attention backward for Hopper (sm_90a): bf16 on the tensor
-// cores, f32 on the CUDA cores.
+// cores, IEEE f32 register-tiled on the CUDA cores.
 //
 // Replaces the TPU kernel mpmc_tpu/ops/attention.py:_bwd_kernel (launched
 // by _bwd_pallas, wired by the _attention_pallas custom VJP).  Same
@@ -60,16 +60,36 @@
 // 64 + 1 holds one row) is zero-filled by cp.async past Sq or Sk, and
 // only rows below Sq or Sk are written.
 //
-// f32 design (kept on the CUDA cores: TF32 tensor cores would break the
-// 1e-4 + 1e-5|x| card-vs-CPU checks): three launches, a row-statistics
-// pre-pass (delta, and m, l in segments mode), a dK/dV kernel over key
-// tiles and a dQ kernel over query tiles; four threads own one row and
-// dot products finish with two warp shuffles.
+// f32 design (IEEE f32 on the CUDA cores: TF32 tensor cores would break
+// the 1e-4 + 1e-5|x| card-vs-CPU checks).  At the corpus MLM shape
+// ([64,128,12,64]) the function is 8.1 GFLOP of products for 201 MB, so
+// its bound is the operations: 0.120 ms at the 67 TFLOP/s FFMA rate.  TWO
+// launches a call, no atomics, the shape of the bf16 long path on the
+// CUDA cores: attention_bwd_dq_f32_kernel, one block of 256 threads per
+// (64-query tile, head, batch), sums delta itself, in segments mode first
+// takes each row's exact max and sum in one online pass over the key tiles
+// (double-buffered in the k and v tiles), then walks the key tiles for s,
+// dP, dS and dQ += dS.K, and writes dQ, delta and (segments) m and l;
+// attention_bwd_dkdv_f32_kernel, one block per 64-key tile, walks the
+// query tiles in the transposed form (s^T = k.qs^T, dP^T = v.dO^T, dV +=
+// P^T.dO, dK += dS^T.qs).  That is 7 products of S x S x D where the
+// function needs 5 (8 in segments mode), a floor of 0.168 ms at the MLM
+// shape.  Every product is register-tiled as in the forward (simt_f32.cuh:
+// 4 x 4 micro-tiles, one 128-bit shared-memory load per 8 FFMAs, 64-row
+// tiles copied by cp.async, 16 or 4 bytes at a time); qs = q * scale is
+// formed in shared memory by the threads that copied q.  Two blocks an SM
+// (86 and 103 KB, 128 registers with a few bytes spilled).  The earlier
+// kernels this replaced took three launches, paid one shared-memory load
+// and two shuffles per FFMA, and recomputed s and dP in both the dQ and
+// the dK/dV kernels plus s once more for the row statistics.
 //
 // Times (NVIDIA H100 80GB HBM3, 700 W; PERF.md names the runs): the three
-// CUDA-core launches this design replaced took 0.26569 ms at
+// CUDA-core launches the bf16 design replaced took 0.26569 ms at
 // [16,128,12,64] padding and 0.22486 ms at the packed [6,128,12,64]
-// segments shape; the bound is 0.007544 ms at the first.
+// segments shape; the bound is 0.007544 ms at the first.  In f32 this
+// design takes 0.437 ms at [64,128,12,64] padding (the kernels it
+// replaced 1.004, SDPA's backward alone 0.308), 0.552 ms in segments mode
+// (1.291, 0.313) and 2.288 ms at [128,197,12,64] none (6.202, 1.939).
 //
 // Built by mpmc_tpu_torch/ops/build.py with nvcc and called through ctypes
 // by mpmc_tpu_torch/ops/attention.py; the C entry point returns the CUDA
@@ -80,6 +100,7 @@
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -816,347 +837,382 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 // ----------------------------------------------------------------- f32 --
 
-constexpr int kRows = 64;                  // rows owned per block
-constexpr int kParts = 4;                  // threads per row
-constexpr int kThreads = kRows * kParts;   // 256
-constexpr int kTile = 32;                  // rows per shared-memory tile
-
-// Sum over the four threads of a row (all 32 lanes take part).
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
+template <int DP>
+constexpr size_t dq_f32_smem_bytes() {
+  // qs, dO, k, v tiles, dS, two buffers of per-key mask info, per-row
+  // delta.
+  return (4 * simt::tile_floats<DP>() + simt::score_floats() +
+          3 * simt::kTile) * sizeof(float);
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_prep_f32_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ out,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ mask,
-                              float* __restrict__ delta,
-                              float* __restrict__ row_m,
-                              float* __restrict__ row_l, int H, int Sq, int Sk,
-                              int D, int mode, float scale) {
-  constexpr int DPT = DPAD / kParts;
-  __shared__ float k_tile[kTile][DPAD];
-  __shared__ float key_info[kTile];
+template <int DP>
+constexpr size_t dkdv_f32_smem_bytes() {
+  // k, v, qs, dO tiles, P^T and dS^T, per-query m, l, delta, segment id.
+  return (4 * simt::tile_floats<DP>() + 2 * simt::score_floats() +
+          4 * simt::kTile) * sizeof(float);
+}
+
+// Launch 1 of 2: dQ of one 64-query tile, and each row's delta (and m, l
+// in segments mode) for attention_bwd_dkdv_f32_kernel.  qs = q * scale and
+// dO stay in shared memory; delta = sum_d dO * out is summed by four
+// threads a row.  In segments mode one pass over the key tiles first takes
+// each row's exact max m and sum l (online, s only).  Then per key tile:
+// s = qs.k^T and dP = dO.v^T as 4 x 4 register micro-tiles, P, dS = P (dP -
+// delta) to shared memory, dQ += dS.K in registers; dQ * scale at the end.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(simt::kThreads, DP == 64 ? 2 : 1)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ out,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dout,
+                            float* __restrict__ dq, float* __restrict__ delta,
+                            float* __restrict__ row_m,
+                            float* __restrict__ row_l, int H, int Sq, int Sk,
+                            int D, int mode, float scale) {
+  constexpr int T = simt::kTile;
+  constexpr int R = 4;                     // rows of a thread's micro-tile
+  constexpr int TF = simt::tile_floats<DP>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs_s = reinterpret_cast<float*>(smem);
+  float* do_s = qs_s + TF;
+  float* k_s = do_s + TF;
+  float* v_s = k_s + TF;
+  float* ds_s = v_s + TF;
+  float* info_s = ds_s + simt::score_floats();   // two buffers
+  float* delta_s = info_s + 2 * T;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  const bool valid_row = row < Sq;
-  const long long q_off = row_offset(b, valid_row ? row : 0, h, Sq, H, D);
+  const int q0 = blockIdx.x * T;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int r0 = simt::first_row<R>(tid);
+  const int nq = min(T, Sq - q0);
+  // Uniform over the warp.
+  const bool rows_here = simt::warp_first_row<R>(tid) < nq;
+  const long long stride = static_cast<long long>(H) * D;
+  const long long q_off = row_offset(b, q0, h, Sq, H, D);
+  const long long k_off = row_offset(b, 0, h, Sk, H, D);
+  const long long stat = ((long long)b * H + h) * Sq + q0;
 
-  float dsum = 0.f;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int d = i * kParts + part;
-    if (valid_row && d < D) {
-      dsum = fmaf(dout[q_off + d], out[q_off + d], dsum);
+  simt::load_tile<DP, VEC>(qs_s, q + q_off, stride, nq, D, tid);
+  simt::load_tile<DP, VEC>(do_s, dout + q_off, stride, nq, D, tid);
+  mma::cp_async_commit();
+  {
+    // delta of row tid / 4, four threads a row.
+    const int r = tid >> 2;
+    const int part = tid & 3;
+    float acc = 0.f;
+    if (r < nq) {
+      const float* o_row = out + q_off + r * stride;
+      const float* d_row = dout + q_off + r * stride;
+      for (int d = part; d < D; d += 4) acc = fmaf(d_row[d], o_row[d], acc);
     }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) delta_s[r] = acc;
   }
-  dsum = row_sum(dsum);
+  mma::cp_async_wait<0>();
+  simt::scale_own<DP, VEC>(qs_s, scale, tid);
+  __syncthreads();
 
-  if (mode == 2) {                         // uniform over the block
-    float qr[DPT];
+  float q_seg[R], m[R], l[R], dl[R];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = i * kParts + part;
-      qr[i] = (valid_row && d < D) ? q[q_off + d] * scale
-                                   : 0.f;
-    }
-    const float q_seg = valid_row ? mask[(long long)b * Sk + row] : 0.f;
-    float m = -INFINITY;
-    float l = 0.f;
-    for (int k0 = 0; k0 < Sk; k0 += kTile) {
-      const int nk = min(kTile, Sk - k0);
-      for (int idx = threadIdx.x; idx < kTile * DPAD; idx += kThreads) {
-        const int j = idx / DPAD;
-        const int d = idx % DPAD;
-        k_tile[j][d] = (j < nk && d < D)
-                           ? k[row_offset(b, k0 + j, h, Sk, H, D) + d]
-                           : 0.f;
-      }
-      if (threadIdx.x < kTile) {
-        const int j = threadIdx.x;
-        key_info[j] = j < nk ? mask[(long long)b * Sk + k0 + j] : 0.f;
+  for (int i = 0; i < R; ++i) {
+    const bool in = r0 + i < nq;
+    q_seg[i] = (mode == 2 && in) ? mask[(long long)b * Sk + q0 + r0 + i] : 0.f;
+    m[i] = mode == 2 ? -INFINITY : in ? lse[stat + r0 + i] : 0.f;
+    l[i] = mode == 2 ? 0.f : 1.f;
+    dl[i] = delta_s[r0 + i];
+  }
+
+  if (mode == 2) {
+    // The exact row max and sum, the key tiles double-buffered in k_s and
+    // v_s (v is not needed yet).
+    const int n_tiles = (Sk + T - 1) / T;
+    auto issue = [&](int t) {
+      const int k0 = t * T;
+      const int nk = min(T, Sk - k0);
+      simt::load_tile<DP, VEC>((t & 1) ? v_s : k_s, k + k_off + k0 * stride,
+                               stride, nk, D, tid);
+      mma::cp_async_commit();
+      mma::store_key_info(info_s + (t & 1) * T, mask, b, Sk, k0, nk, mode,
+                          tid, simt::kThreads);
+    };
+    issue(0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int nk = min(T, Sk - t * T);
+      if (t + 1 < n_tiles) {
+        issue(t + 1);
+        mma::cp_async_wait<1>();
+      } else {
+        mma::cp_async_wait<0>();
       }
       __syncthreads();
-      float s[kTile];
-      float tile_max = -INFINITY;
+      if (rows_here) {
+        const float* info = info_s + (t & 1) * T;
+        const int nj = (nk + 15) >> 4;
+        float s[R][4];
+        simt::dot_tile<DP, R>(s, qs_s, r0, (t & 1) ? v_s : k_s, tx, nj);
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        float dot = 0.f;
+        for (int i = 0; i < R; ++i) {
+          float tile_max = -INFINITY;
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) {
-          dot = fmaf(qr[i], k_tile[j][i * kParts + part], dot);
+          for (int j = 0; j < 4; ++j) {
+            const int key = tx + 16 * j;
+            s[i][j] = (j < nj && key < nk)
+                          ? s[i][j] + key_bias(mode, info[key], q_seg[i])
+                          : -INFINITY;
+            tile_max = fmaxf(tile_max, s[i][j]);
+          }
+          const float m_new = fmaxf(m[i], simt::max16(tile_max));
+          float tile_sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tile_sum += expf(s[i][j] - m_new);
+          l[i] = l[i] * expf(m[i] - m_new) + simt::sum16(tile_sum);
+          m[i] = m_new;
         }
-        dot = row_sum(dot);
-        s[j] = j < nk ? dot + key_bias(2, key_info[j], q_seg) : -INFINITY;
-        tile_max = fmaxf(tile_max, s[j]);
       }
-      const float m_new = fmaxf(m, tile_max);
-      float tile_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) tile_sum += expf(s[j] - m_new);
-      l = l * expf(m - m_new) + tile_sum;  // expf(-inf) = 0 on the first tile
-      m = m_new;
-      __syncthreads();
-    }
-    if (valid_row && part == 0) {
-      row_m[((long long)b * H + h) * Sq + row] = m;
-      row_l[((long long)b * H + h) * Sq + row] = l;
+      __syncthreads();                     // before this buffer is refilled
     }
   }
-  if (valid_row && part == 0) delta[((long long)b * H + h) * Sq + row] = dsum;
+
+  float dqa[R][DP / 16];
+  simt::zero<DP, R>(dqa);
+  for (int k0 = 0; k0 < Sk; k0 += T) {
+    const int nk = min(T, Sk - k0);
+    simt::load_tile<DP, VEC>(k_s, k + k_off + k0 * stride, stride, nk, D,
+                             tid);
+    simt::load_tile<DP, VEC>(v_s, v + k_off + k0 * stride, stride, nk, D,
+                             tid);
+    mma::cp_async_commit();
+    mma::store_key_info(info_s, mask, b, Sk, k0, nk, mode, tid,
+                        simt::kThreads);
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (rows_here) {
+      const int nj = (nk + 15) >> 4;
+      float s[R][4], dp[R][4];
+      simt::dot_tile<DP, R>(s, qs_s, r0, k_s, tx, nj);
+      simt::dot_tile<DP, R>(dp, do_s, r0, v_s, tx, nj);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = tx + 16 * j;
+          if (j >= nj) continue;
+          float p = 0.f;
+          if (key < nk) {
+            p = expf(s[i][j] + key_bias(mode, info_s[key], q_seg[i]) - m[i]);
+            if (mode == 2) p = p / l[i];
+          }
+          ds_s[(r0 + i) * simt::kLdP + key] = p * (dp[i][j] - dl[i]);
+        }
+      }
+    }
+    __syncthreads();                       // dS complete
+    if (rows_here) simt::pv_tile<DP, R>(dqa, ds_s, r0, k_s, tx, nk);
+    __syncthreads();                       // before the next tile's copies
+  }
+  if (rows_here) {
+    simt::store_rows<DP, R>(dq + q_off, stride, dqa, r0, nq, D, scale, tx);
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (r0 + i >= nq) continue;
+        delta[stat + r0 + i] = dl[i];
+        if (mode == 2) {
+          row_m[stat + r0 + i] = m[i];
+          row_l[stat + r0 + i] = l[i];
+        }
+      }
+    }
+  }
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
+// Launch 2 of 2: dK and dV of one 64-key tile, in the transposed form.  k
+// and v stay in shared memory; per query tile, s^T = k.qs^T and dP^T =
+// v.dO^T as 4 x 4 register micro-tiles, P^T and dS^T to shared memory
+// (each query's m, l and delta from launch 1, or lse), then dV += P^T.dO
+// and dK += dS^T.qs in registers.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(simt::kThreads, DP == 64 ? 2 : 1)
 attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
-                              const float* __restrict__ dout,
                               const float* __restrict__ mask,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dout,
                               const float* __restrict__ delta,
                               const float* __restrict__ row_m,
                               const float* __restrict__ row_l,
                               float* __restrict__ dk, float* __restrict__ dv,
                               int H, int Sq, int Sk, int D, int mode,
                               float scale) {
-  constexpr int DPT = DPAD / kParts;
-  __shared__ float qs_tile[kTile][DPAD];
-  __shared__ float do_tile[kTile][DPAD];
-  __shared__ float q_m[kTile];
-  __shared__ float q_l[kTile];
-  __shared__ float q_delta[kTile];
-  __shared__ float q_seg[kTile];
+  constexpr int T = simt::kTile;
+  constexpr int R = 4;                     // rows of a thread's micro-tile
+  constexpr int TF = simt::tile_floats<DP>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + TF;
+  float* qs_s = v_s + TF;
+  float* do_s = qs_s + TF;
+  float* pt_s = do_s + TF;
+  float* dst_s = pt_s + simt::score_floats();
+  float* qm_s = dst_s + simt::score_floats();
+  float* ql_s = qm_s + T;
+  float* qd_s = ql_s + T;
+  float* qseg_s = qd_s + T;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int key = blockIdx.x * kRows + threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  const bool valid_key = key < Sk;
-  const long long k_off = row_offset(b, valid_key ? key : 0, h, Sk, H, D);
+  const int k0 = blockIdx.x * T;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int r0 = simt::first_row<R>(tid);   // this thread's R keys
+  const int nk = min(T, Sk - k0);
+  // Uniform over the warp.
+  const bool keys_here = simt::warp_first_row<R>(tid) < nk;
+  const long long stride = static_cast<long long>(H) * D;
+  const long long k_off = row_offset(b, k0, h, Sk, H, D);
+  const long long q_base = row_offset(b, 0, h, Sq, H, D);
+  const float* stat_m = mode == 2 ? row_m : lse;
 
-  float kr[DPT], vr[DPT], dk_acc[DPT], dv_acc[DPT];
+  simt::load_tile<DP, VEC>(k_s, k + k_off, stride, nk, D, tid);
+  simt::load_tile<DP, VEC>(v_s, v + k_off, stride, nk, D, tid);
+  mma::cp_async_commit();
+  float info[R];                           // padding: bias; segments: id
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int d = i * kParts + part;
-    const bool in = valid_key && d < D;
-    kr[i] = in ? k[k_off + d] : 0.f;
-    vr[i] = in ? v[k_off + d] : 0.f;
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-  float info = 0.f;                        // padding: bias; segments: id
-  if (valid_key && mode != 0) {
-    const float mv = mask[(long long)b * Sk + key];
-    info = (mode == 1) ? (1.f - mv) * kNegInf : mv;
+  for (int i = 0; i < R; ++i) {
+    info[i] = 0.f;
+    if (r0 + i < nk && mode != 0) {
+      const float mv = mask[(long long)b * Sk + k0 + r0 + i];
+      info[i] = mode == 1 ? (1.f - mv) * kNegInf : mv;
+    }
   }
 
-  for (int q0 = 0; q0 < Sq; q0 += kTile) {
-    const int nq = min(kTile, Sq - q0);
-    for (int idx = threadIdx.x; idx < kTile * DPAD; idx += kThreads) {
-      const int i = idx / DPAD;
-      const int d = idx % DPAD;
-      float qv = 0.f, dov = 0.f;
-      if (i < nq && d < D) {
-        const long long off = row_offset(b, q0 + i, h, Sq, H, D) + d;
-        qv = q[off] * scale;
-        dov = dout[off];
-      }
-      qs_tile[i][d] = qv;
-      do_tile[i][d] = dov;
+  float dva[R][DP / 16], dka[R][DP / 16];
+  simt::zero<DP, R>(dva);
+  simt::zero<DP, R>(dka);
+  for (int q0 = 0; q0 < Sq; q0 += T) {
+    const int nq = min(T, Sq - q0);
+    simt::load_tile<DP, VEC>(qs_s, q + q_base + q0 * stride, stride, nq, D,
+                             tid);
+    simt::load_tile<DP, VEC>(do_s, dout + q_base + q0 * stride, stride, nq,
+                             D, tid);
+    mma::cp_async_commit();
+    if (tid < T) {
+      const bool in = tid < nq;
+      const long long idx = ((long long)b * H + h) * Sq + q0 + tid;
+      qm_s[tid] = in ? stat_m[idx] : 0.f;
+      ql_s[tid] = (in && mode == 2) ? row_l[idx] : 1.f;
+      qd_s[tid] = in ? delta[idx] : 0.f;
+      qseg_s[tid] = (in && mode == 2) ? mask[(long long)b * Sk + q0 + tid]
+                                      : 0.f;
     }
-    if (threadIdx.x < kTile) {
-      const int i = threadIdx.x;
-      const long long stat = ((long long)b * H + h) * Sq + q0 + i;
-      const bool in = i < nq;
-      q_m[i] = in ? row_m[stat] : 0.f;
-      q_l[i] = (in && mode == 2) ? row_l[stat] : 1.f;
-      q_delta[i] = in ? delta[stat] : 0.f;
-      q_seg[i] = (in && mode == 2) ? mask[(long long)b * Sk + q0 + i] : 0.f;
-    }
+    mma::cp_async_wait<0>();
+    simt::scale_own<DP, VEC>(qs_s, scale, tid);
     __syncthreads();
-#pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
-      float dot_s = 0.f, dot_p = 0.f;
+    if (keys_here) {
+      const int nj = (nq + 15) >> 4;
+      float st[R][4], dpt[R][4];
+      simt::dot_tile<DP, R>(st, k_s, r0, qs_s, tx, nj);
+      simt::dot_tile<DP, R>(dpt, v_s, r0, do_s, tx, nj);
 #pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        dot_s = fmaf(qs_tile[i][t * kParts + part], kr[t], dot_s);
-        dot_p = fmaf(do_tile[i][t * kParts + part], vr[t], dot_p);
-      }
-      dot_s = row_sum(dot_s);
-      dot_p = row_sum(dot_p);
-      float p = 0.f;
-      if (i < nq) {
-        const float s = dot_s + key_bias(mode, info, q_seg[i]);
-        p = expf(s - q_m[i]);
-        if (mode == 2) p = p / q_l[i];
-      }
-      const float p_lo = p;
-      const float ds = p * (dot_p - q_delta[i]);
+      for (int i = 0; i < R; ++i) {
 #pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        dv_acc[t] = fmaf(p_lo, do_tile[i][t * kParts + part], dv_acc[t]);
-        dk_acc[t] = fmaf(ds, qs_tile[i][t * kParts + part], dk_acc[t]);
+        for (int j = 0; j < 4; ++j) {
+          const int qi = tx + 16 * j;
+          if (j >= nj) continue;
+          float p = 0.f, ds = 0.f;
+          if (qi < nq) {
+            p = expf(st[i][j] + key_bias(mode, info[i], qseg_s[qi]) -
+                     qm_s[qi]);
+            if (mode == 2) p = p / ql_s[qi];
+            ds = p * (dpt[i][j] - qd_s[qi]);
+          }
+          pt_s[(r0 + i) * simt::kLdP + qi] = p;
+          dst_s[(r0 + i) * simt::kLdP + qi] = ds;
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();                       // P^T and dS^T complete
+    if (keys_here) {
+      simt::pv_tile<DP, R>(dva, pt_s, r0, do_s, tx, nq);
+      simt::pv_tile<DP, R>(dka, dst_s, r0, qs_s, tx, nq);
+    }
+    __syncthreads();                       // before the next tile's copies
   }
-
-  if (valid_key) {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = i * kParts + part;
-      if (d < D) {
-        dk[k_off + d] = dk_acc[i];
-        dv[k_off + d] = dv_acc[i];
-      }
-    }
+  if (keys_here) {
+    simt::store_rows<DP, R>(dv + k_off, stride, dva, r0, nk, D, 1.f, tx);
+    simt::store_rows<DP, R>(dk + k_off, stride, dka, r0, nk, D, 1.f, tx);
   }
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ mask,
-                            const float* __restrict__ delta,
-                            const float* __restrict__ row_m,
-                            const float* __restrict__ row_l,
-                            float* __restrict__ dq, int H, int Sq, int Sk,
-                            int D, int mode, float scale) {
-  constexpr int DPT = DPAD / kParts;
-  __shared__ float k_tile[kTile][DPAD];
-  __shared__ float v_tile[kTile][DPAD];
-  __shared__ float key_info[kTile];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  const bool valid_row = row < Sq;
-  const long long q_off = row_offset(b, valid_row ? row : 0, h, Sq, H, D);
-
-  float qr[DPT], dor[DPT], dq_acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int d = i * kParts + part;
-    const bool in = valid_row && d < D;
-    qr[i] = in ? q[q_off + d] * scale : 0.f;
-    dor[i] = in ? dout[q_off + d] : 0.f;
-    dq_acc[i] = 0.f;
-  }
-  const long long stat = ((long long)b * H + h) * Sq + (valid_row ? row : 0);
-  const float m = valid_row ? row_m[stat] : 0.f;
-  const float l = (valid_row && mode == 2) ? row_l[stat] : 1.f;
-  const float dlt = valid_row ? delta[stat] : 0.f;
-  const float q_seg =
-      (valid_row && mode == 2) ? mask[(long long)b * Sk + row] : 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += kTile) {
-    const int nk = min(kTile, Sk - k0);
-    for (int idx = threadIdx.x; idx < kTile * DPAD; idx += kThreads) {
-      const int j = idx / DPAD;
-      const int d = idx % DPAD;
-      float kv = 0.f, vv = 0.f;
-      if (j < nk && d < D) {
-        const long long off = row_offset(b, k0 + j, h, Sk, H, D) + d;
-        kv = k[off];
-        vv = v[off];
-      }
-      k_tile[j][d] = kv;
-      v_tile[j][d] = vv;
-    }
-    if (threadIdx.x < kTile) {
-      const int j = threadIdx.x;
-      float info = 0.f;
-      if (j < nk && mode != 0) {
-        const float mv = mask[(long long)b * Sk + k0 + j];
-        info = (mode == 1) ? (1.f - mv) * kNegInf : mv;
-      }
-      key_info[j] = info;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
-      float dot_s = 0.f, dot_p = 0.f;
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        dot_s = fmaf(qr[t], k_tile[j][t * kParts + part], dot_s);
-        dot_p = fmaf(dor[t], v_tile[j][t * kParts + part], dot_p);
-      }
-      dot_s = row_sum(dot_s);
-      dot_p = row_sum(dot_p);
-      float p = 0.f;
-      if (j < nk) {
-        p = expf(dot_s + key_bias(mode, key_info[j], q_seg) - m);
-        if (mode == 2) p = p / l;
-      }
-      const float ds = p * (dot_p - dlt);
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        dq_acc[t] = fmaf(ds, k_tile[j][t * kParts + part], dq_acc[t]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (valid_row) {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = i * kParts + part;
-      if (d < D) dq[q_off + d] = dq_acc[i] * scale;
-    }
-  }
+template <int DP, bool VEC>
+cudaError_t launch_f32_dp(const float* q, const float* k, const float* v,
+                          const float* mask, const float* out,
+                          const float* lse, const float* dout, float* dq,
+                          float* dk, float* dv, float* delta, float* row_m,
+                          float* row_l, int B, int H, int Sq, int Sk, int D,
+                          int mode, float scale, cudaStream_t stream) {
+  static bool done_dq[64], done_kv[64];
+  const size_t smem_dq = dq_f32_smem_bytes<DP>();
+  const size_t smem_kv = dkdv_f32_smem_bytes<DP>();
+  cudaError_t err = mma::allow_smem(attention_bwd_dq_f32_kernel<DP, VEC>,
+                                    smem_dq, done_dq);
+  if (err != cudaSuccess) return err;
+  err = mma::allow_smem(attention_bwd_dkdv_f32_kernel<DP, VEC>, smem_kv,
+                        done_kv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((Sq + simt::kTile - 1) / simt::kTile, H, B);
+  const dim3 grid_k((Sk + simt::kTile - 1) / simt::kTile, H, B);
+  attention_bwd_dq_f32_kernel<DP, VEC>
+      <<<grid_q, simt::kThreads, smem_dq, stream>>>(
+          q, k, v, mask, out, lse, dout, dq, delta, row_m, row_l, H, Sq, Sk,
+          D, mode, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_f32_kernel<DP, VEC>
+      <<<grid_k, simt::kThreads, smem_kv, stream>>>(
+          q, k, v, mask, lse, dout, delta, row_m, row_l, dk, dv, H, Sq, Sk,
+          D, mode, scale);
+  return cudaGetLastError();
 }
 
+// Two launches, dQ first (it writes delta, and m and l in segments mode,
+// which the dK/dV launch reads).  16-byte copies where q, k, v and dO
+// allow them, else the same kernels with 4-byte copies; DP = 64 up to
+// D = 64, else 128.
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const float* mask, const void* out, const float* lse,
                        const void* dout, void* dq, void* dk, void* dv,
                        float* delta, float* row_m, float* row_l, int B, int H,
                        int Sq, int Sk, int D, int mode, float scale,
                        cudaStream_t stream) {
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* ot = static_cast<const float*>(out);
-  const float* dot = static_cast<const float*>(dout);
-  float* dqt = static_cast<float*>(dq);
-  float* dkt = static_cast<float*>(dk);
-  float* dvt = static_cast<float*>(dv);
-  const dim3 grid_q((Sq + kRows - 1) / kRows, H, B);
-  const dim3 grid_k((Sk + kRows - 1) / kRows, H, B);
-  // Outside segments mode the row statistic is the forward's lse.
-  const float* stat_m = mode == 2 ? row_m : lse;
-#define MPMC_LAUNCH(DPAD)                                                   \
-  do {                                                                      \
-    attention_bwd_prep_f32_kernel<DPAD><<<grid_q, kThreads, 0, stream>>>(   \
-        qt, kt, ot, dot, mask, delta, row_m, row_l, H, Sq, Sk, D, mode,     \
-        scale);                                                             \
-    cudaError_t err = cudaGetLastError();                                   \
-    if (err != cudaSuccess) return err;                                     \
-    attention_bwd_dkdv_f32_kernel<DPAD><<<grid_k, kThreads, 0, stream>>>(   \
-        qt, kt, vt, dot, mask, delta, stat_m, row_l, dkt, dvt, H, Sq, Sk,   \
-        D, mode, scale);                                                    \
-    err = cudaGetLastError();                                               \
-    if (err != cudaSuccess) return err;                                     \
-    attention_bwd_dq_f32_kernel<DPAD><<<grid_q, kThreads, 0, stream>>>(     \
-        qt, kt, vt, dot, mask, delta, stat_m, row_l, dqt, H, Sq, Sk, D,     \
-        mode, scale);                                                       \
-    return cudaGetLastError();                                              \
-  } while (0)
-  if (D <= 16) MPMC_LAUNCH(16);
-  if (D <= 32) MPMC_LAUNCH(32);
-  if (D <= 64) MPMC_LAUNCH(64);
-  MPMC_LAUNCH(128);
+  const long long sq = static_cast<long long>(Sq) * H * D;
+  const long long sk = static_cast<long long>(Sk) * H * D;
+  const long long hd = static_cast<long long>(H) * D;
+  const bool vec = simt::vec_ok(q, D, sq, hd, D) &&
+                   simt::vec_ok(k, D, sk, hd, D) &&
+                   simt::vec_ok(v, D, sk, hd, D) &&
+                   simt::vec_ok(dout, D, sq, hd, D);
+#define MPMC_LAUNCH(DP, VEC)                                                \
+  return launch_f32_dp<DP, VEC>(                                            \
+      static_cast<const float*>(q), static_cast<const float*>(k),           \
+      static_cast<const float*>(v), mask, static_cast<const float*>(out),   \
+      lse, static_cast<const float*>(dout), static_cast<float*>(dq),        \
+      static_cast<float*>(dk), static_cast<float*>(dv), delta, row_m,       \
+      row_l, B, H, Sq, Sk, D, mode, scale, stream)
+  if (D <= 64) {
+    if (vec) MPMC_LAUNCH(64, true);
+    MPMC_LAUNCH(64, false);
+  }
+  if (vec) MPMC_LAUNCH(128, true);
+  MPMC_LAUNCH(128, false);
 #undef MPMC_LAUNCH
 }
 

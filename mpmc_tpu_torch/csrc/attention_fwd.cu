@@ -1,5 +1,5 @@
 // Exact softmax attention forward for Hopper (sm_90a): bf16 on the tensor
-// cores, f32 on the CUDA cores.
+// cores, IEEE f32 register-tiled on the CUDA cores.
 //
 // Replaces the TPU kernel mpmc_tpu/ops/attention.py:_fwd_kernel (launched
 // by _fwd_pallas).  Same function: scores in f32, plus the additive -1e9
@@ -40,14 +40,33 @@
 // blocks run in one wave.  bf16 needs D % 8 == 0 and 16-byte aligned rows
 // (the wrapper checks).
 //
-// f32 design (attention_fwd_f32_kernel, kept on the CUDA cores: TF32 tensor
-// cores would break the 1e-5 card-vs-CPU checks): one block of 256
-// threads per (64-query tile, head, batch), four threads per query row, key
-// tiles of 32 in shared memory with an online softmax in f32 registers.
+// f32 design (attention_fwd_f32_kernel, IEEE f32 on the CUDA cores: TF32
+// tensor cores would break the 1e-5 card-vs-CPU checks).  At the corpus
+// MLM shape ([64,128,12,64]) the forward does 3.2 GFLOP for 101 MB, so its
+// bound is the operations: 0.048 ms at the 67 TFLOP/s f32 FFMA rate.  One
+// block of 256 threads per (128-query tile, head, batch), two blocks an SM
+// (102.5 KB of shared memory, 128 registers).  q stays in shared memory;
+// k and v stream through in 64-key tiles by cp.async (16-byte copies where
+// D % 4 == 0 and the rows are 16-byte aligned, else 4-byte copies: a
+// template parameter of the same kernel), the next tile's k landing during
+// this tile's P.V and its v during the next scores.  s = q.k^T and out +=
+// P.V are register-tiled (simt_f32.cuh): each thread owns an 8 x 4
+// micro-tile, and each 128-bit shared-memory load feeds 10.7 FFMAs, where
+// the CUDA-core kernel this replaced paid one load and two shuffles per
+// FFMA and per key.  The online softmax takes the row max and sum once per
+// key tile over the half-warp of a row.  Key groups of 16 wholly past Sk
+// and warps whose rows all lie past Sq skip their products, so S = 197
+// costs about 208 x 208 of work, not 256 x 256.  What holds it at about a
+// third of the FFMA rate: shared-memory bandwidth (32 words a cycle for 128
+// FFMA lanes, and 0.375 words an FFMA), the register cap of two blocks an
+// SM (a little spilled), and the softmax between the two products.
 //
-// Times at [16,128,12,64] bf16 padding (NVIDIA H100 80GB HBM3, 700 W;
-// PERF.md names the runs): the CUDA-core kernel this design replaced took
-// 0.08559 ms, SDPA 0.011648 ms; the bound is 0.003788 ms.
+// Times (NVIDIA H100 80GB HBM3, 700 W; PERF.md names the runs): at
+// [16,128,12,64] bf16 padding the CUDA-core kernel the tensor-core design
+// replaced took 0.08559 ms, SDPA 0.011648 ms; the bound is 0.003788 ms.
+// In f32 at [64,128,12,64] padding this kernel takes 0.134 ms (the kernel it
+// replaced 0.318, SDPA 0.140), at [128,197,12,64] none 0.711 ms (1.915,
+// SDPA 0.807).
 //
 // Built by mpmc_tpu_torch/ops/build.py with nvcc and called through ctypes
 // by mpmc_tpu_torch/ops/attention.py; the C entry point returns
@@ -58,11 +77,11 @@
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
 using mma::bf16;
-using mma::kNegInf;
 
 struct Strides {                           // element strides, D contiguous
   long long b, s, h;
@@ -253,18 +272,32 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 // ----------------------------------------------------------------- f32 --
 
-constexpr int kRows = 64;                  // query rows per block
-constexpr int kParts = 4;                  // threads per query row
-constexpr int kThreads = kRows * kParts;   // 256
-constexpr int kKeys = 32;                  // keys per shared-memory tile
+constexpr int kF32Rows = 8;                // rows of a thread's micro-tile
+constexpr int kF32Queries = 16 * kF32Rows;  // 128 queries a block
 
-// Four adjacent threads own one query row; each holds a quarter of the
-// row's q and of its output accumulator (dims d = i*4 + part, so the four
-// threads read four consecutive shared-memory words and the eight rows of a
-// warp read the same words: no bank conflicts).  Keys stream through shared
-// memory in tiles of 32 with an online (running max, running sum) softmax.
-template <int DPAD>
-__global__ void __launch_bounds__(kThreads)
+template <int DP>
+constexpr size_t f32_smem_bytes() {
+  // q and P (128 rows each), k and v (64 rows), per-key mask info and
+  // per-query segment ids.
+  return ((kF32Queries + 2 * simt::kTile) * (DP + 4) +
+          kF32Queries * simt::kLdP + simt::kTile + kF32Queries) *
+         sizeof(float);
+}
+
+// One block of 256 threads per (128-query tile, head, batch); each thread
+// owns 8 query rows (the query segment ids wait in shared memory, which
+// keeps the kernel near 128 registers).  The q tile stays in shared
+// memory; the keys stream through in 64-key tiles of k and v, each copy in
+// flight while the block works on the other operand: the next tile's k
+// lands during this tile's P.V, its v during its own scores.  For each key
+// tile: s = q.k^T as 8 x 4 register micro-tiles (simt::dot_tile), times
+// scale plus the bias, -inf past Sk; the online softmax (row max and row
+// sum over the half-warp of a row, the running output rescaled once per
+// tile); P to shared memory; out += P.V (simt::pv_tile).  Key groups of 16
+// wholly past Sk and warps whose 16 rows lie past Sq skip their products
+// (S = 197 = 128 + 69).
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(simt::kThreads, DP == 64 ? 2 : 1)
 attention_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -273,134 +306,170 @@ attention_fwd_f32_kernel(const float* __restrict__ q,
                          Strides qs, Strides ks, Strides vs, Strides os,
                          int H, int Sq, int Sk, int D, int mode,
                          float scale) {
-  constexpr int DPT = DPAD / kParts;       // dims per thread
-  __shared__ float k_tile[kKeys][DPAD];
-  __shared__ float v_tile[kKeys][DPAD];
-  __shared__ float key_info[kKeys];        // padding: bias; segments: id
+  constexpr int T = simt::kTile;
+  constexpr int R = kF32Rows;
+  constexpr int QT = kF32Queries;
+  constexpr int LD = DP + 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* k_s = q_s + QT * LD;
+  float* v_s = k_s + T * LD;
+  float* p_s = v_s + T * LD;
+  float* info_s = p_s + QT * simt::kLdP;
+  float* qseg_s = info_s + T;              // segments mode: Sq == Sk
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  const bool valid_row = row < Sq;
+  const int q0 = blockIdx.x * QT;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int r0 = simt::first_row<R>(tid);
+  const int nq = min(QT, Sq - q0);
+  const bool rows_here = simt::warp_first_row<R>(tid) < nq;
+  const int n_tiles = (Sk + T - 1) / T;
+  const float* k_bh = k + b * ks.b + h * ks.h;
+  const float* v_bh = v + b * vs.b + h * vs.h;
 
-  float qr[DPT];
-  float acc[DPT];
-  const float* q_row = q + b * qs.b + (long long)(valid_row ? row : 0) * qs.s
-                       + h * qs.h;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int d = i * kParts + part;
-    qr[i] = (valid_row && d < D) ? q_row[d] : 0.f;
-    acc[i] = 0.f;
+  auto issue_k = [&](int t) {
+    const int k0 = t * T;
+    const int nk = min(T, Sk - k0);
+    simt::load_tile<DP, VEC>(k_s, k_bh + (long long)k0 * ks.s, ks.s, nk, D,
+                             tid);
+    mma::cp_async_commit();
+    mma::store_key_info(info_s, mask, b, Sk, k0, nk, mode, tid,
+                        simt::kThreads);
+  };
+  auto issue_v = [&](int t) {
+    const int k0 = t * T;
+    simt::load_tile<DP, VEC>(v_s, v_bh + (long long)k0 * vs.s, vs.s,
+                             min(T, Sk - k0), D, tid);
+    mma::cp_async_commit();
+  };
+
+  simt::load_tile<DP, VEC, QT>(
+      q_s, q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, nq, D, tid);
+  issue_k(0);                              // one group with q
+  issue_v(0);
+
+  float m[R], l[R], o[R][DP / 16];
+  for (int i = tid; i < QT; i += simt::kThreads) {
+    qseg_s[i] =
+        (mode == 2 && i < nq) ? mask[(long long)b * Sk + q0 + i] : 0.f;
   }
-  // In segments mode Sq == Sk and mask holds the [B, S] segment ids.
-  const float q_seg =
-      (mode == 2 && valid_row) ? mask[(long long)b * Sk + row] : 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  simt::zero<DP, R>(o);
 
-  for (int k0 = 0; k0 < Sk; k0 += kKeys) {
-    const int nk = min(kKeys, Sk - k0);
-    for (int idx = threadIdx.x; idx < kKeys * DPAD; idx += kThreads) {
-      const int j = idx / DPAD;
-      const int d = idx % DPAD;
-      float kv = 0.f, vv = 0.f;
-      if (j < nk && d < D) {
-        const long long s = k0 + j;
-        kv = k[b * ks.b + s * ks.s + h * ks.h + d];
-        vv = v[b * vs.b + s * vs.s + h * vs.h + d];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int nk = min(T, Sk - t * T);
+    mma::cp_async_wait<1>();               // k of tile t (and q) landed
+    __syncthreads();
+    if (rows_here) {
+      const int nj = (nk + 15) >> 4;
+      float s[R][4];
+      simt::dot_tile<DP, R>(s, q_s, r0, k_s, tx, nj);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float tile_max = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = tx + 16 * j;
+          s[i][j] = (j < nj && key < nk)
+                        ? s[i][j] * scale + mma::key_bias(mode, info_s[key],
+                                                          qseg_s[r0 + i])
+                        : -INFINITY;       // past the last key: no key at all
+          tile_max = fmaxf(tile_max, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], simt::max16(tile_max));
+        const float alpha = expf(m[i] - m_new);   // 0 on the first tile
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < DP / 16; ++c) o[i][c] *= alpha;
+        float tile_sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < nj) {
+            const float p = expf(s[i][j] - m_new);
+            tile_sum += p;
+            p_s[(r0 + i) * simt::kLdP + tx + 16 * j] = p;
+          }
+        }
+        l[i] = l[i] * alpha + simt::sum16(tile_sum);
       }
-      k_tile[j][d] = kv;
-      v_tile[j][d] = vv;
     }
-    if (threadIdx.x < kKeys) {
-      const int j = threadIdx.x;
-      float info = 0.f;
-      if (j < nk && mode != 0) {
-        const float mv = mask[(long long)b * Sk + k0 + j];
-        info = (mode == 1) ? (1.f - mv) * kNegInf : mv;
-      }
-      key_info[j] = info;
+    __syncthreads();                       // P complete; k free
+    if (t + 1 < n_tiles) {
+      issue_k(t + 1);
+      mma::cp_async_wait<1>();             // v of tile t landed
+    } else {
+      mma::cp_async_wait<0>();
     }
     __syncthreads();
-
-    float s[kKeys];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dot = fmaf(qr[i], k_tile[j][i * kParts + part], dot);
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      float sj = dot * scale;
-      if (mode == 1) {
-        sj += key_info[j];
-      } else if (mode == 2) {
-        const float kseg = key_info[j];
-        sj += (kseg == q_seg && kseg > 0.f) ? 0.f : kNegInf;
-      }
-      if (j >= nk) sj = -INFINITY;        // past the last key: no key at all
-      s[j] = sj;
-      tile_max = fmaxf(tile_max, sj);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);   // 0 on the first tile
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    float tile_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float e = expf(s[j] - m_new);
-      tile_sum += e;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        acc[i] = fmaf(e, v_tile[j][i * kParts + part], acc[i]);
-      }
-    }
-    l = l * alpha + tile_sum;
-    m = m_new;
-    __syncthreads();
+    if (rows_here) simt::pv_tile<DP, R>(o, p_s, r0, v_s, tx, nk);
+    __syncthreads();                       // v free
+    if (t + 1 < n_tiles) issue_v(t + 1);
   }
 
-  if (valid_row) {
-    float* o_row = out + b * os.b + (long long)row * os.s + h * os.h;
+  if (rows_here) {
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = i * kParts + part;
-      if (d < D) o_row[d] = acc[i] / l;
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + r0 + i;
+      if (row >= Sq) continue;
+      float* o_row = out + b * os.b + (long long)row * os.s + h * os.h;
+#pragma unroll
+      for (int c = 0; c < DP / 16; ++c) {
+        const int d = (c / 4) * 64 + tx * 4 + c % 4;
+        if (d < D) o_row[d] = o[i][c] / l[i];
+      }
+      if (tx == 0) lse[((long long)b * H + h) * Sq + row] = m[i] + logf(l[i]);
     }
-    if (part == 0) lse[((long long)b * H + h) * Sq + row] = m + logf(l);
   }
 }
 
+template <int DP, bool VEC>
+cudaError_t launch_f32_dp(const float* q, const float* k, const float* v,
+                          const float* mask, float* out, float* lse,
+                          Strides qs, Strides ks, Strides vs, Strides os,
+                          int B, int H, int Sq, int Sk, int D, int mode,
+                          float scale, cudaStream_t stream) {
+  static bool done[64];
+  const size_t smem = f32_smem_bytes<DP>();
+  cudaError_t err =
+      mma::allow_smem(attention_fwd_f32_kernel<DP, VEC>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kF32Queries - 1) / kF32Queries, H, B);
+  attention_fwd_f32_kernel<DP, VEC><<<grid, simt::kThreads, smem, stream>>>(
+      q, k, v, mask, out, lse, qs, ks, vs, os, H, Sq, Sk, D, mode, scale);
+  return cudaGetLastError();
+}
+
+// 16-byte copies where every row of q, k and v allows them, else the same
+// kernel with 4-byte copies; DP = 64 up to D = 64, else 128.
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const float* mask, void* out, float* lse, Strides qs,
                        Strides ks, Strides vs, Strides os, int B, int H,
                        int Sq, int Sk, int D, int mode, float scale,
                        cudaStream_t stream) {
-  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(out);
-#define MPMC_LAUNCH(DPAD)                                                   \
-  attention_fwd_f32_kernel<DPAD><<<grid, kThreads, 0, stream>>>(            \
-      qt, kt, vt, mask, ot, lse, qs, ks, vs, os, H, Sq, Sk, D, mode, scale)
-  if (D <= 16) {
-    MPMC_LAUNCH(16);
-  } else if (D <= 32) {
-    MPMC_LAUNCH(32);
-  } else if (D <= 64) {
-    MPMC_LAUNCH(64);
-  } else {
-    MPMC_LAUNCH(128);
+  const bool vec = simt::vec_ok(q, D, qs.b, qs.s, qs.h) &&
+                   simt::vec_ok(k, D, ks.b, ks.s, ks.h) &&
+                   simt::vec_ok(v, D, vs.b, vs.s, vs.h);
+#define MPMC_LAUNCH(DP, VEC)                                                \
+  return launch_f32_dp<DP, VEC>(qt, kt, vt, mask, ot, lse, qs, ks, vs, os,  \
+                                B, H, Sq, Sk, D, mode, scale, stream)
+  if (D <= 64) {
+    if (vec) MPMC_LAUNCH(64, true);
+    MPMC_LAUNCH(64, false);
   }
+  if (vec) MPMC_LAUNCH(128, true);
+  MPMC_LAUNCH(128, false);
 #undef MPMC_LAUNCH
-  return cudaGetLastError();
 }
 
 bool aligned16(const void* p, long long sb, long long ss, long long sh) {

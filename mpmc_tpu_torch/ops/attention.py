@@ -12,8 +12,8 @@ uniform average of V.
 A CPU tensor runs the plain versions (:func:`attention_forward_reference`,
 :func:`attention_backward_reference`); a CUDA tensor launches the kernels of
 ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` or raises: bf16 on
-the tensor cores (one backward launch at Sq, Sk <= 128), f32 on the CUDA
-cores.
+the tensor cores (one backward launch at Sq, Sk <= 128, two beyond), IEEE
+f32 register-tiled on the CUDA cores (two backward launches).
 :class:`AttentionFunction` joins the two for autograd.
 """
 
@@ -112,8 +112,9 @@ def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
 def _check_bf16_layout(who: str, *tensors: torch.Tensor) -> None:
     """What the bf16 tensor-core kernels take on top of :func:`_check_cuda`:
     D a multiple of 8, and every row of q, k, v (and, for the backward,
-    out and dO) starting on a 16-byte boundary, for ``cp.async``.  f32 runs
-    on the CUDA-core kernels, which take any D and stride."""
+    out and dO) starting on a 16-byte boundary, for ``cp.async``.  The f32
+    kernels take any D <= 128 and any stride: they copy 16 bytes at a time
+    where D % 4 == 0 and the rows are 16-byte aligned, else 4 bytes."""
     if tensors[0].dtype != torch.bfloat16:
         return
     D = tensors[0].shape[-1]

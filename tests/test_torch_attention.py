@@ -51,7 +51,40 @@ CUDA_CASES = CASES + [
     ("segments", {"Sq": 256, "Sk": 256, "D": 64}),
     ("segments", {"Sq": 512, "Sk": 512, "D": 128}),
     ("none", {"Sq": 24, "Sk": 130, "D": 8}),
-    ("padding", {"Sq": 100, "Sk": 128, "D": 32})]
+    ("padding", {"Sq": 100, "Sk": 128, "D": 32}),
+    # The f32 kernel's tiles (128 queries, 64 keys): ragged S on both sides
+    # of 128, ViT's 197 at D = 128, a packed row of many segments ending in
+    # a segment-0 run, and the 4-byte copies (a row not 16-byte aligned,
+    # D % 4 != 0), which the bf16 wrapper refuses.
+    ("none", {"Sq": 127, "Sk": 129, "D": 16}),
+    ("padding", {"Sq": 129, "Sk": 127, "D": 40}),
+    ("padding", {"Sq": 17, "Sk": 197, "D": 32}),
+    ("none", {"Sq": 197, "Sk": 197, "D": 128}),
+    ("segments", {"Sq": 197, "Sk": 197, "D": 64, "packed": 12}),
+    ("none", {"Sq": 70, "Sk": 129, "D": 64, "shift": 1}),
+    ("padding", {"Sq": 33, "Sk": 70, "D": 6})]
+
+
+def _on_card(x, dtype, shift=0):
+    """``x`` on the card in ``dtype``; ``shift`` > 0 gives a view that
+    starts that many elements into its storage (rows not 16-byte
+    aligned)."""
+    t = torch.from_numpy(x).cuda().to(dtype)
+    if not shift:
+        return t
+    flat = torch.empty(t.numel() + shift, dtype=dtype, device="cuda")
+    view = flat[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def packed_segments(B, S, n):
+    """Segment ids of packed rows: ``n`` segments of S // (n + 1) tokens
+    each, then a segment-0 run to the end of the row."""
+    ids = np.repeat(np.arange(1, n + 1), S // (n + 1))
+    row = np.zeros(S, np.float32)
+    row[:ids.size] = ids
+    return np.repeat(row[None], B, 0)
 
 
 @pytest.mark.parametrize("mode,shape", CASES + LONG,
@@ -167,9 +200,17 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
 def test_cuda_kernel_matches_plain_version(mode, shape, dtype, atol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
+    shape = dict(shape)
+    shift, packed = shape.pop("shift", 0), shape.pop("packed", 0)
     q, k, v, mask = _case(mode, **shape)
-    args = [torch.from_numpy(x).cuda().to(dtype) for x in (q, k, v)]
+    if packed:
+        mask = packed_segments(q.shape[0], q.shape[1], packed)
+    args = [_on_card(x, dtype, shift) for x in (q, k, v)]
     m = None if mask is None else torch.from_numpy(mask).cuda()
+    if dtype == torch.bfloat16 and (shift or q.shape[-1] % 8):
+        with pytest.raises(ValueError, match="bf16 kernel needs"):
+            A.attention_forward_cuda(*args, m, mode)
+        return
     before = A.launch_counts["attention_fwd"]
     out, lse = A.attention_forward_cuda(*args, m, mode)
     torch.cuda.synchronize()

@@ -12,6 +12,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mpmc_tpu.ops.attention import _attention_xla, _bwd_pallas, _fwd_pallas
 from mpmc_tpu_torch.ops import attention as A
+from test_torch_attention import _on_card, packed_segments
 
 # f32 on both sides: the two sum in different orders.
 TOL = 1e-5
@@ -63,7 +64,17 @@ CUDA_CASES = CASES + [
     ("padding", {"Sk": 256}), ("padding", {"Sq": 24, "Sk": 512, "D": 32}),
     ("segments", {"Sq": 256, "Sk": 256, "D": 64}),
     ("segments", {"Sq": 512, "Sk": 512, "D": 128}),
-    ("none", {"Sq": 200, "Sk": 8, "D": 8})]
+    ("none", {"Sq": 200, "Sk": 8, "D": 8}),
+    # The f32 kernels' 64-row tiles (see test_torch_attention.py): ragged S
+    # on both sides of 64 and 128, ViT's 197 at D = 128, a packed row of
+    # many segments ending in a segment-0 run, and the 4-byte copies.
+    ("none", {"Sq": 127, "Sk": 129, "D": 16}),
+    ("padding", {"Sq": 129, "Sk": 127, "D": 40}),
+    ("padding", {"Sq": 17, "Sk": 197, "D": 32}),
+    ("none", {"Sq": 197, "Sk": 197, "D": 128}),
+    ("segments", {"Sq": 197, "Sk": 197, "D": 64, "packed": 12}),
+    ("none", {"Sq": 70, "Sk": 129, "D": 64, "shift": 1}),
+    ("padding", {"Sq": 33, "Sk": 70, "D": 6})]
 
 
 def _jax_fwd_bwd(q, k, v, mask, do, mode, dtype):
@@ -180,6 +191,12 @@ def test_cuda_backward_matches_plain_version(mode, shape, dtype, atol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     tq, tk, tv, tm, tdo = _cuda_case(mode, shape, dtype)
+    if dtype == torch.bfloat16 and (shape.get("shift") or tq.shape[-1] % 8):
+        B, Sq, H, _ = tq.shape
+        lse = torch.zeros(B, H, Sq, device="cuda")
+        with pytest.raises(ValueError, match="bf16 kernel needs"):
+            A.attention_backward_cuda(tq, tk, tv, tm, mode, tq, lse, tdo)
+        return
     out, lse = A.attention_forward_cuda(tq, tk, tv, tm, mode)
     before = A.launch_counts["attention_bwd"]
     got = A.attention_backward_cuda(tq, tk, tv, tm, mode, out, lse, tdo)
@@ -197,27 +214,32 @@ def test_cuda_backward_matches_plain_version(mode, shape, dtype, atol):
 
 
 def _cuda_case(mode, shape, dtype):
+    shape = dict(shape)
+    shift, packed = shape.pop("shift", 0), shape.pop("packed", 0)
     q, k, v, mask, do = _case(mode, **shape)
     if mode == "segments" and shape.get("Sq") == 128:
         mask = np.repeat(np.arange(1, 9), 16)[None].repeat(2, 0)
         mask[:, 100:] = 0
         mask = mask.astype(np.float32)
-    tq, tk, tv, tdo = (torch.from_numpy(x).cuda().to(dtype)
-                       for x in (q, k, v, do))
+    if packed:
+        mask = packed_segments(q.shape[0], q.shape[1], packed)
+    tq, tk, tv, tdo = (_on_card(x, dtype, shift) for x in (q, k, v, do))
     tm = None if mask is None else torch.from_numpy(mask).cuda()
     return tq, tk, tv, tm, tdo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode,shape", [
     ("segments", {"Sq": 128, "Sk": 128, "D": 64}), ("padding", {"D": 128}),
-    ("segments", {"Sq": 256, "Sk": 256, "D": 64})])
-def test_cuda_backward_is_bit_equal_across_runs(mode, shape):
-    """No atomics: every gradient entry is summed by one warp in one fixed
-    order, so two runs give the same bits."""
+    ("segments", {"Sq": 256, "Sk": 256, "D": 64}),
+    ("none", {"Sq": 197, "Sk": 197, "D": 64})])
+def test_cuda_backward_is_bit_equal_across_runs(mode, shape, dtype):
+    """No atomics: every gradient entry is summed by one thread (f32) or
+    one warp (bf16) in one fixed order, so two runs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    tq, tk, tv, tm, tdo = _cuda_case(mode, shape, torch.bfloat16)
+    tq, tk, tv, tm, tdo = _cuda_case(mode, shape, dtype)
     out, lse = A.attention_forward_cuda(tq, tk, tv, tm, mode)
     first = A.attention_backward_cuda(tq, tk, tv, tm, mode, out, lse, tdo)
     second = A.attention_backward_cuda(tq, tk, tv, tm, mode, out, lse, tdo)

@@ -138,7 +138,8 @@ def test_port_imports_nothing_of_jax():
     # Imports inside functions never run above: read the sources too.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
                          r"mpmc_tpu)(\.|\s|$)", re.M)
-    sources = [os.path.join(REPO, "chip_smoke.py")]
+    sources = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                               "attention_f32_compare.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mpmc_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
