@@ -79,7 +79,20 @@ toolkit.  Phases, each of which raises on failure:
    at 224 for two steps (12 forward and 12 backward calls a step, two
    f32 backward kernels a call); two SimCLR steps of ResNet-18 card vs CPU in
    f32; and the flagship with the cross-modal and the self-attention
-   fusions card vs CPU in f32.
+   fusions card vs CPU in f32;
+11. hold the f32 attention forward at the scratch captioner's shapes
+   (``[64,197,4,32]``, and ``[64,24,6,21]`` over 197 keys: D = 21), mode
+   none, against the plain version and time it beside SDPA (TF32 off);
+   caption phase 5's 224 images at 224 pixels with
+   ``make_scratch_caption_fn`` (48 forward launches a generate batch, ms a
+   batch, the busy share of a profiled batch, logits and greedy ids card vs
+   CPU in f32); drive ``train --subtask 2c --scratch-captioner`` at full
+   width; kill phase 8's 2A run after its first checkpoint and
+   ``--resume`` it (ids and labels equal to phase 8's TSVs, probabilities
+   within a stated tolerance); and run the ``Trainer`` over
+   ``clip_style_2c`` (BERT-base + ViT-B/32 at 224): a few steps,
+   ``evaluate``, ``predict``, ``save_model`` and a resumed ``evaluate``
+   equal to the first.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -96,8 +109,8 @@ segment ids) and at the MLM shapes, packed and unpacked, after holding
 the forward and backward kernels against their plain versions there.
 
 Prints the card's name and power limit, each phase's result, the
-``predict_kinds``, ``train_2a``/``mlm``, ``train_2b`` and
-``train_variants`` JSON lines, a
+``predict_kinds``, ``train_2a``/``mlm``, ``train_2b``,
+``train_variants`` and ``phase_11`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -2218,16 +2231,465 @@ def phase_train_variants(torch, work: str):
     attention shape's."""
     results, argvs = {}, {}
     for name, subtask, flags, layers, images, profiled in TRAIN_VARIANTS:
+        stamp(f"  {name}:")
         argvs[name], results[name] = train_variant_cli(
             torch, work, name, subtask, flags, layers, images, profiled)
     small = phase_small_attention(torch, argvs["train_2c_small"])
+    stamp("  SimCLR over ViT-B/16:")
     results["simclr_vit"] = phase_simclr_vit(torch)
+    stamp("  SimCLR steps card vs CPU:")
     phase_simclr_card_vs_cpu(torch)
+    stamp("  the attention fusions card vs CPU:")
     phase_fusions_card_vs_cpu(torch, work)
     return results, small
 
 
+# Phase 11: the scratch captioner, exact-state resume and the Trainer
+# wrapper.  The captioner's f32 attention forward at its caption batch of 64
+# (``precompute_captions`` batches): its ViT encoder, [64,197,4,32], and the
+# decoder's cross-attention, 24 queries over the 197 image tokens in 6 heads
+# of the odd D = 21 (name, [B, Sq, H, D], Sk); both mode none.
+CAPTION_BATCH = 64
+CAPTION_SHAPES = [("caption_encoder", (CAPTION_BATCH, 197, 4, 32), 197),
+                  ("caption_cross", (CAPTION_BATCH, 24, 6, 21), 197)]
+# Forward calls of one ``generate``: the encoder's 2 layers once, then the
+# decoder's 2 cross-attentions at each of the 23 positions after the first.
+GENERATE_FWD = 2 + 23 * 2
+CAPTION_TAG = "scratch-captioner-torch-42-224"
+CAPTION_CARD_VS_CPU = 8            # images generated on the card and the CPU
+CAPTION_LOGIT_TOL = 1e-3           # f32 card vs CPU, TF32 off
+# The resumed 2A run against the uninterrupted one on the card: bf16 steps
+# whose gradients are summed with atomics (the embedding and the packed
+# gathers' backward) in another order, so the probabilities agree to this
+# tolerance, not bit for bit; ids and labels must be equal.
+RESUME_PROB_TOL = 1e-2
+# The Trainer over clip_style_2c at full width: memes of phase 5's
+# manifests (3 steps of 16, one eval batch, evaluated once, at the end),
+# the text cut to 128 tokens.
+CLIP_TRAIN, CLIP_EVAL, CLIP_TEXT_LEN = 48, 16, 128
+
+
+def time_forward_at(torch, what: str, shape, sk: int):
+    """The f32 attention forward kernel (mode none) at ``shape`` = [B, Sq,
+    H, D] over ``sk`` keys: held against the plain version on the same
+    inputs, then timed beside the plain version, SDPA with TF32 off and the
+    bound."""
+    import torch.nn.functional as F
+    from mpmc_tpu_torch.ops import attention as A
+    from mpmc_tpu_torch.train.pretrain_image import ieee_f32
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, _ = attention_inputs(torch, shape, "none", torch.float32, gen, sk)
+    tag = f"{what} none {tuple(q.shape)}x{sk} float32"
+    with ieee_f32():
+        out, lse = A.attention_forward_cuda(q, k, v, None, "none")
+        torch.cuda.synchronize()
+        err = check_forward(A, q, k, v, None, "none", out, lse, tag)
+        ms = graph_ms(torch, lambda: A.attention_forward_cuda(q, k, v, None,
+                                                              "none"))
+        plain_ms = graph_ms(torch, lambda: A.attention_forward_reference(
+            q, k, v, None, "none"))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt))
+    bound_ms, bound_by = attention_bound_ms(q, k, "none")
+    print(f"  attention_fwd {tag}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+          f"ms, sdpa (TF32 off) {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by})")
+    return dict(shape=list(shape), sk=sk, mode="none", dtype="torch.float32",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_caption_generate(torch, work: str):
+    """``make_scratch_caption_fn`` over phase 5's 224 images at 224 pixels
+    through ``precompute_captions`` (batches of 64): launches (48 forward
+    calls a batch), ms per ``generate`` batch, the device's busy share in a
+    profiled warm batch, and the card against the CPU in f32 on a few
+    images (the same weights: they come from a CPU generator): the logits
+    on the card's ids and how many greedy ids differ."""
+    from torch.profiler import ProfilerActivity, profile
+    from mpmc_tpu_torch.image.augment import eval_preprocess
+    from mpmc_tpu_torch.image.decode import decode_batch
+    from mpmc_tpu_torch.io.manifest import read_manifest
+    from mpmc_tpu_torch.models.captioner import (PROMPT,
+                                                 make_scratch_caption_fn,
+                                                 precompute_captions)
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
+    from mpmc_tpu_torch.train.pretrain_image import ieee_f32
+    dev = torch.device("cuda")
+    train = read_manifest(os.path.join(work, "train.json"))
+    paths = train.img_paths + read_manifest(
+        os.path.join(work, "dev.json")).img_paths
+    images = decode_batch(paths, 224, False, work)
+    corpus = [preprocess_arabic_tweet(t) for t in train.texts]
+    gen_fn, tok = make_scratch_caption_fn(corpus, image_size=224, seed=42,
+                                          device=dev)
+    batch_ms = []
+
+    def timed(images_u8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen_fn(images_u8)             # ends in a copy to the host
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    timed.cache_tag = gen_fn.cache_tag
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    caps = precompute_captions(paths, images, generate_fn=timed)
+    launches = dict(build.launch_counts)
+    batches = math.ceil(len(paths) / CAPTION_BATCH)
+    want = {"attention_fwd": GENERATE_FWD * batches, "attention_bwd": 0,
+            "image_normalize": 0}
+    check(launches == want, f"captioning launches {launches}, expected {want}")
+    placeholder = re.compile(r"^a meme of [0-9a-f]{8}$")
+    check(len(caps) == len(paths) and all(
+        c and not placeholder.match(c) for c in caps),
+        f"captions missing or placeholders: {caps[:3]}")
+    words = {w for c in caps for w in c.split()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_fn(images[:CAPTION_BATCH])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  scratch captioner over {len(paths)} images at 224 (ViT 2 x "
+          f"128, 4 heads; decoder 2 x 128, 6 heads of 21; 24 tokens; vocab "
+          f"{len(tok.vocab)}), f32: {batches} generate batches, ms "
+          f"{[round(t, 3) for t in batch_ms]}; launches attention_fwd "
+          f"{launches['attention_fwd']} = {GENERATE_FWD} x {batches}; "
+          f"{len(words)} distinct words, e.g. {caps[0]!r}")
+    print(f"  profiled warm batch of {CAPTION_BATCH}: {wall_ms:.3f} ms wall, "
+          f"kernels {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} % of "
+          f"wall) in {sum(e.count for e in events)} launches; top:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+    cpu_fn, _ = make_scratch_caption_fn(corpus, image_size=224, seed=42,
+                                        device=torch.device("cpu"))
+    card, host = gen_fn.captioner, cpu_fn.captioner
+    few = torch.from_numpy(images[:CAPTION_CARD_VS_CPU])
+    prompt = torch.tensor([tok.tokenize_to_ids(PROMPT)]).expand(len(few), -1)
+    with ieee_f32(), torch.inference_mode():
+        x = eval_preprocess(few.to(dev))
+        ids = card.generate(x, prompt.to(dev), eos_id=tok.sep_id)
+        logits = card(x, ids).cpu()
+        x_cpu = eval_preprocess(few)
+        ids_cpu = host.generate(x_cpu, prompt, eos_id=tok.sep_id)
+        logits_cpu = host(x_cpu, ids.cpu())
+    diff = (logits - logits_cpu).abs().max().item()
+    ids_differ = int((ids.cpu() != ids_cpu).sum())
+    check(diff <= CAPTION_LOGIT_TOL, f"captioner logits card vs CPU differ "
+                                     f"by {diff}")
+    print(f"  card vs CPU, {len(few)} images in f32 (TF32 off): max |logit "
+          f"diff| {diff:.3g} (tol {CAPTION_LOGIT_TOL}) over "
+          f"{tuple(logits.shape)}; greedy ids differing: {ids_differ} of "
+          f"{ids.numel()}")
+    del card, host, gen_fn, cpu_fn
+    torch.cuda.empty_cache()
+    return dict(launches=launches, batches=batches, batch_ms=batch_ms,
+                profiled_wall_ms=wall_ms, profiled_kernel_ms=busy_ms,
+                logits_max_abs_diff=diff, ids_differ=ids_differ,
+                ids=ids.numel(), distinct_words=len(words))
+
+
+def _caption_cache(work: str, manifest: str):
+    """The captions the port's scratch captioner cached for a manifest's
+    paths (seed 42, 224 pixels) under ``work/.cache``."""
+    import hashlib
+    with open(os.path.join(work, manifest), encoding="utf-8") as f:
+        paths = [r["img_path"] for r in json.load(f)]
+    key = hashlib.sha256(("\n".join(paths) + "a meme of" + "\x00"
+                          + CAPTION_TAG).encode()).hexdigest()[:16]
+    with open(os.path.join(work, ".cache", f"captions_{key}.json")) as f:
+        cache = json.load(f)
+    return [cache[p] for p in paths]
+
+
+def phase_train_scratch_captioner(torch, work: str):
+    """``train --subtask 2c --scratch-captioner`` at full width on phase
+    5's manifests (fold 0, one epoch, bf16, the fast recipe), launch counts
+    zeroed before and read after: 48 forward calls per caption batch (3
+    train and 1 dev batch of at most 64), then 24 forward and 24 backward a
+    step, 24 forward per eval batch and the image kernel once a step.
+    Checks the cached captions (words, not placeholders, under the port's
+    tag), the caption vocab over them, the finite losses and the TSV;
+    reports the size of a checkpoint's whole state and the seconds each
+    save held the run (the copy to host memory, and any wait for the write
+    before it; the write runs behind)."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.io.tsv import check_format
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
+    out_dir, ckpt = (os.path.join(work, n) for n in ("scratch_out",
+                                                     "scratch_ck"))
+    argv = ["train", "--subtask", "2c", "-tr", os.path.join(work, "train.json"),
+            "-te", os.path.join(work, "dev.json"), "--image-root", work,
+            "--fold", "0", "--epochs", "1", "--checkpoint-dir", ckpt,
+            "--out-dir", out_dir, "--scratch-captioner", "--device", "cuda"]
+    real_save, save_s = Checkpointer.save, []
+
+    def timed_save(self, state, step, metrics=None):
+        t = time.perf_counter()
+        real_save(self, state, step, metrics)
+        save_s.append(time.perf_counter() - t)
+
+    Checkpointer.save = timed_save
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(argv)
+    finally:
+        Checkpointer.save = real_save
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"train --scratch-captioner returned {rc}")
+    kept = Checkpointer(os.path.join(ckpt, "fold_0"))
+    state_mb = os.path.getsize(os.path.join(
+        kept.directory, str(kept.latest_step()), STATE_FILE)) / 2 ** 20
+    with open(os.path.join(out_dir, "task2C_train_metrics_fold_0.json")) as f:
+        metrics = json.load(f)
+    steps, evals = len(metrics["steps"]), len(metrics["evals"])
+    check(steps == metrics["steps_per_epoch"] > 0, "steps missing")
+    eval_batches = evals * (math.ceil(metrics["n_test"] / BATCH)
+                            + math.ceil(metrics["n_val"] / BATCH))
+    caption_batches = (math.ceil(N_TRAIN / CAPTION_BATCH)
+                       + math.ceil(N_DEV / CAPTION_BATCH))
+    want = {"attention_fwd": 24 * (steps + eval_batches)
+            + GENERATE_FWD * caption_batches,
+            "attention_bwd": 24 * steps, "image_normalize": steps}
+    check(launches == want, f"scratch-captioner train launches {launches}, "
+                            f"expected {want}")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              for s in metrics["steps"]), "non-finite loss or grad norm")
+    check(check_format(os.path.join(out_dir, "task2C_kevinmathew.tsv")),
+          "the TSV fails check_format")
+    caps = _caption_cache(work, "train.json") + _caption_cache(work,
+                                                               "dev.json")
+    placeholder = re.compile(r"^a meme of [0-9a-f]{8}$")
+    check(all(c and not placeholder.match(c) for c in caps),
+          "the run's captions are placeholders")
+    with open(os.path.join(out_dir, "caption_vocab.txt"),
+              encoding="utf-8") as f:
+        vocab = set(f.read().split())
+    check({w for c in caps for w in c.split()} <= vocab,
+          "caption words missing from caption_vocab.txt")
+    print(f"  train --subtask 2c --scratch-captioner --fold 0 --epochs 1 "
+          f"(default ModelConfig, bf16, fast recipe): rc 0, {wall:.3f} s "
+          f"wall (captioning, model build, {evals} evals included); {steps} "
+          f"steps, losses {[round(s['loss'], 5) for s in metrics['steps']]}")
+    print(f"  launches: attention_fwd {launches['attention_fwd']} = 48 x "
+          f"{caption_batches} caption batches + 24 x ({steps} steps + "
+          f"{eval_batches} eval batches), attention_bwd "
+          f"{launches['attention_bwd']} = 24 x {steps}, image_normalize "
+          f"{launches['image_normalize']} = {steps}; {len(caps)} word "
+          f"captions cached under {CAPTION_TAG}, caption vocab "
+          f"{len(vocab)} tokens; checkpoints {len(save_s)}, each "
+          f"{state_mb:.1f} MiB of state, holding the run "
+          f"{[round(t, 3) for t in save_s]} s")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, steps=steps,
+                eval_batches=eval_batches, caption_batches=caption_batches,
+                checkpoint_mib=state_mb, checkpoint_save_s=save_s)
+
+
+def phase_resume_2a(torch, work: str):
+    """Phase 8's full-width ``train --subtask 2a`` again, killed right after
+    its first checkpoint (inside the epoch), then ``--resume``d: launches
+    of the resumed part (12 forward and 12 backward a step, 12 forward per
+    eval batch, test and val), and its three TSVs against phase 8's
+    uninterrupted run: the same ids and labels, probabilities within
+    ``RESUME_PROB_TOL``."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train.checkpoint import Checkpointer
+    out_dir = os.path.join(work, "resume_2a_out")
+    argv = ["train", "--subtask", "2a", "-tr", os.path.join(work, "train.json"),
+            "-te", os.path.join(work, "dev.json"), "--fold", "0", "--epochs",
+            "1", "--checkpoint-dir", os.path.join(work, "resume_2a_ck"),
+            "--out-dir", out_dir, "--device", "cuda"]
+
+    class Crash(Exception):
+        pass
+
+    real_save, saved = Checkpointer.save, []
+
+    def crashing_save(self, state, step, metrics=None):
+        real_save(self, state, step, metrics)
+        self.wait()                     # the write committed, then the crash
+        saved.append(step)
+        raise Crash(f"crash after the checkpoint at step {step}")
+
+    Checkpointer.save = crashing_save
+    t0 = time.perf_counter()
+    try:
+        cli_main(argv)
+    except Crash:
+        pass
+    finally:
+        Checkpointer.save = real_save
+    crash_wall = time.perf_counter() - t0
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    rc = cli_main(argv + ["--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"train --subtask 2a --resume returned {rc}")
+    with open(os.path.join(out_dir, "task2A_train_metrics_fold_0.json")) as f:
+        metrics = json.load(f)
+    per_epoch, steps = metrics["steps_per_epoch"], len(metrics["steps"])
+    check(len(saved) == 1 and 0 < saved[0] < per_epoch
+          and steps == per_epoch - saved[0],
+          f"crash at {saved}, then {steps} of {per_epoch} steps")
+    eval_batches = len(metrics["evals"]) * (
+        math.ceil(metrics["n_test"] / BATCH)
+        + math.ceil(metrics["n_val"] / BATCH))
+    want = {"attention_fwd": 12 * (steps + eval_batches),
+            "attention_bwd": 12 * steps, "image_normalize": 0}
+    check(launches == want, f"resumed 2A launches {launches}, expected {want}")
+    worst = 0.0
+    names = ("task2A_kevinmathew.tsv", "task2A_kevinmathew_probs_fold_0.tsv",
+             "task2A_kevinmathew_val_fold_0.tsv")
+    for name in names:
+        got = tsv_rows(os.path.join(out_dir, name))
+        want_rows = tsv_rows(os.path.join(work, "train_2a_out", name))
+        check([r[:2] for r in got] == [r[:2] for r in want_rows],
+              f"{name}: ids or labels differ after the resume")
+        if len(got[0]) > 3:
+            worst = max([worst] + [abs(float(a[2]) - float(b[2])) for a, b
+                                   in zip(got[1:], want_rows[1:])])
+    check(worst <= RESUME_PROB_TOL, f"resumed probabilities differ by "
+                                    f"{worst}")
+    print(f"  train --subtask 2a killed after the checkpoint at step "
+          f"{saved[0]} of {per_epoch} ({crash_wall:.3f} s), --resume: rc 0, "
+          f"{wall:.3f} s, {steps} steps; launches attention_fwd "
+          f"{launches['attention_fwd']} = 12 x ({steps} + {eval_batches} eval "
+          f"batches), attention_bwd {launches['attention_bwd']} = 12 x "
+          f"{steps}; the three TSVs against phase 8's uninterrupted run: ids "
+          f"and labels equal, max |prob diff| {worst:.3g} (tol "
+          f"{RESUME_PROB_TOL})")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, crash_step=saved[0],
+                steps=steps, max_prob_diff=worst)
+
+
+def phase_trainer_clip(torch, work: str):
+    """The ``Trainer`` over ``clip_style_2c`` at full width (BERT-base text,
+    ViT-B/32 at 224, concat fusion, one logit, bf16) on phase 5's memes:
+    ``train`` (one epoch at batch 16, launch counts zeroed before and read
+    after: 24 forward and 24 backward a step, 24 forward per eval batch,
+    the image kernel once a step), ``evaluate``, ``predict``,
+    ``save_model``, and a second ``Trainer`` with ``resume`` whose
+    ``evaluate`` equals the first's."""
+    import dataclasses
+    from mpmc_tpu_torch.cli.experiments import build_tokenizer, prepare_text
+    from mpmc_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from mpmc_tpu_torch.image.decode import decode_batch
+    from mpmc_tpu_torch.io.manifest import read_manifest
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
+    from mpmc_tpu_torch.train.trainer import Trainer
+    dev = torch.device("cuda")
+    train = read_manifest(os.path.join(work, "train.json"))
+    test = read_manifest(os.path.join(work, "dev.json"))
+    tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
+                          None)
+    base = ModelConfig.clip_style_2c()
+    mcfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, vocab_size=max(tok.vocab.values()) + 1))
+
+    def split(m, n):
+        ids, mask = prepare_text(m, tok, CLIP_TEXT_LEN)
+        return {"text_ids": ids[:n], "text_mask": mask[:n],
+                "image": decode_batch(m.img_paths[:n], 224, False, work),
+                "label": m.labels[:n]}
+
+    train_d, eval_d = split(train, CLIP_TRAIN), split(test, CLIP_EVAL)
+    cfg = TrainConfig(model=mcfg, data=DataConfig(batch_size=BATCH), epochs=1,
+                      eval_per_epoch=1, bf16=True,
+                      checkpoint_dir=os.path.join(work, "clip_ck"))
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    trainer = Trainer(build_model(mcfg, dev, seed=42), cfg, train_d,
+                      eval_data=eval_d, device=dev)
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    steps, evals = len(result.steps), len(result.history)
+    eval_batches = evals * math.ceil(CLIP_EVAL / BATCH)
+    want = {"attention_fwd": 24 * (steps + eval_batches),
+            "attention_bwd": 24 * steps, "image_normalize": steps}
+    check(steps == CLIP_TRAIN // BATCH and launches == want,
+          f"Trainer launches {launches} in {steps} steps, expected {want}")
+    check(all(math.isfinite(s["loss"]) for s in result.steps),
+          "non-finite Trainer loss")
+    ev = trainer.evaluate()
+    probs = trainer.predict({k: v for k, v in eval_d.items()
+                             if k != "label"})
+    check(probs.shape == (CLIP_EVAL,) and bool((probs == ev.probs).all()),
+          "predict differs from evaluate")
+    trainer.save_model(step=steps, metrics={"test_f1": ev.macro_f1})
+    del trainer
+    torch.cuda.empty_cache()
+    again = Trainer(build_model(mcfg, dev, seed=0),
+                    dataclasses.replace(cfg, resume=True), train_d,
+                    eval_data=eval_d, device=dev)
+    ev2 = again.evaluate()
+    diff = float(abs(ev2.probs - ev.probs).max())
+    check(diff <= 1e-6 and ev2.macro_f1 == ev.macro_f1,
+          f"the resumed Trainer's evaluate differs by {diff}")
+    print(f"  Trainer over clip_style_2c (BERT-base + ViT-B/32 at 224, bf16), "
+          f"{CLIP_TRAIN} memes at batch {BATCH}, text {CLIP_TEXT_LEN} tokens: "
+          f"{steps} steps in {wall:.3f} s (model build and {evals} evals "
+          f"included), losses {[round(s['loss'], 5) for s in result.steps]}; "
+          f"launches attention_fwd {launches['attention_fwd']} = 24 x "
+          f"({steps} + {eval_batches} eval batches), attention_bwd "
+          f"{launches['attention_bwd']} = 24 x {steps}, image_normalize "
+          f"{launches['image_normalize']}; evaluate F1 {ev.macro_f1:.4f}, "
+          f"predict equal, resumed evaluate max |prob diff| {diff:.3g} (tol "
+          f"1e-6)")
+    del again
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, steps=steps,
+                eval_batches=eval_batches, resumed_max_prob_diff=diff)
+
+
+def phase_captioner_resume_trainer(torch, work: str):
+    """Phase 11: (a) the attention forward at the captioner's shapes and
+    the scratch captioner over phase 5's images, (b) ``train
+    --scratch-captioner``, (c) crash and ``--resume`` of phase 8's 2A run,
+    (d) the ``Trainer`` over ``clip_style_2c``."""
+    shapes = {name: time_forward_at(torch, name, shape, sk)
+              for name, shape, sk in CAPTION_SHAPES}
+    torch.cuda.empty_cache()
+    out = dict(shapes=shapes)
+    for name, run in (("caption_generate", phase_caption_generate),
+                      ("train_2c_scratch_captioner",
+                       phase_train_scratch_captioner),
+                      ("train_2a_resume", phase_resume_2a),
+                      ("trainer_clip_style", phase_trainer_clip)):
+        stamp(f"  {name}:")
+        out[name] = run(torch, work)
+    return out
+
+
 T_START = time.perf_counter()
+
+
+def stamp(title: str) -> None:
+    """A phase's heading with the seconds since the script started."""
+    print(f"{title} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def main() -> int:
@@ -2268,7 +2730,7 @@ def main() -> int:
                   f"{k} {mma}/{n}" for k, (mma, n) in sorted(counts.items())))
         check(tensor_core[name] > 0, f"{name}: no tensor-core instruction")
 
-    print("phase 2 kernels vs plain versions on the card:")
+    stamp("phase 2 kernels vs plain versions on the card:")
     timings, err_main = phase_kernels(torch)
     bwd_timings, bwd_err = phase_kernels_bwd(torch)
     image = phase_image_kernel(torch)
@@ -2277,43 +2739,51 @@ def main() -> int:
         cwd = os.getcwd()
         os.chdir(work)                  # the caption cache goes to ./.cache
         try:
-            print("phase 3 full-width 2C predict:")
+            stamp("phase 3 full-width 2C predict:")
             argv, launches = phase_predict(torch, work)
             inputs = phase_warm_eval(torch, argv)
-            print("phase 4 card vs CPU:")
+            stamp("phase 4 card vs CPU:")
             phase_card_vs_cpu(torch, inputs)
-            print("phase 5 full-width 2C train:")
+            stamp("phase 5 full-width 2C train:")
             train_argv, train_launches, _ = phase_train(torch, work)
             packed_shapes, warm_ms = phase_warm_train(torch, train_argv)
-            print("phase 6 packed train step, card vs CPU in f32:")
+            stamp("phase 6 packed train step, card vs CPU in f32:")
             phase_train_card_vs_cpu(torch, train_argv)
-            print("phase 7 full-width predict for 2A, 2B and simple 2C:")
+            stamp("phase 7 full-width predict for 2A, 2B and simple 2C:")
             kinds = phase_other_kinds(torch, work)
+            stamp("  each new model class card vs CPU, then the tools:")
             phase_kinds_card_vs_cpu(torch, work)
             phase_submission(
                 work, [os.path.join(work, "probs.tsv")]
                 + [r["probs"] for r in kinds.values()],
                 [os.path.join(work, "pred.tsv")]
                 + [r["labels"] for r in kinds.values()])
-            print("phase 8 full-width 2A train and corpus MLM:")
+            stamp("phase 8 full-width 2A train and corpus MLM:")
             argv_2a, launches_2a = phase_train_2a(torch, work)
             warm_2a = phase_warm_train_2a(torch, argv_2a)
-            print("  packed 2A train step, card vs CPU in f32:")
+            stamp("  packed 2A train step, card vs CPU in f32:")
             phase_train_card_vs_cpu(torch, argv_2a)
+            stamp("  corpus MLM:")
             mlm = phase_mlm(torch, argv_2a)
-            print("  the reference recipe with packed MLM, and --text-params:")
+            stamp("  the reference recipe with packed MLM, and --text-params:")
             more_2a = phase_train_2a_more(torch, work, mlm["npz"])
-            print("phase 9 full-width 2B train and the image zoo:")
+            stamp("phase 9 full-width 2B train and the image zoo:")
             vit_shapes, vit_f32, image_384 = phase_vit_kernels(torch)
+            stamp("  the 2B train runs:")
             train_2b = phase_train_2b(torch, work)
+            stamp("  the new backbones card vs CPU:")
             phase_backbones_card_vs_cpu(torch)
-            print("phase 10 SimCLR pretraining and the 2C training variants:")
+            stamp("phase 10 SimCLR pretraining and the 2C training variants:")
             image_simclr, image_small, simclr_vit = phase_simclr_kernels(torch)
             variants, small_2c = phase_train_variants(torch, work)
+            stamp("phase 11 the scratch captioner, crash and --resume, and "
+                  "the Trainer over clip_style_2c:")
+            p11 = phase_captioner_resume_trainer(torch, work)
         finally:
             os.chdir(cwd)
 
     text, bwd = timings["text"], bwd_timings["text"]
+    paths_11 = {k: v["launches"] for k, v in p11.items() if k != "shapes"}
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -2339,7 +2809,9 @@ def main() -> int:
             **{k: v["launches"]["attention_fwd"]
                for k, v in train_2b.items()},
             **{k: v["launches"]["attention_fwd"]
-               for k, v in variants.items()}},
+               for k, v in variants.items()},
+            **{k: v["attention_fwd"] for k, v in paths_11.items()}},
+        "captioner_shapes": p11["shapes"],
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
                 "library_ms": v["library_fwd_ms"],
@@ -2383,7 +2855,8 @@ def main() -> int:
             **{k: v["launches"]["attention_bwd"]
                for k, v in train_2b.items()},
             **{k: v["launches"]["attention_bwd"]
-               for k, v in variants.items()}},
+               for k, v in variants.items()},
+            **{k: v["attention_bwd"] for k, v in paths_11.items()}},
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
         "mlm_pack_shape": more_2a["mlm_pack"]["shape"],
@@ -2407,7 +2880,8 @@ def main() -> int:
             **{k: v["launches"]["image_normalize"]
                for k, v in train_2b.items()},
             **{k: v["launches"]["image_normalize"]
-               for k, v in variants.items()}}}]
+               for k, v in variants.items()},
+            **{k: v["image_normalize"] for k, v in paths_11.items()}}}]
     print(json.dumps({"predict_kinds": {
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
                               "profiled_wall_ms", "profiled_kernel_ms")}
@@ -2427,6 +2901,8 @@ def main() -> int:
         "train_2a_text_params": more_2a["text_params"]}))
     print(json.dumps({"train_2b": train_2b}))
     print(json.dumps({"train_variants": variants}))
+    print(json.dumps({"phase_11": {k: v for k, v in p11.items()
+                                   if k != "shapes"}}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

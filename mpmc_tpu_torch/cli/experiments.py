@@ -265,9 +265,13 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     fold's val split is the test split too, evaluated twice per check as in
     the JAX package.  Each fold writes its TSVs under ``out_dir`` (the val
     TSV under ``cfg.emit_val_tsv``) and, with ``cfg.checkpoint_dir``, its
-    best-test-F1 weights as ``<checkpoint_dir>/fold_<k>/model.pt``, and its
-    per-step losses and evals as
+    best-test-F1 weights as ``<checkpoint_dir>/fold_<k>/model.pt`` (what
+    ``predict --checkpoint`` reads) and, through a ``Checkpointer`` over
+    the same directory, the whole training state at each new best; with
+    ``cfg.resume`` the fold first restores its newest checkpoint.  Its
+    per-step losses and evals go to
     ``<out_dir>/<name>_train_metrics_fold_<k>.json``."""
+    from mpmc_tpu_torch.train.checkpoint import Checkpointer
     from mpmc_tpu_torch.train.loop import fit
 
     os.makedirs(out_dir, exist_ok=True)
@@ -285,21 +289,25 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
         run = build_fold(cfg, train_d, tr_idx, store, device, k, augment,
                          kind, pretrained, grayscale, binary_head)
-        on_best = None
+        on_best, checkpointer = None, None
         if cfg.checkpoint_dir:
             fold_dir = os.path.join(cfg.checkpoint_dir, f"fold_{k}")
-            os.makedirs(fold_dir, exist_ok=True)
+            checkpointer = Checkpointer(fold_dir)
+            if cfg.resume:
+                checkpointer.restore_latest(run.train_step)
 
             def on_best(step, fold_dir=fold_dir, model=run.model):
                 torch.save(model.state_dict(),
                            os.path.join(fold_dir, "model.pt"))
-                log.info("checkpoint at step %d -> %s", step, fold_dir)
+                log.info("best weights at step %d -> %s", step, fold_dir)
         prefix = os.path.join(out_dir, f"{name}_{cfg.team_name}")
         res = fit(run.train_step, run.eval_step, cfg, train_d, device,
                   test_data=t_data, val_data=val_d, test_ids=t_ids,
                   val_ids=[ids[i] for i in va_idx], fold=k,
                   tsv_prefix=prefix, packed_plan=run.plan, train_rows=tr_idx,
-                  on_best=on_best)
+                  on_best=on_best, checkpointer=checkpointer)
+        if checkpointer is not None:
+            checkpointer.wait()
         with open(os.path.join(out_dir, f"{name}_train_metrics_fold_{k}.json"),
                   "w") as f:
             json.dump({"fold": k, "n_train": len(tr_idx),
@@ -469,14 +477,23 @@ class Prepared2C:
 
 def prepare_2c(cfg: TrainConfig, out_dir: str,
                vocab_path: Optional[str] = None,
-               simple: bool = False) -> Prepared2C:
+               simple: bool = False,
+               caption_vocab_path: Optional[str] = None,
+               caption_generate_fn: Optional[Callable] = None,
+               scratch_captioner: bool = False,
+               device: Optional[torch.device] = None) -> Prepared2C:
     """Manifests, vocabularies (text: ``vocab_path``, else a corpus vocab
-    over the train texts; captions, when the model has a caption branch: a
-    corpus vocab over both splits; both saved under ``out_dir`` and the
-    checkpoint dir), decoded images, placeholder captions, and text and
-    caption lengths bucketed jointly over both splits.  ``simple``: the
-    simple baseline's config (at least 2 classes, cross-entropy, no
-    captions, never bucketed or packed: it pools the last position)."""
+    over the train texts; captions, when the model has a caption branch:
+    ``caption_vocab_path``, else a corpus vocab over both splits' captions;
+    both saved under ``out_dir`` and the checkpoint dir), decoded images,
+    captions, and text and caption lengths bucketed jointly over both
+    splits.  The captions come from ``caption_generate_fn``, else with
+    ``scratch_captioner`` from the from-scratch captioner on ``device``
+    (its vocab over the train texts, its weights from ``cfg.seed``), else
+    they are the placeholders; they exist before the caption vocab is
+    built.  ``simple``: the simple baseline's config (at least 2 classes,
+    cross-entropy, no captions, never bucketed or packed: it pools the last
+    position)."""
     train = read_manifest(cfg.data.train_manifest)
     dev = read_manifest(cfg.data.dev_manifest)
     tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
@@ -494,12 +511,19 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
             "dev": decode_batch(dev.img_paths, size, False,
                                 cfg.data.image_root)}
     cap_tok, caps = None, {}
+    if (scratch_captioner and caption_generate_fn is None
+            and mcfg.caption is not None):
+        from mpmc_tpu_torch.models.captioner import make_scratch_caption_fn
+        caption_generate_fn, _ = make_scratch_caption_fn(
+            [preprocess_arabic_tweet(t) for t in train.texts],
+            image_size=size, seed=cfg.seed, device=device)
     if mcfg.caption is not None:
-        caps = {"train": precompute_captions(train.img_paths,
-                                             cache_dir=cfg.data.cache_dir),
-                "dev": precompute_captions(dev.img_paths,
-                                           cache_dir=cfg.data.cache_dir)}
-        cap_tok = build_tokenizer(caps["train"] + caps["dev"], None)
+        caps = {key: precompute_captions(
+                    split.img_paths, imgs[key], cache_dir=cfg.data.cache_dir,
+                    generate_fn=caption_generate_fn)
+                for key, split in (("train", train), ("dev", dev))}
+        cap_tok = build_tokenizer(caps["train"] + caps["dev"],
+                                  caption_vocab_path)
         _persist_vocab(cap_tok, cfg, out_dir, "caption_vocab.txt")
         mcfg = dataclasses.replace(mcfg, caption=dataclasses.replace(
             mcfg.caption, vocab_size=max(cap_tok.vocab.values()) + 1))
@@ -544,20 +568,27 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
 def run_subtask_2c(cfg: TrainConfig, device: torch.device,
                    out_dir: str = "outputs/2c",
                    vocab_path: Optional[str] = None,
+                   caption_vocab_path: Optional[str] = None,
                    folds: Optional[List[int]] = None,
                    augment: Optional[Callable] = None,
-                   pretrained=None, simple: bool = False) -> List:
+                   pretrained=None, caption_generate_fn=None,
+                   simple: bool = False,
+                   scratch_captioner: bool = False) -> List:
     """The 2C fine-tune: stratified folds over the train manifest, the dev
-    manifest as the test split, focal loss, placeholder captions (when the
-    model has a caption branch), the text vocab from ``vocab_path`` when
-    given; the corpus MLM stage of the text branch first when
+    manifest as the test split, focal loss, captions (when the model has a
+    caption branch) from ``caption_generate_fn``, else from the
+    from-scratch captioner on ``device`` under ``scratch_captioner``, else
+    the placeholders, the text and caption vocabs from ``vocab_path`` and
+    ``caption_vocab_path`` when given; the corpus MLM stage of the text
+    branch first when
     ``cfg.mlm_epochs`` > 0, then the SimCLR stage of the image backbone
     when ``cfg.simclr_epochs`` > 0.  ``simple``: the organizers' simple
     baseline instead (C28: ``SimpleMultimodalClassifier``, 2-class
     cross-entropy, no captions, unbucketed and unpacked, trained on the
     deterministic eval transform), which takes no SimCLR stage: its
     backbone keeps the 1000-logit head a headless backbone cannot fill."""
-    prep = prepare_2c(cfg, out_dir, vocab_path, simple)
+    prep = prepare_2c(cfg, out_dir, vocab_path, simple, caption_vocab_path,
+                      caption_generate_fn, scratch_captioner, device)
     pretrained = _maybe_mlm_pretrain(
         prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
         prep.data["text_ids"].shape[1], out_dir, pretrained, device)

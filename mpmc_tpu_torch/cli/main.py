@@ -12,7 +12,8 @@
       [--simclr-epochs N] [--image-params simclr_backbone.npz] \\
       [--image-arch A] [--image-size N] [--binary-head] \\
       [--pooling P] [--fusion concatenation|mca|cross_modal|self_attention] \\
-      [--checkpoint-dir DIR] [--out-dir DIR] [--device cuda|cpu]
+      [--scratch-captioner] [--caption-vocab C] \\
+      [--checkpoint-dir DIR [--resume]] [--out-dir DIR] [--device cuda|cpu]
   python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
   python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
   python -m mpmc_tpu_torch.cli.main combine --files f0.tsv .. --gold G \\
@@ -31,7 +32,9 @@ and 2C the multimodal model (focal loss, linear warmup), both over folds
 of the train manifest with the dev manifest as the test split.  Per fold
 come the best-test-F1 TSVs and, with ``--checkpoint-dir``,
 ``fold_<k>/model.pt`` next to ``run_meta.json`` and the vocab files, which
-``predict --checkpoint DIR/fold_<k>`` reads.
+``predict --checkpoint DIR/fold_<k>`` reads, and the whole training state
+at each new best (``fold_<k>/<step>/state.pt``), from which ``--resume``
+continues a run exactly where it stopped.
 ``--recipe fast`` (the default) packs the text tokens (2A: batches of
 ``--pack-rows 4`` packed rows; 2C: each batch's text and caption tokens in
 rows, ``--pack-rows 8``), keeps the Adam first moment in bf16 and gives the
@@ -45,7 +48,10 @@ fold from it; ``--text-params`` starts from such an encoder file instead.
 ``--image-params`` starts from such a backbone file instead.  For 2C,
 ``--small`` trains the small_2c model (no captions), ``--simple`` the
 organizers' simple baseline (C28), ``--fusion`` picks the fusion family
-and ``--pooling`` the pooling mode (the unmasked ones turn bucketing off).
+and ``--pooling`` the pooling mode (the unmasked ones turn bucketing off);
+``--scratch-captioner`` captions the images with the from-scratch
+encoder-decoder instead of placeholder strings, and ``--caption-vocab``
+tokenizes the captions with a vocab file instead of a corpus vocab.
 
 ``predict`` follows the JAX package's ``_cmd_predict`` for every model
 kind: ``text`` (2A), ``image`` (2B), ``simple`` (2C ``--simple``, the
@@ -453,6 +459,7 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       learning_rate=args.lr, lr_schedule=lr_schedule,
                       seed=args.seed, bf16=device.type == "cuda",
                       checkpoint_dir=args.checkpoint_dir,
+                      resume=args.resume,
                       adam_mu_dtype=args.adam_mu_dtype,
                       embedding_optimizer=args.embedding_optimizer,
                       mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack,
@@ -478,7 +485,10 @@ def _cmd_train(args) -> int:
                                  **kwargs)
     else:
         results = run_subtask_2c(cfg, device, vocab_path=args.vocab,
-                                 simple=args.simple, **kwargs)
+                                 caption_vocab_path=args.caption_vocab,
+                                 simple=args.simple,
+                                 scratch_captioner=args.scratch_captioner,
+                                 **kwargs)
     for k, r in zip(folds or range(args.num_folds), results):
         print(f"fold {k}: best macro-F1 {r.best_macro_f1:.4f}")
     return 0
@@ -596,7 +606,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None)
     p.add_argument("--adam-mu-dtype", choices=["bfloat16", "float32"],
                    default=None)
-    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="per-fold checkpoint dir (also receives the vocab "
+                        "files and run_meta.json)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint per fold from "
+                        "--checkpoint-dir before training (exact state: "
+                        "params + optimizer + step + generator)")
     p.add_argument("--cache-dir", default=".cache")
     p.add_argument("--tiny", action="store_true",
                    help="the tiny_2c config")
@@ -611,6 +627,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab", default=None,
                    help="2a, 2c: a WordPiece text vocab file instead of the "
                         "corpus vocab")
+    p.add_argument("--caption-vocab", default=None,
+                   help="2c: caption-encoder vocab file instead of the "
+                        "corpus vocab over the captions")
+    p.add_argument("--scratch-captioner", action="store_true",
+                   help="2c: generate captions with the from-scratch "
+                        "ImageCaptioner (real pixels -> decoded words) "
+                        "instead of placeholder strings")
     p.add_argument("--mlm-epochs", type=int, default=0,
                    help="> 0 first pretrains the text encoder by masked "
                         "language modelling on the train+dev texts "

@@ -151,6 +151,15 @@ class ModelConfig:
             proj_dim=128, num_classes=1, max_text_len=64)
 
     @staticmethod
+    def clip_style_2c() -> "ModelConfig":
+        """The CLIP-style dual-encoder 2C preset: the default BERT text
+        encoder and fusion head over a ViT-B/32 image trunk (768
+        features), no caption branch."""
+        return ModelConfig(
+            image=ImageEncoderConfig(arch="vit_base_32", feature_dim=768),
+            caption=None)
+
+    @staticmethod
     def captions_2b() -> "ModelConfig":
         """The image + caption variant: no Arabic-text branch."""
         return ModelConfig(text=None)
@@ -214,6 +223,7 @@ class DataConfig:
     dev_manifest: str = "data/arabic_memes_propaganda_araieval_24_dev.json"
     image_root: str = "."
     batch_size: int = 16
+    eval_batch_size: int = 16         # the Trainer wrapper's eval batches
     num_folds: int = 5                # 2C: 5 folds over train
     fold_seed: int = 42
     fold_over_train_plus_dev: bool = False  # 2A: folds over train+dev
@@ -255,6 +265,9 @@ class TrainConfig:
     prob_header: str = "prob"
     emit_val_tsv: bool = False
     checkpoint_dir: Optional[str] = None
+    # Restore each fold's newest checkpoint under ``checkpoint_dir`` before
+    # training: weights, optimizer state, step and the step's generator.
+    resume: bool = False
     # Adam first-moment dtype ("bfloat16" under the fast recipe); None keeps
     # it f32.
     adam_mu_dtype: Optional[str] = None

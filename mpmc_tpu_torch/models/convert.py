@@ -10,7 +10,8 @@ the inverse of the JAX package's converters (``models/hf_convert.py``,
 * Dense kernel ``[in, out]`` -> Linear weight ``[out, in]``;
 * DenseGeneral q/k/v kernel ``[H, heads, hd]`` -> ``[heads*hd, H]`` (bias
   ``[heads, hd]`` -> ``[heads*hd]``), ``out`` kernel ``[heads, hd, H]`` ->
-  ``[H, heads*hd]``;
+  ``[H, heads*hd]`` (the caption decoder's ``self_*`` and ``cross_*``
+  projections likewise);
 * conv kernel HWIO -> OIHW (grouped convs too: I is in/groups on both
   sides); the CNN pooler's 1-D conv kernel ``[k, in, out]`` -> ``[out, in,
   k]``, told from a q/k/v kernel, also 3-D, by its module name ``conv1d``;
@@ -44,6 +45,9 @@ _MODULE_RENAME = {f"{cls}_0": "fusion" for cls in (
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _AS_IS = ("cls_token", "pos_embed", "gamma")
 _QKV = ("query", "key", "value", "q", "k", "v")
+# DenseGeneral output projections [heads, hd, H]: the encoders' ``out`` and
+# the caption decoder's ``self_out`` / ``cross_out``.
+_OUT = ("out", "self_out", "cross_out")
 
 
 def _param(path: Tuple[str, ...], name: str, x: np.ndarray
@@ -61,7 +65,7 @@ def _param(path: Tuple[str, ...], name: str, x: np.ndarray
         return "weight", x.T
     if x.ndim == 3 and parent == "conv1d":    # 1-D conv [k, in, out]
         return "weight", x.transpose(2, 1, 0)
-    if x.ndim == 3 and parent == "out":       # [heads, hd, H]
+    if x.ndim == 3 and parent in _OUT:        # [heads, hd, H]
         return "weight", x.reshape(-1, x.shape[-1]).T
     if x.ndim == 3:                           # q/k/v [H, heads, hd]
         return "weight", x.reshape(x.shape[0], -1).T

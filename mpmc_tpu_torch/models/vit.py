@@ -56,7 +56,10 @@ class ViTEncoderLayer(nn.Module):
 
 class ViT(nn.Module):
     """Returns the class token's features ``[B, hidden_size]`` after the
-    final LayerNorm, or with ``num_classes`` the ``classifier`` logits."""
+    final LayerNorm, or with ``num_classes`` the ``classifier`` logits;
+    ``return_tokens=True`` returns the whole normalized token sequence
+    ``[B, 1 + N, hidden_size]`` (class token, then the patches), a caption
+    decoder's cross-attention memory."""
 
     def __init__(self, image_size: int, patch_size: int = 16,
                  hidden_size: int = 768, num_layers: int = 12,
@@ -78,7 +81,8 @@ class ViT(nn.Module):
         self.classifier = (nn.Linear(hidden_size, num_classes)
                            if num_classes else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                return_tokens: bool = False) -> torch.Tensor:
         y = self.patch_embed(x.permute(0, 3, 1, 2))   # [B, hidden, h, w]
         y = y.flatten(2).transpose(1, 2)              # patches in row order
         B, _, width = y.shape
@@ -86,6 +90,8 @@ class ViT(nn.Module):
         y = y + self.pos_embed
         for i in range(self.num_layers):
             y = getattr(self, f"layer_{i}")(y)
+        if return_tokens:
+            return self.ln_final(y)
         feats = self.ln_final(y[:, 0])                # LayerNorm is per token
         return self.classifier(feats) if self.classifier is not None else feats
 

@@ -1,5 +1,7 @@
 """Training and batched evaluation over host arrays (port of
-``batch_iter``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``)."""
+``batch_iter``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``),
+with exact-state resume from a :class:`~mpmc_tpu_torch.train.checkpoint.
+Checkpointer`."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from mpmc_tpu_torch.config import TrainConfig
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
 from mpmc_tpu_torch.io.scorer import accuracy_score, macro_f1
 from mpmc_tpu_torch.train.metrics import optimal_threshold_youden
-from mpmc_tpu_torch.train.step import EvalStep
+from mpmc_tpu_torch.train.step import EvalStep, TrainStep
 
 log = logging.getLogger(__name__)
 
@@ -84,6 +86,7 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
 @dataclasses.dataclass
 class FitResult:
     best_macro_f1: float
+    best_threshold: float          # the TSV labels' threshold at the best
     history: List[Dict]            # one entry per eval
     steps: List[Dict[str, float]]  # per step: loss, grad_norm
 
@@ -99,8 +102,7 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device
             for k, v in batch.items()}
 
 
-def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
-        eval_step: EvalStep, cfg: TrainConfig,
+def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
         train_data: Dict[str, np.ndarray], device: torch.device,
         test_data: Optional[Dict[str, np.ndarray]] = None,
         val_data: Optional[Dict[str, np.ndarray]] = None,
@@ -110,12 +112,15 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
         tsv_prefix: Optional[str] = None,
         packed_plan=None,
         train_rows: Optional[np.ndarray] = None,
-        on_best: Optional[Callable[[int], None]] = None) -> FitResult:
+        on_best: Optional[Callable[[int], None]] = None,
+        checkpointer=None) -> FitResult:
     """The epoch loop with the reference's cadence, on one device: eval of
     the test (and val) split ``cfg.eval_per_epoch`` times per epoch and at
     its end, and on a new best test macro-F1 the label and probability
-    TSVs and ``on_best(step)`` (the checkpoint).  Labels are at
-    ``cfg.emit_threshold`` when set, else at that eval's Youden threshold;
+    TSVs, ``on_best(step)`` and, with ``checkpointer``, a checkpoint of
+    ``train_step``'s whole state with the best F1 and threshold.  Labels
+    are at ``cfg.emit_threshold`` when set, else at that eval's Youden
+    threshold;
     the probability column is headed ``cfg.prob_header``; with
     ``cfg.emit_val_tsv`` the val split's probability TSV
     (``<prefix>_val_fold_<k>.tsv``, ids ``val_ids``) follows the same
@@ -125,7 +130,15 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
     shuffled ``train_rows`` of the device-resident store as ``idx``; the
     order comes from ``np.random.default_rng(cfg.seed + fold)`` as in the
     JAX package.  Losses and grad norms are read back at each log or eval
-    point; a non-finite loss raises ``FloatingPointError``."""
+    point; a non-finite loss raises ``FloatingPointError``.
+
+    A ``train_step`` restored from a checkpoint carries its optimizer's
+    step count, and the run resumes there as the JAX loop does: the
+    skipped epochs' shuffles are drawn, a mid-epoch prefix of batches is
+    replayed without training, and the best F1 and threshold come back
+    from the checkpointer's sidecar, so the TSVs are rewritten only on an
+    improvement.  The dropout and augmentation draws continue from the
+    restored generator."""
     bs = cfg.data.batch_size
     n_train = len(train_data["label"])
     if packed_plan is not None:
@@ -137,11 +150,33 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
     check_interval = max(steps_per_epoch // max(cfg.eval_per_epoch, 1), 1)
     data_rng = np.random.default_rng(cfg.seed + fold)
     run_id = f"{cfg.team_name}_{cfg.run_id}"
-    best_f1 = -1.0
+    best_f1, best_thr = -1.0, 0.5
     history: List[Dict] = []
     steps: List[Dict[str, float]] = []
     pending: List[Tuple[int, int, Dict]] = []
-    step_count = 0
+    step_count = train_step.optimizer.count
+    start_epoch = min(step_count // steps_per_epoch, cfg.epochs)
+    resume_bi = step_count - start_epoch * steps_per_epoch
+    if step_count:
+        if start_epoch >= cfg.epochs:
+            log.warning("restored step %d already covers all %d epochs "
+                        "(steps_per_epoch=%d): nothing to train", step_count,
+                        cfg.epochs, steps_per_epoch)
+        else:
+            log.info("resuming at epoch %d batch %d/%d (restored step %d)",
+                     start_epoch, resume_bi, steps_per_epoch, step_count)
+        for _ in range(start_epoch):
+            # What each skipped epoch's iterator draws.
+            if packed_plan is not None:
+                data_rng.permutation(n_train)
+            else:
+                data_rng.shuffle(np.arange(n_train))
+        restored = checkpointer.latest_metrics() if checkpointer else None
+        if restored:
+            best_f1 = restored.get("test_f1", best_f1)
+            best_thr = restored.get("threshold", best_thr)
+            log.info("restored best test F1 %.4f (threshold %.4f): TSVs "
+                     "rewrite only on improvement", best_f1, best_thr)
 
     def flush():
         if not pending:
@@ -157,7 +192,7 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
             steps.append({"loss": float(loss), "grad_norm": float(gnorm)})
         pending.clear()
 
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         first = len(steps)
         if packed_plan is not None:
@@ -167,6 +202,9 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
                             shuffle=True, rng=data_rng, with_valid=True)
         bi = 0
         for batch, _ in it:
+            if epoch == start_epoch and bi < resume_bi:
+                bi += 1                 # trained before the checkpoint
+                continue
             metrics = train_step(_to_device(batch, device))
             bi += 1
             step_count += 1
@@ -196,9 +234,9 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
                          v_res.macro_f1)
             if t_res.macro_f1 > best_f1:
                 best_f1 = t_res.macro_f1
+                best_thr = _emit_threshold(cfg, t_res)
                 if tsv_prefix and test_ids is not None:
-                    pred = (t_res.probs > _emit_threshold(cfg, t_res)
-                            ).astype(int)
+                    pred = (t_res.probs > best_thr).astype(int)
                     write_label_tsv(f"{tsv_prefix}.tsv", test_ids, pred,
                                     run_id)
                     write_prob_tsv(f"{tsv_prefix}_probs_fold_{fold}.tsv",
@@ -213,9 +251,13 @@ def fit(train_step: Callable[[Dict[str, torch.Tensor]], Dict],
                                        prob_header=cfg.prob_header)
                 if on_best is not None:
                     on_best(step_count)
+                if checkpointer is not None:
+                    checkpointer.save(train_step.state_dict(), step_count,
+                                      {"test_f1": best_f1,
+                                       "threshold": best_thr})
         flush()
         losses = [m["loss"] for m in steps[first:]]
         log.info("TRAIN | Epoch [%d] done in %.1fs | loss %.4f", epoch,
                  time.time() - t0, float(np.mean(losses)) if losses
                  else float("nan"))
-    return FitResult(best_f1, history, steps)
+    return FitResult(best_f1, best_thr, history, steps)

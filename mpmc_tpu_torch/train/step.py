@@ -251,6 +251,34 @@ class Optimizer:
                     "mu": torch.zeros_like(p, dtype=mu_dtype or p.dtype),
                     "nu": torch.zeros_like(p)}
 
+    def state_dict(self) -> Dict:
+        """The step count and each parameter's state at its own dtype (the
+        Adam moments, bf16 or f32; the factored RMS rows and columns); the
+        multi-tensor scratch is left out."""
+        return {"count": self.count,
+                "state": {n: {k: v for k, v in st.items() if k != "mu_f32"}
+                          for n, st in self.state.items()}}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore a :meth:`state_dict` in place: the same parameters and
+        slots, each at the shape and dtype this optimizer holds, or it
+        raises."""
+        if set(sd["state"]) != set(self.state):
+            raise ValueError("optimizer state for other parameters: "
+                             f"{sorted(set(sd['state']) ^ set(self.state))}")
+        for name, slots in sd["state"].items():
+            own = self.state[name]
+            if set(slots) != set(own) - {"mu_f32"}:
+                raise ValueError(f"{name}: optimizer slots {sorted(slots)}, "
+                                 f"expected {sorted(own)}")
+            for k, v in slots.items():
+                if v.shape != own[k].shape or v.dtype != own[k].dtype:
+                    raise ValueError(
+                        f"{name}.{k}: {v.dtype} {tuple(v.shape)}, expected "
+                        f"{own[k].dtype} {tuple(own[k].shape)}")
+                own[k].copy_(v)
+        self.count = int(sd["count"])
+
     @staticmethod
     def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
         """``sqrt(sum over tensors of sum(g * g))``, as optax."""
@@ -404,6 +432,27 @@ class TrainStep:
             with torch.no_grad():
                 torch._foreach_copy_(leaves, list(params.values()))
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+
+    def state_dict(self) -> Dict:
+        """The exact training state: the model's ``state_dict`` (the f32
+        masters and the BatchNorm statistics), the optimizer's state and
+        step count, and the state of the generator that draws the dropout
+        masks and augmentations."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore a :meth:`state_dict` in place; the bf16 compute copies
+        are refreshed from the restored masters, as after a step."""
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.generator.set_state(sd["generator"])
+        if self.compute is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(list(self.compute.values()),
+                                     list(self.optimizer.params.values()))
 
 
 def build_train_step(model: nn.Module, cfg: TrainConfig,

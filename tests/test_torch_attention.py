@@ -62,7 +62,12 @@ CUDA_CASES = CASES + [
     ("none", {"Sq": 197, "Sk": 197, "D": 128}),
     ("segments", {"Sq": 197, "Sk": 197, "D": 64, "packed": 12}),
     ("none", {"Sq": 70, "Sk": 129, "D": 64, "shift": 1}),
-    ("padding", {"Sq": 33, "Sk": 70, "D": 6})]
+    ("padding", {"Sq": 33, "Sk": 70, "D": 6}),
+    # The scratch captioner's f32 shapes: the decoder's cross-attention (24
+    # queries over the 197 image tokens, 6 heads of the odd D = 21, which
+    # the bf16 wrapper refuses) and its ViT encoder (4 heads of 32).
+    ("none", {"Sq": 24, "Sk": 197, "H": 6, "D": 21}),
+    ("none", {"Sq": 197, "Sk": 197, "H": 4, "D": 32})]
 
 
 def _on_card(x, dtype, shift=0):

@@ -126,8 +126,11 @@ def test_port_imports_nothing_of_jax():
         " 'mpmc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'mpmc_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mpmc_tpu'))\n"
         "assert not bad, bad\n"
+        "for m in ('models.captioner', 'train.checkpoint', "
+        "'train.trainer'):\n"
+        "    assert 'mpmc_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([m for m in sys.modules "
         "if m.startswith('mpmc_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -137,7 +140,7 @@ def test_port_imports_nothing_of_jax():
     assert res.stdout.startswith("ok")
     # Imports inside functions never run above: read the sources too.
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
-                         r"mpmc_tpu)(\.|\s|$)", re.M)
+                         r"orbax|mpmc_tpu)(\.|\s|$)", re.M)
     sources = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                                "attention_f32_compare.py")]
     for root, _, files in os.walk(os.path.join(REPO, "mpmc_tpu_torch")):
