@@ -24,8 +24,9 @@ toolkit.  Phases, each of which raises on failure:
    realized packed shapes;
 6. one packed train step in f32 on the card (kernels) and on the CPU (plain
    versions) from the same weights, batch and augmentation draws, with
-   dropout 0 and TF32 off: loss, grad norm, augmented image, and the
-   parameters and batch statistics after the optimizer step;
+   dropout 0 and TF32 off, the encoders cut to 4 layers at full width:
+   loss, grad norm, augmented image, and the parameters and batch
+   statistics after the optimizer step;
 7. drive ``predict`` for the other kinds at full width on phase 3's
    manifest, launch counts zeroed before and read after, then warm:
    2A (AraBERT-base shape, attention pooling, 2 classes), 2B (ResNet-18 at
@@ -92,7 +93,25 @@ toolkit.  Phases, each of which raises on failure:
    within a stated tolerance); and run the ``Trainer`` over
    ``clip_style_2c`` (BERT-base + ViT-B/32 at 224): a few steps,
    ``evaluate``, ``predict``, ``save_model`` and a resumed ``evaluate``
-   equal to the first.
+   equal to the first;
+12. write random checkpoints from a seeded numpy generator in the exact
+   Hugging Face and torchvision key layouts (a BERT-base directory and a
+   RoBERTa-base one, each with phase 5's vocab file its embedding rows fit,
+   a ResNet-18 ``.pt`` and a ConvNeXt-Tiny ``.bin``); hold the f32
+   attention forward at ``extract-features``' text shape
+   (``[32,128,12,64]``, padding, a fully masked sample) against the plain
+   version and time it beside SDPA (TF32 off) and the bound; drive ``train
+   --subtask 2c --text-params --caption-params --image-params`` on the
+   first 64 and 16 memes of phase 5's manifests (each spliced part equal
+   to its converted checkpoint bit for bit before the first step, launches
+   as in phase 5); drive ``extract-features`` over 72 memes (12 forward
+   launches a text batch
+   of 32), then warm images/s and texts/s, the busy share of a profiled
+   pass and the card against the CPU on 8 memes in f32; drive ``train
+   --subtask 2a --corpus-vocab subword --distill-lambda 0.5`` from a
+   synthetic teacher cache (a GPU host usually has no sklearn to fit the
+   teacher; the run id ends in ``_distill``); and hold the bf16 pair at
+   ``smoke``'s shape, then run ``smoke`` (exit 0).
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -110,7 +129,7 @@ the forward and backward kernels against their plain versions there.
 
 Prints the card's name and power limit, each phase's result, the
 ``predict_kinds``, ``train_2a``/``mlm``, ``train_2b``,
-``train_variants`` and ``phase_11`` JSON lines, a
+``train_variants``, ``phase_11`` and ``phase_12`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -118,6 +137,7 @@ non-zero without a CUDA device or outside the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -159,6 +179,12 @@ BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 1.6e-2)}
 BWD_LAUNCHES = {"bfloat16, S <= 128": 1, "bfloat16, S > 128": 2,
                 "float32": 2}
 MLM_SHAPE = (64, 128, 12, 64)        # corpus MLM: batch 64, f32
+# The f32 train steps held card vs CPU (phases 6, 8) run their encoders at
+# this depth, full width: the CPU side of a full-depth step costs more host
+# time than the whole-script budget leaves.  (Phase 10's fusion flagships
+# keep 12 layers: at 4 the cross-modal one failed its train-mode check,
+# the fusion output after BatchNorm over 8 memes.)
+CARD_VS_CPU_LAYERS = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -785,11 +811,13 @@ def read_probs(path: str):
         return [float(line.split("\t")[2]) for line in f]
 
 
-def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None):
+def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None,
+           layers=None):
     """Fold 0 of a phase 5 (2C), phase 8 (2A) or phase 9 (2B) run rebuilt
     from its command line: prepared data, the epoch's batches (host arrays:
     the plan's packed batches, or unpacked the shuffled row indices), and
-    the fold's model and steps (weights from the run's seed)."""
+    the fold's model and steps (weights from the run's seed).  ``layers``
+    cuts the text and caption encoders to that depth (full width)."""
     import dataclasses
     import numpy as np
     from mpmc_tpu_torch.cli.experiments import (_select, build_fold,
@@ -816,6 +844,12 @@ def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None):
             caption=m.caption and dataclasses.replace(m.caption, **enc),
             image=m.image and dataclasses.replace(m.image,
                                                   finetune_dropout=0.0)))
+    if layers:
+        m = cfg.model
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            m, text=dataclasses.replace(m.text, num_layers=layers),
+            caption=m.caption and dataclasses.replace(m.caption,
+                                                      num_layers=layers)))
     tr_idx = stratified_kfold(prep.data["label"], cfg.data.num_folds,
                               cfg.data.fold_seed)[0][0]
     store = resident_store(cfg, prep.data, device)
@@ -984,8 +1018,9 @@ def phase_warm_train(torch, argv):
 
 def phase_train_card_vs_cpu(torch, argv):
     """One packed train step in f32 on the card (kernels) and the CPU
-    (plain versions): same weights, batch and draws; dropout 0; TF32 off.
-    A 2A command line (phase 8) has no image, so no draws and no batch
+    (plain versions): same weights, batch and draws; dropout 0; TF32 off;
+    the encoders cut to ``CARD_VS_CPU_LAYERS`` layers at full width.  A 2A
+    command line (phase 8) has no image, so no draws and no batch
     statistics."""
     import numpy as np
     from mpmc_tpu_torch.image.augment import augment_with_draws
@@ -1009,7 +1044,8 @@ def phase_train_card_vs_cpu(torch, argv):
     for where in ("cuda", "cpu"):
         dev = torch.device(where)
         cfg, run, batches = _fold0(torch, argv, bf16=False, dropout_zero=True,
-                                   device=dev, augment=hook(where))
+                                   device=dev, augment=hook(where),
+                                   layers=CARD_VS_CPU_LAYERS)
         if init is None:               # the card's weights, before its step
             init = {k: v.cpu().clone()
                     for k, v in run.model.state_dict().items()}
@@ -1659,7 +1695,7 @@ IMAGE_SHAPE_384 = (16, 384, 384, 3)  # the ViT run's image batch
 # Each new backbone class at full width, card vs CPU in f32: (label, arch,
 # image size, images, attention launches of one forward).
 BACKBONE_CHECKS = [("ViT-B/32", "vit_base_32", 224, 3, 12),
-                   ("ViT-L/16", "vit_large_16", 384, 1, 24),
+                   ("ViT-L/16", "vit_large_16", 224, 1, 24),
                    ("EfficientNet-B3", "efficientnet_b3", 384, 3, 0),
                    ("ConvNeXt-Tiny", "convnext_tiny", 224, 3, 0)]
 
@@ -2269,33 +2305,37 @@ RESUME_PROB_TOL = 1e-2
 CLIP_TRAIN, CLIP_EVAL, CLIP_TEXT_LEN = 48, 16, 128
 
 
-def time_forward_at(torch, what: str, shape, sk: int):
-    """The f32 attention forward kernel (mode none) at ``shape`` = [B, Sq,
-    H, D] over ``sk`` keys: held against the plain version on the same
-    inputs, then timed beside the plain version, SDPA with TF32 off and the
-    bound."""
+def time_forward_at(torch, what: str, shape, sk: int, mode: str = "none"):
+    """The f32 attention forward kernel at ``shape`` = [B, Sq, H, D] over
+    ``sk`` keys in ``mode`` (none, or padding with ``attention_inputs``'
+    ragged lengths and a fully masked sample): held against the plain
+    version on the same inputs, then timed beside the plain version, SDPA
+    with TF32 off (the padding as an additive bias) and the bound."""
     import torch.nn.functional as F
     from mpmc_tpu_torch.ops import attention as A
     from mpmc_tpu_torch.train.pretrain_image import ieee_f32
     gen = torch.Generator(device="cuda").manual_seed(21)
-    q, k, v, _ = attention_inputs(torch, shape, "none", torch.float32, gen, sk)
-    tag = f"{what} none {tuple(q.shape)}x{sk} float32"
+    q, k, v, mask = attention_inputs(torch, shape, mode, torch.float32, gen,
+                                     sk)
+    tag = f"{what} {mode} {tuple(q.shape)}x{sk} float32"
+    bias = (None if mask is None
+            else ((1.0 - mask) * -1e9)[:, None, None, :])
     with ieee_f32():
-        out, lse = A.attention_forward_cuda(q, k, v, None, "none")
+        out, lse = A.attention_forward_cuda(q, k, v, mask, mode)
         torch.cuda.synchronize()
-        err = check_forward(A, q, k, v, None, "none", out, lse, tag)
-        ms = graph_ms(torch, lambda: A.attention_forward_cuda(q, k, v, None,
-                                                              "none"))
+        err = check_forward(A, q, k, v, mask, mode, out, lse, tag)
+        ms = graph_ms(torch, lambda: A.attention_forward_cuda(q, k, v, mask,
+                                                              mode))
         plain_ms = graph_ms(torch, lambda: A.attention_forward_reference(
-            q, k, v, None, "none"))
+            q, k, v, mask, mode))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt))
-    bound_ms, bound_by = attention_bound_ms(q, k, "none")
+            qt, kt, vt, attn_mask=bias))
+    bound_ms, bound_by = attention_bound_ms(q, k, mode)
     print(f"  attention_fwd {tag}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
           f"ms, sdpa (TF32 off) {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
           f"({bound_by})")
-    return dict(shape=list(shape), sk=sk, mode="none", dtype="torch.float32",
+    return dict(shape=list(shape), sk=sk, mode=mode, dtype="torch.float32",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -2684,6 +2724,519 @@ def phase_captioner_resume_trainer(torch, work: str):
     return out
 
 
+# Phase 12: offline pretrained weights, the classic side and distillation.
+# Random checkpoints in the exact Hugging Face and torchvision key layouts
+# come from this seed (no weights are in the repository).
+CKPT_SEED = 12
+EXTRACT_SHAPE = (32, 128, 12, 64)   # extract-features' f32 text batch
+EXTRACT_MEMES = 72                  # 3 batches of 32, the last 24 zero rows
+FEATURE_CARD_VS_CPU = 8             # memes extracted on the card and the CPU
+FEATURE_TOL = 1e-4                  # x max(1, largest CPU value), f32
+SMOKE_SHAPE = (8, 32, 4, 16)        # smoke's bf16 text batch
+PRETRAINED_MEMES = (64, 16)         # phase 5's train and dev memes used
+
+
+def _normal(rng, shape, std=0.02):
+    return (rng.standard_normal(shape, dtype="float32") * std)
+
+
+def random_hf_text(rng, cfg, prefix: str = "", pooler: bool = True):
+    """A BERT or RoBERTa state dict of ``cfg``'s shapes in the Hugging Face
+    layout (``prefix`` "roberta." as a RoBERTa head model saves it),
+    normal(0, 0.02) weights, LayerNorm scales near 1."""
+    import numpy as np
+    H, inter = cfg.hidden_size, cfg.intermediate_size
+    sd = {"embeddings.word_embeddings.weight": _normal(rng, (cfg.vocab_size,
+                                                             H)),
+          "embeddings.position_embeddings.weight": _normal(
+              rng, (cfg.max_position_embeddings, H)),
+          "embeddings.token_type_embeddings.weight": _normal(
+              rng, (cfg.type_vocab_size, H))}
+
+    def ln(name, dim):
+        sd[f"{name}.weight"] = 1 + _normal(rng, (dim,), 0.1)
+        sd[f"{name}.bias"] = _normal(rng, (dim,))
+
+    def dense(name, n_out, n_in):
+        sd[f"{name}.weight"] = _normal(rng, (n_out, n_in))
+        sd[f"{name}.bias"] = _normal(rng, (n_out,))
+
+    ln("embeddings.LayerNorm", H)
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            dense(pre + f"attention.self.{name}", H, H)
+        dense(pre + "attention.output.dense", H, H)
+        ln(pre + "attention.output.LayerNorm", H)
+        dense(pre + "intermediate.dense", inter, H)
+        dense(pre + "output.dense", H, inter)
+        ln(pre + "output.LayerNorm", H)
+    if pooler:
+        dense("pooler.dense", H, H)
+    return {prefix + k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def _bn(rng, sd, name, dim):
+    import numpy as np
+    sd[f"{name}.weight"] = 1 + _normal(rng, (dim,), 0.1)
+    sd[f"{name}.bias"] = _normal(rng, (dim,), 0.05)
+    sd[f"{name}.running_mean"] = _normal(rng, (dim,), 0.1)
+    sd[f"{name}.running_var"] = (0.5 + rng.random(dim)).astype(np.float32)
+    sd[f"{name}.num_batches_tracked"] = np.asarray(100, np.int64)
+
+
+def _conv(rng, shape):
+    fan_out = shape[0] * shape[2] * shape[3]
+    return _normal(rng, shape, (2.0 / fan_out) ** 0.5)
+
+
+def random_torchvision_resnet18(rng):
+    """torchvision's ResNet-18 state dict (``conv1``, ``bn1``,
+    ``layer{1..4}.{0,1}``, ``downsample.{0,1}``, ``fc`` of 1000 classes)
+    with random BatchNorm statistics."""
+    sd = {"conv1.weight": _conv(rng, (64, 3, 7, 7))}
+    _bn(rng, sd, "bn1", 64)
+    cin = 64
+    for li, cout in enumerate((64, 128, 256, 512), 1):
+        for bi in range(2):
+            pre = f"layer{li}.{bi}"
+            stride_in = cin if bi == 0 else cout
+            sd[f"{pre}.conv1.weight"] = _conv(rng, (cout, stride_in, 3, 3))
+            _bn(rng, sd, f"{pre}.bn1", cout)
+            sd[f"{pre}.conv2.weight"] = _conv(rng, (cout, cout, 3, 3))
+            _bn(rng, sd, f"{pre}.bn2", cout)
+            if bi == 0 and li > 1:
+                sd[f"{pre}.downsample.0.weight"] = _conv(rng,
+                                                         (cout, cin, 1, 1))
+                _bn(rng, sd, f"{pre}.downsample.1", cout)
+        cin = cout
+    sd["fc.weight"] = _normal(rng, (1000, 512))
+    sd["fc.bias"] = _normal(rng, (1000,))
+    return sd
+
+
+def random_hf_convnext_tiny(rng):
+    """The Hugging Face ``ConvNextModel`` state dict of ConvNeXt-Tiny
+    (``embeddings``, ``encoder.stages.S.{downsampling_layer,layers}``, the
+    final ``layernorm``), layer scales drawn in [0, 1)."""
+    import numpy as np
+    dims, depths = (96, 192, 384, 768), (3, 3, 9, 3)
+    sd = {"embeddings.patch_embeddings.weight": _conv(rng, (96, 3, 4, 4)),
+          "embeddings.patch_embeddings.bias": _normal(rng, (96,))}
+
+    def ln(name, dim):
+        sd[f"{name}.weight"] = 1 + _normal(rng, (dim,), 0.1)
+        sd[f"{name}.bias"] = _normal(rng, (dim,))
+
+    ln("embeddings.layernorm", 96)
+    for si, (depth, dim) in enumerate(zip(depths, dims)):
+        pre = f"encoder.stages.{si}"
+        if si:
+            ln(f"{pre}.downsampling_layer.0", dims[si - 1])
+            sd[f"{pre}.downsampling_layer.1.weight"] = _conv(
+                rng, (dim, dims[si - 1], 2, 2))
+            sd[f"{pre}.downsampling_layer.1.bias"] = _normal(rng, (dim,))
+        for bi in range(depth):
+            b = f"{pre}.layers.{bi}"
+            sd[f"{b}.dwconv.weight"] = _conv(rng, (dim, 1, 7, 7))
+            sd[f"{b}.dwconv.bias"] = _normal(rng, (dim,))
+            ln(f"{b}.layernorm", dim)
+            sd[f"{b}.pwconv1.weight"] = _normal(rng, (4 * dim, dim))
+            sd[f"{b}.pwconv1.bias"] = _normal(rng, (4 * dim,))
+            sd[f"{b}.pwconv2.weight"] = _normal(rng, (dim, 4 * dim))
+            sd[f"{b}.pwconv2.bias"] = _normal(rng, (dim,))
+            sd[f"{b}.layer_scale_parameter"] = rng.random(
+                dim, dtype=np.float32)
+    ln("layernorm", 768)
+    return sd
+
+
+def write_state_dict(torch, path: str, sd) -> None:
+    """``torch.save`` of the numpy state dict as CPU tensors, as a torch
+    checkpoint is distributed."""
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+
+
+def write_checkpoints(torch, work: str):
+    """An HF BERT-base directory (the text encoder), an HF RoBERTa-base one
+    with the ``roberta.`` prefix and no pooler (the caption encoder), a
+    torchvision ResNet-18 ``.pt`` and an HF ConvNeXt-Tiny ``.bin``.  Each
+    text directory holds the ``vocab.txt`` its embedding rows fit: phase
+    5's text and caption vocabularies."""
+    import numpy as np
+    from mpmc_tpu_torch.config import TextEncoderConfig
+    from mpmc_tpu_torch.text.wordpiece import WordPieceTokenizer
+    rng = np.random.default_rng(CKPT_SEED)
+    t0 = time.perf_counter()
+    paths = {}
+    for name, vocab, cfg, prefix, pooler in (
+            ("bert", "vocab.txt", TextEncoderConfig(), "", True),
+            ("roberta", "caption_vocab.txt", TextEncoderConfig.roberta_base(),
+             "roberta.", False)):
+        d = os.path.join(work, f"hf_{name}")
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(work, "train_out", vocab),
+                    os.path.join(d, "vocab.txt"))
+        size = max(WordPieceTokenizer.from_file(
+            os.path.join(d, "vocab.txt")).vocab.values()) + 1
+        write_state_dict(torch, os.path.join(d, "pytorch_model.bin"),
+                         random_hf_text(rng, dataclasses.replace(
+                             cfg, vocab_size=size), prefix, pooler))
+        paths[name] = d
+    paths["resnet18"] = os.path.join(work, "resnet18.pt")
+    write_state_dict(torch, paths["resnet18"],
+                     random_torchvision_resnet18(rng))
+    paths["convnext_tiny"] = os.path.join(work, "convnext_tiny.bin")
+    write_state_dict(torch, paths["convnext_tiny"],
+                     random_hf_convnext_tiny(rng))
+    sizes = {k: sum(os.path.getsize(os.path.join(p, f))
+                    for f in (os.listdir(p) if os.path.isdir(p) else [""]))
+             if os.path.isdir(p) else os.path.getsize(p)
+             for k, p in paths.items()}
+    print(f"  random checkpoints from numpy seed {CKPT_SEED} in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+              f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items()))
+    return paths
+
+
+def _spliced_equal(model, kind, spec, trees) -> dict:
+    """Each part the splice loaded against the tree converted from its
+    checkpoint (``trees``: path -> the tree the splice read): the leaves
+    compared and how many differ in any bit (on the host, f32)."""
+    import numpy as np
+    from mpmc_tpu_torch.models import pretrained as PT
+    from mpmc_tpu_torch.models.convert import to_jax_params, to_jax_variables
+    out = {}
+
+    def count(own, tree):
+        own, tree = PT.flatten_params(own), PT.flatten_params(tree)
+        return len(tree), sum(not np.array_equal(own[k], v)
+                              for k, v in tree.items())
+
+    for part, where in (("text", PT.TEXT_SUBMODULE.get(kind)),
+                        ("caption", PT.CAPTION_SUBMODULE)):
+        path = getattr(spec, part)
+        if path:
+            out[part] = count(to_jax_params(model.get_submodule(where)),
+                              trees[path])
+    if spec.image:
+        params, stats = to_jax_variables(
+            model.get_submodule(PT.IMAGE_SUBMODULE[kind]))
+        n1, d1 = count(params, trees[spec.image]["params"])
+        n2, d2 = count(stats, trees[spec.image]["batch_stats"])
+        out["image"] = (n1 + n2, d1 + d2)
+    return out
+
+
+def phase_train_2c_pretrained(torch, work: str, ckpts):
+    """``train --subtask 2c --text-params --caption-params --image-params``
+    (with the checkpoints' own vocab files) on the first
+    ``PRETRAINED_MEMES`` memes of phase 5's manifests (its shapes, fewer
+    steps and eval batches), fold 0, one epoch: each spliced part equal to
+    the tree converted from its checkpoint bit for bit before the first
+    step, launches as in phase 5."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.models import pretrained as PT
+    from mpmc_tpu_torch.ops import build
+    subsets = {}
+    for name, n in zip(("train.json", "dev.json"), PRETRAINED_MEMES):
+        with open(os.path.join(work, name), encoding="utf-8") as f:
+            rows = json.load(f)[:n]
+        subsets[name] = os.path.join(work, "pretrained_" + name)
+        with open(subsets[name], "w", encoding="utf-8") as f:
+            json.dump(rows, f, ensure_ascii=False)
+    out_dir = os.path.join(work, "pretrained_2c_out")
+    argv = ["train", "--subtask", "2c", "-tr", subsets["train.json"],
+            "-te", subsets["dev.json"], "--image-root", work,
+            "--fold", "0", "--epochs", "1", "--out-dir", out_dir,
+            "--text-params", ckpts["bert"],
+            "--vocab", os.path.join(ckpts["bert"], "vocab.txt"),
+            "--caption-params", ckpts["roberta"],
+            "--caption-vocab", os.path.join(ckpts["roberta"], "vocab.txt"),
+            "--image-params", ckpts["resnet18"], "--device", "cuda"]
+    splice, reads, seen, trees = (PT.apply_pretrained, (
+        PT.read_text_params, PT.read_image_params), [], {})
+
+    def read_text(path, *args):
+        trees[path] = reads[0](path, *args)
+        return trees[path]
+
+    def read_image(path, *args):
+        trees[path] = reads[1](path, *args)
+        return trees[path]
+
+    def spliced(model, kind, spec):
+        out = splice(model, kind, spec)
+        seen.append(_spliced_equal(model, kind, spec, trees))
+        return out
+
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    PT.apply_pretrained, PT.read_text_params, PT.read_image_params = (
+        spliced, read_text, read_image)
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(argv)
+    finally:
+        PT.apply_pretrained, (PT.read_text_params, PT.read_image_params) = (
+            splice, reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"train with converted checkpoints returned {rc}")
+    check(len(seen) == 1 and set(seen[0]) == {"text", "caption", "image"},
+          f"splices {seen}")
+    check(all(d == 0 for _, d in seen[0].values()),
+          f"spliced weights differ from the converted checkpoints: {seen}")
+    with open(os.path.join(out_dir, "task2C_train_metrics_fold_0.json")) as f:
+        metrics = json.load(f)
+    steps = len(metrics["steps"])
+    eval_batches = len(metrics["evals"]) * (
+        math.ceil(metrics["n_test"] / BATCH)
+        + math.ceil(metrics["n_val"] / BATCH))
+    want = {"attention_fwd": 24 * (steps + eval_batches),
+            "attention_bwd": 24 * steps, "image_normalize": steps}
+    check(steps > 0 and launches == want,
+          f"launches {launches}, expected {want}")
+    check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              for s in metrics["steps"]), "non-finite loss or grad norm")
+    print(f"  train --subtask 2c from the converted BERT-base, RoBERTa-base "
+          f"and ResNet-18 checkpoints, {metrics['n_train']} train / "
+          f"{metrics['n_val']} val / {metrics['n_test']} test memes: rc 0, "
+          f"{wall:.3f} s wall; spliced "
+          f"leaves equal to the converted files bit for bit (leaves, "
+          f"differing): {seen[0]}; {steps} steps, losses "
+          f"{[round(s['loss'], 5) for s in metrics['steps']]}")
+    print(f"  launches: attention_fwd {launches['attention_fwd']} = 24 x "
+          f"({steps} steps + {eval_batches} eval batches), attention_bwd "
+          f"{launches['attention_bwd']} = 24 x {steps}, image_normalize "
+          f"{launches['image_normalize']} = {steps}")
+    return dict(launches=launches, wall_s=wall, steps=steps,
+                spliced=seen[0])
+
+
+def phase_extract_features(torch, work: str, ckpts):
+    """``extract-features`` over the first ``EXTRACT_MEMES`` train memes
+    with the HF BERT-base directory and the HF ConvNeXt-Tiny checkpoint:
+    launches (12 forward calls a text batch of 32, no other kernel), the
+    JSON, then warm images/s and texts/s, the busy share of a profiled
+    pass, and the card against the CPU on a few memes."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from mpmc_tpu_torch.baselines import extract_features as EF
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.ops import build
+    with open(os.path.join(work, "train.json"), encoding="utf-8") as f:
+        rows = json.load(f)
+    for name, n in (("feats_m.json", EXTRACT_MEMES),
+                    ("feats_few.json", FEATURE_CARD_VS_CPU)):
+        with open(os.path.join(work, name), "w", encoding="utf-8") as f:
+            json.dump(rows[:n], f, ensure_ascii=False)
+    flags = ["--text-vocab", os.path.join(ckpts["bert"], "vocab.txt"),
+             "--text-params", ckpts["bert"],
+             "--image-params", ckpts["convnext_tiny"], "--image-root", work]
+    feats_dir = os.path.join(work, "features")
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    rc, _ = _capture(cli_main, ["extract-features", "-d", work, "-f",
+                                "feats_m.json", "-o", "feats.json",
+                                "--features-dir", feats_dir, *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"extract-features returned {rc}")
+    batches = math.ceil(EXTRACT_MEMES / 32)
+    want = {"attention_fwd": 12 * batches, "attention_bwd": 0,
+            "image_normalize": 0}
+    check(launches == want, f"extract-features launches {launches}, "
+                            f"expected {want}")
+    with open(os.path.join(feats_dir, "feats.json")) as f:
+        feats = json.load(f)
+    ids = [r["id"] for r in rows[:EXTRACT_MEMES]]
+    for kind in ("imgfeats", "textfeats"):
+        x = np.asarray([feats[kind][i] for i in ids])
+        check(list(feats[kind]) == ids and x.shape == (EXTRACT_MEMES, 768)
+              and bool(np.isfinite(x).all()), f"{kind}: wrong JSON")
+    # warm throughput and the busy share, through the command's functions
+    dev = torch.device("cuda")
+    manifest, images, tok_ids, mask, cfg, _ = EF.prepare(
+        work, "feats_m.json", work, flags[1], flags[3])
+    net = EF.image_encoder(ckpts["convnext_tiny"], dev)
+    enc = EF.text_encoder(cfg, ckpts["bert"], None, dev)
+    EF.encode_images(net, images[:32], 32, dev)
+    EF.encode_texts(enc, tok_ids[:32], mask[:32], 32, dev)
+    rates = {}
+    for what, fn in (("images", lambda: EF.encode_images(net, images, 32,
+                                                         dev)),
+                     ("texts", lambda: EF.encode_texts(enc, tok_ids, mask,
+                                                       32, dev))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        rates[what] = EXTRACT_MEMES / (time.perf_counter() - t1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        EF.encode_images(net, images, 32, dev)
+        EF.encode_texts(enc, tok_ids, mask, 32, dev)
+        pass_ms = (time.perf_counter() - t1) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    del net, enc
+    torch.cuda.empty_cache()
+    print(f"  extract-features, {EXTRACT_MEMES} memes ({batches} batches of "
+          f"32, the last {32 * batches - EXTRACT_MEMES} rows zero), f32, "
+          f"ConvNeXt-Tiny at 224 and BERT-base at 128 tokens (vocab "
+          f"{cfg.vocab_size}): rc 0, {wall:.3f} s wall (checkpoint loads "
+          f"and decode included); launches attention_fwd "
+          f"{launches['attention_fwd']} = 12 x {batches}")
+    print(f"  warm: {rates['images']:.2f} images/s, {rates['texts']:.2f} "
+          f"texts/s; profiled pass {pass_ms:.3f} ms wall, kernels "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / pass_ms:.1f} % of wall) in "
+          f"{sum(e.count for e in events)} launches; top:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+    # the card against the CPU (plain versions), f32, on a few memes
+    t1 = time.perf_counter()
+    cpu_path = EF.extract_features(
+        work, "feats_few.json", "feats_cpu.json", image_root=work,
+        batch_size=FEATURE_CARD_VS_CPU, text_vocab_path=flags[1],
+        text_params_path=ckpts["bert"],
+        image_params_path=ckpts["convnext_tiny"],
+        features_dir=feats_dir, device="cpu")
+    with open(cpu_path) as f:
+        on_cpu = json.load(f)
+    errs = {}
+    for kind in ("imgfeats", "textfeats"):
+        c = np.asarray(list(on_cpu[kind].values()))
+        g = np.asarray([feats[kind][i] for i in on_cpu[kind]])
+        scale = max(1.0, float(np.abs(c).max()))
+        errs[kind] = float(np.abs(g - c).max())
+        check(errs[kind] <= FEATURE_TOL * scale,
+              f"{kind}: card and CPU differ by {errs[kind]} (tol "
+              f"{FEATURE_TOL} x {scale:.4g})")
+    print(f"  card vs CPU, {FEATURE_CARD_VS_CPU} memes in f32 (TF32 off): "
+          f"max |diff| images {errs['imgfeats']:.3g}, texts "
+          f"{errs['textfeats']:.3g} (tol {FEATURE_TOL} x max(1, largest CPU "
+          f"value)); CPU run {time.perf_counter() - t1:.1f} s")
+    return dict(launches=launches, wall_s=wall, memes=EXTRACT_MEMES,
+                images_s=rates["images"], texts_s=rates["texts"],
+                profiled_wall_ms=pass_ms, profiled_kernel_ms=busy_ms,
+                card_vs_cpu_max_abs_diff=errs)
+
+
+def phase_distill_2a(torch, work: str):
+    """``train --subtask 2a --corpus-vocab subword --distill-lambda 0.5``
+    under the fast recipe from a synthetic teacher cache: the cache file
+    the port keys for phase 5's train+dev manifests and the folds it
+    computes where it runs, holding seeded uniform probabilities (0.5 on
+    each fold's validation rows).  Launches as ``train_2a_cli`` checks
+    them, a cache hit (no other file written) and the ``_distill`` run
+    id."""
+    import numpy as np
+    from mpmc_tpu_torch.cv.kfold import stratified_kfold
+    from mpmc_tpu_torch.io.manifest import read_manifest
+    from mpmc_tpu_torch.io.tsv import read_run_id
+    from mpmc_tpu_torch.train.distill import cache_path
+    combined = read_manifest(os.path.join(work, "train.json")).concat(
+        read_manifest(os.path.join(work, "dev.json")))
+    labels = np.asarray(combined.labels)
+    splits = stratified_kfold(labels, 5, 42)
+    cache = os.path.join(work, "distill_cache")
+    os.makedirs(cache, exist_ok=True)
+    path = cache_path(cache, list(combined.texts), labels, splits)
+    rng = np.random.default_rng(CKPT_SEED + 1)
+    soft = np.full((len(splits), len(labels)), 0.5, np.float32)
+    for k, (tr, _) in enumerate(splits):
+        soft[k, tr] = rng.random(len(tr), dtype=np.float32)
+    np.savez_compressed(path, soft=soft)
+    try:
+        import sklearn  # noqa: F401
+        why = ("the SVM's own fit is held to the JAX package's by the CPU "
+               "tests")
+    except ImportError:
+        why = "sklearn is not installed, so the SVM cannot be fitted"
+    print(f"  synthetic teacher: {os.path.basename(path)} holds seeded "
+          f"uniform probabilities, not the char-n-gram SVM's ({why}); the "
+          f"run reads it as a cache hit, so what it exercises is the soft "
+          f"column, the packed maps, the mixed loss and the kernels")
+    argv, launches, metrics, _, _, wall = train_2a_cli(
+        torch, work, "train_2a_distill",
+        ["--corpus-vocab", "subword", "--distill-lambda", "0.5",
+         "--cache-dir", cache])
+    run_id = read_run_id(os.path.join(work, "train_2a_distill_out",
+                                      "task2A_kevinmathew.tsv"))
+    check(run_id.endswith("_distill"), f"run id {run_id!r}")
+    check(os.listdir(cache) == [os.path.basename(path)],
+          f"the teacher cache was not hit: {os.listdir(cache)}")
+    with open(os.path.join(work, "train_2a_distill_out", "vocab.txt"),
+              encoding="utf-8") as f:
+        vocab = sum(1 for _ in f)
+    print(f"  run id {run_id!r}; subword vocab {vocab} pieces")
+    return dict(launches=launches, wall_s=wall, steps=len(metrics["steps"]),
+                run_id=run_id, vocab=vocab)
+
+
+def phase_smoke(torch):
+    """The attention pair at ``smoke``'s shape (bf16, padding) held against
+    the plain versions, then ``smoke`` on the card: exit 0, its F1 and
+    launches."""
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.ops import attention as A
+    from mpmc_tpu_torch.ops import build
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v, mask = attention_inputs(torch, SMOKE_SHAPE, "padding",
+                                     torch.bfloat16, gen)
+    tag = f"smoke padding {SMOKE_SHAPE} bfloat16"
+    out, lse = A.attention_forward_cuda(q, k, v, mask, "padding")
+    fwd_err = check_forward(A, q, k, v, mask, "padding", out, lse, tag)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    got = A.attention_backward_cuda(q, k, v, mask, "padding", out, lse, do)
+    bwd_err = check_backward(A, q, k, v, mask, "padding", out, lse, do, got,
+                             tag)
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    rc, text = _capture(cli_main, ["smoke"])
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"smoke returned {rc}")
+    f1 = json.loads(text.strip().splitlines()[-1])["smoke_best_macro_f1"]
+    check(all(launches[k] > 0 for k in launches), f"smoke launches {launches}")
+    print(f"  smoke on the card: rc 0, best macro-F1 {f1}, {wall:.3f} s "
+          f"wall; launches {launches}")
+    return dict(launches=launches, wall_s=wall, best_macro_f1=f1,
+                shape=list(SMOKE_SHAPE), fwd_max_abs_err=fwd_err,
+                bwd_max_abs_err=bwd_err)
+
+
+def phase_offline_classic(torch, work: str):
+    """Phase 12: (a) the converted checkpoints into ``train --subtask 2c``,
+    (b) ``extract-features`` and the f32 forward at its text shape, (c)
+    ``train --subtask 2a --corpus-vocab subword --distill-lambda``, (d)
+    ``smoke``."""
+    ckpts = write_checkpoints(torch, work)
+    out = dict(extract_shape=time_forward_at(torch, "extract_features",
+                                             EXTRACT_SHAPE, EXTRACT_SHAPE[1],
+                                             "padding"))
+    torch.cuda.empty_cache()
+    for name, run in (("train_2c_pretrained",
+                       lambda: phase_train_2c_pretrained(torch, work, ckpts)),
+                      ("extract_features",
+                       lambda: phase_extract_features(torch, work, ckpts)),
+                      ("train_2a_distill", lambda: phase_distill_2a(torch,
+                                                                    work)),
+                      ("smoke", lambda: phase_smoke(torch))):
+        stamp(f"  {name}:")
+        out[name] = run()
+        torch.cuda.empty_cache()
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -2716,8 +3269,12 @@ def main() -> int:
             if "Used" in line or "spill" in line and " 0 bytes spill" not in line:
                 print(f"  {kernel}: {line.strip()}")
     tensor_core = {}
-    for name in ("attention_fwd", "attention_bwd"):
-        counts = tensor_core_instructions(build._lib_path(name))
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:     # two cuobjdump processes at once
+        sass = dict(zip(("attention_fwd", "attention_bwd"), pool.map(
+            lambda n: tensor_core_instructions(build._lib_path(n)),
+            ("attention_fwd", "attention_bwd"))))
+    for name, counts in sass.items():
         if counts is None:
             tensor_core[name] = None
             print(f"  {name}: tensor-core instructions not measured "
@@ -2779,11 +3336,16 @@ def main() -> int:
             stamp("phase 11 the scratch captioner, crash and --resume, and "
                   "the Trainer over clip_style_2c:")
             p11 = phase_captioner_resume_trainer(torch, work)
+            stamp("phase 12 converted checkpoints, extract-features, "
+                  "distillation and smoke:")
+            p12 = phase_offline_classic(torch, work)
         finally:
             os.chdir(cwd)
 
     text, bwd = timings["text"], bwd_timings["text"]
     paths_11 = {k: v["launches"] for k, v in p11.items() if k != "shapes"}
+    paths_12 = {k: v["launches"] for k, v in p12.items()
+                if k != "extract_shape"}
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -2810,8 +3372,10 @@ def main() -> int:
                for k, v in train_2b.items()},
             **{k: v["launches"]["attention_fwd"]
                for k, v in variants.items()},
-            **{k: v["attention_fwd"] for k, v in paths_11.items()}},
+            **{k: v["attention_fwd"] for k, v in paths_11.items()},
+            **{k: v["attention_fwd"] for k, v in paths_12.items()}},
         "captioner_shapes": p11["shapes"],
+        "extract_features_shape": p12["extract_shape"],
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
                 "library_ms": v["library_fwd_ms"],
@@ -2856,7 +3420,8 @@ def main() -> int:
                for k, v in train_2b.items()},
             **{k: v["launches"]["attention_bwd"]
                for k, v in variants.items()},
-            **{k: v["attention_bwd"] for k, v in paths_11.items()}},
+            **{k: v["attention_bwd"] for k, v in paths_11.items()},
+            **{k: v["attention_bwd"] for k, v in paths_12.items()}},
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
         "mlm_pack_shape": more_2a["mlm_pack"]["shape"],
@@ -2881,7 +3446,8 @@ def main() -> int:
                for k, v in train_2b.items()},
             **{k: v["launches"]["image_normalize"]
                for k, v in variants.items()},
-            **{k: v["image_normalize"] for k, v in paths_11.items()}}}]
+            **{k: v["image_normalize"] for k, v in paths_11.items()},
+            **{k: v["image_normalize"] for k, v in paths_12.items()}}}]
     print(json.dumps({"predict_kinds": {
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
                               "profiled_wall_ms", "profiled_kernel_ms")}
@@ -2903,6 +3469,7 @@ def main() -> int:
     print(json.dumps({"train_variants": variants}))
     print(json.dumps({"phase_11": {k: v for k, v in p11.items()
                                    if k != "shapes"}}))
+    print(json.dumps({"phase_12": p12}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

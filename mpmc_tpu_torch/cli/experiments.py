@@ -47,11 +47,26 @@ def corpus_wordpiece_vocab(texts, max_words: int = 30000) -> Dict[str, int]:
     return {t: i for i, t in enumerate(dict.fromkeys(tokens))}
 
 
-def build_tokenizer(texts, vocab_path: Optional[str]) -> WordPieceTokenizer:
-    """The vocab file when one exists, else a corpus vocab over ``texts``."""
+def build_tokenizer(texts, vocab_path: Optional[str],
+                    corpus_vocab_mode: str = "words",
+                    corpus_vocab_size: int = 30000) -> WordPieceTokenizer:
+    """The vocab file when one exists, else a corpus vocab over ``texts``:
+    ``corpus_vocab_mode`` "words" (:func:`corpus_wordpiece_vocab`, at most
+    ``corpus_vocab_size`` words) or "subword" (BPE-learned pieces,
+    ``corpus_vocab_size`` in all).  The JAX package fronts the same vocab
+    with its C++ tokenizer when that is built; the token ids are the same
+    either way."""
     if vocab_path and os.path.exists(vocab_path):
         return WordPieceTokenizer.from_file(vocab_path)
-    return WordPieceTokenizer(corpus_wordpiece_vocab(texts))
+    if corpus_vocab_mode == "subword":
+        from mpmc_tpu_torch.text.wordpiece_learn import learn_wordpiece_vocab
+        vocab = learn_wordpiece_vocab(texts, vocab_size=corpus_vocab_size)
+    elif corpus_vocab_mode == "words":
+        vocab = corpus_wordpiece_vocab(texts, max_words=corpus_vocab_size)
+    else:
+        raise ValueError(f"unknown corpus_vocab_mode: {corpus_vocab_mode!r} "
+                         "(expected 'words' or 'subword')")
+    return WordPieceTokenizer(vocab)
 
 
 def prepare_text(manifest: Manifest, tok: WordPieceTokenizer, max_len: int
@@ -259,7 +274,8 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                device: torch.device, folds: Optional[List[int]] = None,
                augment: Optional[Callable] = None, kind: str = "multimodal",
                pretrained=None, grayscale: bool = False,
-               binary_head: bool = False) -> List:
+               binary_head: bool = False,
+               soft_targets: Optional[np.ndarray] = None) -> List:
     """Train the selected stratified folds of the ``kind`` model one after
     another on ``device`` (:func:`build_fold`).  Without a test split the
     fold's val split is the test split too, evaluated twice per check as in
@@ -270,7 +286,10 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     the same directory, the whole training state at each new best; with
     ``cfg.resume`` the fold first restores its newest checkpoint.  Its
     per-step losses and evals go to
-    ``<out_dir>/<name>_train_metrics_fold_<k>.json``."""
+    ``<out_dir>/<name>_train_metrics_fold_<k>.json``.
+
+    ``soft_targets`` ``[F, N]`` (``train/distill.py``): fold k trains on
+    ``soft_targets[k]`` of its train rows, beside their labels."""
     from mpmc_tpu_torch.train.checkpoint import Checkpointer
     from mpmc_tpu_torch.train.loop import fit
 
@@ -285,9 +304,15 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         log.info("=== fold %d/%d ===", k, cfg.data.num_folds)
         train_d = _select(full_data, tr_idx)
         val_d = _select(full_data, va_idx)
+        fold_store = store
+        if soft_targets is not None:
+            soft = soft_targets[k].astype(np.float32)
+            train_d["soft"] = soft[tr_idx]
+            if "label" in store:        # unpacked: batches index the store
+                fold_store = dict(store, soft=torch.from_numpy(soft).to(device))
         t_data = test_data if test_data is not None else val_d
         t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
-        run = build_fold(cfg, train_d, tr_idx, store, device, k, augment,
+        run = build_fold(cfg, train_d, tr_idx, fold_store, device, k, augment,
                          kind, pretrained, grayscale, binary_head)
         on_best, checkpointer = None, None
         if cfg.checkpoint_dir:
@@ -326,13 +351,15 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
 class Prepared2A:
     """The 2A run's resolved config (attention pooling, 2 classes, CE, the
     2A TSV rules, the vocab size), the tokenized and bucketed fold data,
-    its ids, the tokenizer and the normalized texts (the MLM corpus)."""
+    its ids, the tokenizer, the normalized texts (the MLM corpus) and the
+    raw texts (the distillation teacher's)."""
 
     cfg: TrainConfig
     data: Dict[str, np.ndarray]
     ids: List[str]
     tok: WordPieceTokenizer
     corpus: List[str]
+    raw_texts: List[str]
 
 
 def prepare_2a(cfg: TrainConfig, out_dir: str,
@@ -345,7 +372,8 @@ def prepare_2a(cfg: TrainConfig, out_dir: str,
     dev = read_manifest(cfg.data.dev_manifest)
     combined = train.concat(dev) if cfg.data.fold_over_train_plus_dev else train
     texts = [preprocess_arabic_tweet(t) for t in combined.texts]
-    tok = build_tokenizer(texts, vocab_path)
+    tok = build_tokenizer(texts, vocab_path, cfg.data.corpus_vocab_mode,
+                          cfg.data.corpus_vocab_size)
     _persist_vocab(tok, cfg, out_dir)
     mcfg = dataclasses.replace(
         cfg.model, subtask=Subtask.A, num_classes=2,
@@ -364,7 +392,22 @@ def prepare_2a(cfg: TrainConfig, out_dir: str,
         bucket_trim(data, "text_ids", "text_mask", seq_len)
         log.info("text bucketed to %d tokens (cap %d)", seq_len,
                  mcfg.max_text_len)
-    return Prepared2A(cfg, data, combined.ids, tok, texts)
+    return Prepared2A(cfg, data, combined.ids, tok, texts,
+                      list(combined.texts))
+
+
+def distill_soft_targets(cfg: TrainConfig, raw_texts: List[str],
+                         labels: np.ndarray) -> Optional[np.ndarray]:
+    """The teacher's soft targets over the run's folds when
+    ``cfg.distill_lambda`` > 0 (``train/distill.ngram_soft_targets`` on the
+    raw texts, the fold seed and the cache dir), else None."""
+    if cfg.distill_lambda <= 0:
+        return None
+    from mpmc_tpu_torch.train.distill import ngram_soft_targets
+    return ngram_soft_targets(
+        raw_texts, labels,
+        stratified_kfold(labels, cfg.data.num_folds, cfg.data.fold_seed),
+        seed=cfg.data.fold_seed, cache_dir=cfg.data.cache_dir)
 
 
 def run_subtask_2a(cfg: TrainConfig, device: torch.device,
@@ -375,16 +418,19 @@ def run_subtask_2a(cfg: TrainConfig, device: torch.device,
     """The 2A text model: stratified folds over train+dev, cross-entropy,
     attention pooling, 2 classes, the val split as the test split, labels
     at 0.5, the val TSVs and the ``propaganda_probability`` header; the
-    corpus MLM stage first when ``cfg.mlm_epochs`` > 0."""
+    corpus MLM stage first when ``cfg.mlm_epochs`` > 0; with
+    ``cfg.distill_lambda`` > 0 each fold mixes in the teacher's soft
+    targets over the same folds."""
     prep = prepare_2a(cfg, out_dir, vocab_path)
     pretrained = _maybe_mlm_pretrain(
         prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
         prep.data["text_ids"].shape[1], out_dir, pretrained, device)
+    soft = distill_soft_targets(prep.cfg, prep.raw_texts, prep.data["label"])
     _persist_run_meta(prep.cfg, prep.cfg.model, "text", out_dir, prep.data,
                       augment=False)
     return _run_folds(prep.cfg, prep.data, prep.ids, None, None, out_dir,
                       "task2A", device, folds, kind="text",
-                      pretrained=pretrained)
+                      pretrained=pretrained, soft_targets=soft)
 
 
 def grayscale_eval_transform(images_u8: torch.Tensor,
@@ -463,8 +509,9 @@ def eval_transform(images_u8: torch.Tensor,
 @dataclasses.dataclass
 class Prepared2C:
     """The 2C run's resolved config (vocab sizes filled in), tokenized and
-    bucketed train and dev arrays, their ids, the text tokenizer and the
-    normalized train+dev texts (the MLM corpus)."""
+    bucketed train and dev arrays, their ids, the text tokenizer, the
+    normalized train+dev texts (the MLM corpus) and the raw train texts
+    (the distillation teacher's)."""
 
     cfg: TrainConfig
     data: Dict[str, np.ndarray]
@@ -473,6 +520,7 @@ class Prepared2C:
     dev_ids: List[str]
     tok: WordPieceTokenizer
     corpus: List[str]
+    raw_texts: List[str]
 
 
 def prepare_2c(cfg: TrainConfig, out_dir: str,
@@ -497,7 +545,8 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
     train = read_manifest(cfg.data.train_manifest)
     dev = read_manifest(cfg.data.dev_manifest)
     tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
-                          vocab_path)
+                          vocab_path, cfg.data.corpus_vocab_mode,
+                          cfg.data.corpus_vocab_size)
     _persist_vocab(tok, cfg, out_dir)
     mcfg = dataclasses.replace(
         cfg.model, subtask=Subtask.C,
@@ -562,7 +611,8 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
             log.info("%s bucketed to %d tokens (cap %d)", ids_key, length,
                      cap)
     corpus = [preprocess_arabic_tweet(t) for t in train.texts + dev.texts]
-    return Prepared2C(cfg, data, test, train.ids, dev.ids, tok, corpus)
+    return Prepared2C(cfg, data, test, train.ids, dev.ids, tok, corpus,
+                      list(train.texts))
 
 
 def run_subtask_2c(cfg: TrainConfig, device: torch.device,
@@ -586,7 +636,10 @@ def run_subtask_2c(cfg: TrainConfig, device: torch.device,
     baseline instead (C28: ``SimpleMultimodalClassifier``, 2-class
     cross-entropy, no captions, unbucketed and unpacked, trained on the
     deterministic eval transform), which takes no SimCLR stage: its
-    backbone keeps the 1000-logit head a headless backbone cannot fill."""
+    backbone keeps the 1000-logit head a headless backbone cannot fill,
+    and no distillation.  Otherwise, with ``cfg.distill_lambda`` > 0, each
+    fold mixes the teacher's soft targets (over the train-only folds) into
+    the focal loss."""
     prep = prepare_2c(cfg, out_dir, vocab_path, simple, caption_vocab_path,
                       caption_generate_fn, scratch_captioner, device)
     pretrained = _maybe_mlm_pretrain(
@@ -602,8 +655,10 @@ def run_subtask_2c(cfg: TrainConfig, device: torch.device,
     pretrained = _maybe_simclr_pretrain(prep.cfg, prep.cfg.model,
                                         prep.data["image"], out_dir,
                                         pretrained, device)
+    soft = distill_soft_targets(prep.cfg, prep.raw_texts, prep.data["label"])
     _persist_run_meta(prep.cfg, prep.cfg.model, "multimodal", out_dir,
                       prep.data, augment=True)
     return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,
                       prep.dev_ids, out_dir, "task2C", device, folds,
-                      augment=augment, pretrained=pretrained)
+                      augment=augment, pretrained=pretrained,
+                      soft_targets=soft)

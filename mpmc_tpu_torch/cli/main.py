@@ -8,8 +8,9 @@
       -te DEV [--recipe fast|reference] [--small] [--tiny] [--simple] \\
       [--fold K] [--num-folds N] [--epochs N] [--lr X] \\
       [--lr-schedule constant|linear_warmup] [--pack-rows G] [--vocab V] \\
-      [--mlm-epochs N] [--mlm-pack] [--text-params mlm_encoder.npz] \\
-      [--simclr-epochs N] [--image-params simclr_backbone.npz] \\
+      [--corpus-vocab words|subword] [--corpus-vocab-size N] \\
+      [--mlm-epochs N] [--mlm-pack] [--text-params T] [--caption-params C] \\
+      [--simclr-epochs N] [--image-params I] [--distill-lambda X] \\
       [--image-arch A] [--image-size N] [--binary-head] \\
       [--pooling P] [--fusion concatenation|mca|cross_modal|self_attention] \\
       [--scratch-captioner] [--caption-vocab C] \\
@@ -20,6 +21,16 @@
       [--out ens.tsv] [--metric binary|macro|youden] [--average prob|logit] \\
       [--group-by-run-id] [--scan-family-weight] [--per-member]
   python -m mpmc_tpu_torch.cli.main analyze -g gold.json -p pred.tsv
+  python -m mpmc_tpu_torch.cli.main baselines --subtask 2a|2b|2c -tr TRAIN \\
+      -te DEV [-o OUT] [--ngram-analyzer word|char|char_wb] \\
+      [--ngram-range MIN MAX] [--ngram-max-features N] [--ngram-probs] \\
+      [--ngram-fold-probs K] [--ngram-cv K] [--skip-features] \\
+      [--features-dir D] [--text-vocab V] [--text-params T] \\
+      [--image-params I] [--device cuda|cpu]
+  python -m mpmc_tpu_torch.cli.main extract-features -d DATA_DIR \\
+      -f MANIFEST.json -o OUT.json [--features-dir D] [--text-vocab V] \\
+      [--text-params T] [--image-params I] [--device cuda|cpu]
+  python -m mpmc_tpu_torch.cli.main smoke [--device cuda|cpu]
 
 ``train`` follows the JAX package's ``_cmd_train`` for 2A, 2B and 2C.
 2A trains the text model (attention pooling, 2 classes, cross-entropy, a
@@ -45,7 +56,19 @@ language modelling (``--mlm-pack`` packs that corpus) and starts every
 fold from it; ``--text-params`` starts from such an encoder file instead.
 ``--simclr-epochs`` likewise pretrains the image backbone contrastively
 (SimCLR) on the train images before 2B or the 2C flagship, and
-``--image-params`` starts from such a backbone file instead.  For 2C,
+``--image-params`` starts from such a backbone file instead.  The three
+``--*-params`` flags also take Hugging Face, torchvision and timm
+checkpoints (``models/pretrained.py``): ``--text-params`` a BERT-family
+checkpoint for the text encoder, ``--caption-params`` a RoBERTa-family one
+for the 2C caption encoder, ``--image-params`` a state dict of the image
+backbone's arch; pass the checkpoint's own ``vocab.txt`` through
+``--vocab`` or ``--caption-vocab``.  Without a vocab file the corpus vocab
+is whole words (``--corpus-vocab words``) or BPE-learned subword pieces
+(``subword``), ``--corpus-vocab-size`` entries at most.
+``--distill-lambda X`` (2A, and the 2C flagship) mixes the char-n-gram SVM
+teacher's soft targets into the train loss, ``(1-X)·loss + X·CE(soft)``;
+the teacher needs sklearn, or its ``distill_<key>.npz`` under
+``--cache-dir``, and the TSVs' run id ends in ``_distill``.  For 2C,
 ``--small`` trains the small_2c model (no captions), ``--simple`` the
 organizers' simple baseline (C28), ``--fusion`` picks the fusion family
 and ``--pooling`` the pooling mode (the unmasked ones turn bucketing off);
@@ -69,6 +92,14 @@ f32.
 submission tools: the official format check, the official scorer, the fold
 ensemble (its label TSV carries the run id ``ensemble``) and the error
 report.
+
+``baselines`` runs the organizers' classic baselines of a subtask and
+scores each (majority, random, the n-gram SVM; for 2B and 2C the SVM over
+frozen features, extracted first unless ``--skip-features``), and
+``extract-features`` writes those features (ConvNeXt-Tiny and the BERT
+pooler, f32); both follow the JAX package's commands, and the n-gram and
+SVM rows need sklearn.  ``smoke`` trains the tiny 2C model on synthetic
+memes for two epochs and exits 1 unless its best macro-F1 is above 0.6.
 """
 
 from __future__ import annotations
@@ -394,6 +425,140 @@ def _cmd_analyze(args) -> int:
     return 0
 
 
+def _cmd_baselines(args) -> int:
+    """The run, check and score loop over every baseline of the subtask,
+    the frozen-feature SVMs after feature extraction included, as the JAX
+    package's ``_cmd_baselines``."""
+    from mpmc_tpu_torch.baselines import (run_feature_svm_baseline,
+                                          run_majority_baseline,
+                                          run_ngram_baseline,
+                                          run_random_baseline)
+    sub = args.subtask.upper()
+    results = {}
+    results["majority"] = run_majority_baseline(
+        args.train_file_path, args.dev_file_path,
+        f"{args.out_dir}/majority_baseline_{sub}.tsv")
+    results["random"] = run_random_baseline(
+        args.train_file_path, args.dev_file_path,
+        f"{args.out_dir}/random_baseline_{sub}.tsv", subtask=sub)
+    if sub in ("2A", "2C"):
+        # A vectorizer other than the default gets its own file names and
+        # run id, a family of its own in `combine --group-by-run-id`.
+        ngram_kw = dict(analyzer=args.ngram_analyzer,
+                        ngram_range=tuple(args.ngram_range),
+                        max_features=args.ngram_max_features)
+        fam = "ngram"
+        if ngram_kw != dict(analyzer="word", ngram_range=(1, 1),
+                            max_features=5000):
+            fam += f"_{args.ngram_analyzer}"
+            if tuple(args.ngram_range) != (1, 1):
+                fam += f"_{args.ngram_range[0]}_{args.ngram_range[1]}"
+            if args.ngram_max_features != 5000:
+                fam += f"_{args.ngram_max_features}"
+        results[fam] = run_ngram_baseline(
+            args.train_file_path, args.dev_file_path,
+            f"{args.out_dir}/{fam}_baseline_{sub}.tsv", run_id=fam,
+            probs_out=(f"{args.out_dir}/{fam}_baseline_{sub}_probs.tsv"
+                       if args.ngram_probs else None), **ngram_kw)
+        if args.ngram_fold_probs:
+            from mpmc_tpu_torch.baselines import run_ngram_fold_probs
+            paths = run_ngram_fold_probs(
+                args.train_file_path, args.dev_file_path,
+                f"{args.out_dir}/{fam}_baseline_{sub}",
+                num_folds=args.ngram_fold_probs, run_id=fam, **ngram_kw)
+            print(f"ngram fold probs: {len(paths)} TSVs under {args.out_dir}")
+        if args.ngram_cv:
+            from mpmc_tpu_torch.baselines import run_ngram_cv
+            f1s = run_ngram_cv(
+                args.train_file_path, args.dev_file_path,
+                f"{args.out_dir}/{fam}_cv_{sub}",
+                num_folds=args.ngram_cv, run_id=fam, **ngram_kw)
+            print(f"ngram-cv ({args.ngram_cv}-fold over train+dev): "
+                  f"mean macro-F1 {np.mean(f1s):.4f} "
+                  f"(folds {[round(f, 3) for f in f1s]})")
+    if sub in ("2B", "2C") and not args.skip_features:
+        from mpmc_tpu_torch.baselines.extract_features import \
+            extract_features
+        feats_dir = args.features_dir or os.path.join(args.out_dir,
+                                                      "features")
+        feats = {}
+        for split, path in (("train", args.train_file_path),
+                            ("dev", args.dev_file_path)):
+            out = os.path.join(feats_dir, f"{split}_feats.json")
+            if not os.path.exists(out):
+                extract_features(
+                    os.path.dirname(path) or ".", os.path.basename(path),
+                    f"{split}_feats.json", image_root=args.image_root,
+                    text_vocab_path=args.text_vocab,
+                    text_params_path=args.text_params,
+                    image_params_path=args.image_params,
+                    features_dir=feats_dir,
+                    device=resolve_device(args.device))
+            feats[split] = out
+        name = "resnet" if sub == "2B" else "imgbert"
+        results[name] = run_feature_svm_baseline(
+            feats["train"], feats["dev"], args.train_file_path,
+            args.dev_file_path, f"{args.out_dir}/{name}_baseline_{sub}.tsv",
+            use_text=(sub == "2C"))
+    for name, (acc, p, r, f1) in results.items():
+        print(f"{name}: acc={acc:.3f} macro-F1={f1:.3f}")
+    return 0
+
+
+def _cmd_extract_features(args) -> int:
+    from mpmc_tpu_torch.baselines.extract_features import extract_features
+    out = extract_features(args.data_dir, args.file_name, args.out_file_name,
+                           image_root=args.image_root,
+                           features_dir=args.features_dir,
+                           text_vocab_path=args.text_vocab,
+                           text_params_path=args.text_params,
+                           image_params_path=args.image_params,
+                           device=resolve_device(args.device))
+    print(f"features written to {out}")
+    return 0
+
+
+def smoke_data(mcfg: ModelConfig, n: int, rng: np.random.Generator
+               ) -> Dict[str, np.ndarray]:
+    """``n`` synthetic 2C memes of ``mcfg``'s shapes whose label shows only
+    in the pixels: random token ids, propaganda images bright and the
+    others dark."""
+    y = (rng.random(n) > 0.6).astype(np.int32)
+    size = mcfg.image.image_size
+    ids = rng.integers(5, mcfg.text.vocab_size,
+                       (n, mcfg.max_text_len)).astype(np.int32)
+    img = (rng.integers(0, 106, (n, size, size, 3))
+           + 150 * y[:, None, None, None]).astype(np.uint8)
+    cap = rng.integers(5, mcfg.caption.vocab_size,
+                       (n, mcfg.max_caption_len)).astype(np.int32)
+    return {"text_ids": ids, "text_mask": np.ones_like(ids), "image": img,
+            "caption_ids": cap, "caption_mask": np.ones_like(cap),
+            "label": y}
+
+
+def _cmd_smoke(args) -> int:
+    """The tiny 2C model trained on synthetic memes for two epochs (batch
+    8, lr 1e-3) through ``fit``; exits 1 unless the best macro-F1 over 32
+    test memes is above 0.6, as the JAX package's ``smoke``."""
+    from mpmc_tpu_torch.train.loop import fit
+    from mpmc_tpu_torch.train.step import build_train_step
+    device = resolve_device(args.device)
+    mcfg = ModelConfig.tiny_2c()
+    cfg = TrainConfig(model=mcfg, data=DataConfig(batch_size=8), epochs=2,
+                      learning_rate=1e-3, bf16=device.type == "cuda")
+    rng = np.random.default_rng(0)
+    train_d, test_d = smoke_data(mcfg, 64, rng), smoke_data(mcfg, 32, rng)
+    model = build_model(mcfg, device, seed=0, kind="multimodal")
+    store = {k: torch.from_numpy(v).to(device) for k, v in train_d.items()}
+    steps = cfg.epochs * -(-len(train_d["label"]) // cfg.data.batch_size)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    res = fit(build_train_step(model, cfg, steps, store, generator),
+              make_eval_step(model, cfg, cast_in_place=False), cfg,
+              {"label": train_d["label"]}, device, test_data=test_d)
+    print(json.dumps({"smoke_best_macro_f1": round(res.best_macro_f1, 4)}))
+    return 0 if res.best_macro_f1 > 0.6 else 1
+
+
 def _resolve_recipe(args) -> None:
     """Fill the recipe-controlled flags that were left unset, as the JAX
     package's ``_resolve_recipe`` does for the flags the port takes: the
@@ -426,7 +591,9 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       image_root=args.image_root,
                       batch_size=args.batch_size, num_folds=args.num_folds,
                       fold_over_train_plus_dev=args.subtask == "2a",
-                      cache_dir=args.cache_dir, pack_rows=args.pack_rows)
+                      cache_dir=args.cache_dir, pack_rows=args.pack_rows,
+                      corpus_vocab_mode=args.corpus_vocab,
+                      corpus_vocab_size=args.corpus_vocab_size)
     if args.small and args.subtask == "2a":
         model = ModelConfig.small_2a()
     elif args.small and args.subtask == "2c":
@@ -463,7 +630,8 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       adam_mu_dtype=args.adam_mu_dtype,
                       embedding_optimizer=args.embedding_optimizer,
                       mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack,
-                      simclr_epochs=args.simclr_epochs)
+                      simclr_epochs=args.simclr_epochs,
+                      distill_lambda=args.distill_lambda)
     return cfg, device
 
 
@@ -476,6 +644,7 @@ def _cmd_train(args) -> int:
     folds = [args.fold] if args.fold is not None else None
     kwargs = dict(out_dir=args.out_dir, folds=folds,
                   pretrained=PretrainedSpec(text=args.text_params,
+                                            caption=args.caption_params,
                                             image=args.image_params))
     if args.subtask == "2a":
         results = run_subtask_2a(cfg, device, vocab_path=args.vocab,
@@ -642,10 +811,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "--text-params is given)")
     p.add_argument("--mlm-pack", action="store_true",
                    help="pack the MLM corpus into segment-masked rows")
+    p.add_argument("--corpus-vocab", default="words",
+                   choices=["words", "subword"],
+                   help="corpus vocab when no --vocab file is given: "
+                        "'words' = whole words + character pieces; "
+                        "'subword' = BPE-learned WordPiece pieces")
+    p.add_argument("--corpus-vocab-size", type=int, default=30000,
+                   help="corpus vocab budget (words: most words kept; "
+                        "subword: pieces in all)")
+    p.add_argument("--distill-lambda", type=float, default=0.0,
+                   help="> 0 mixes the cross-fitted char-n-gram SVM's soft "
+                        "targets into the 2a and 2c train loss: (1-X)·loss"
+                        "(hard) + X·CE(teacher prob), the teacher fitted "
+                        "only inside each fold's train rows; eval and TSVs "
+                        "stay neural.  The teacher needs sklearn, or its "
+                        "cached distill_<key>.npz under --cache-dir")
     p.add_argument("--text-params", default=None,
-                   help="text-encoder weights to start from: the flax-tree "
-                        ".npz that MLM pretraining writes (mlm_encoder.npz) "
-                        "in either package")
+                   help="text-encoder weights to start from: a Hugging "
+                        "Face BERT-family checkpoint (dir or .bin/.pt/"
+                        ".safetensors/.npz file), or the flax-tree .npz "
+                        "that MLM pretraining writes (mlm_encoder.npz) in "
+                        "either package")
+    p.add_argument("--caption-params", default=None,
+                   help="2c: caption-encoder weights (a Hugging Face "
+                        "RoBERTa-family checkpoint, dir or file)")
     p.add_argument("--image-arch", default=None,
                    help=f"image backbone from the 2B zoo ({IMAGE_ARCHS})")
     p.add_argument("--image-size", type=int, default=None,
@@ -659,7 +848,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "and starts every fold from it (skipped when "
                         "--image-params is given; color images only)")
     p.add_argument("--image-params", default=None,
-                   help="image-backbone weights to start from: the "
+                   help="image-backbone weights to start from: a "
+                        "torchvision/timm/HF checkpoint of the backbone's "
+                        "arch (ResNet family, ViT, ConvNeXt), or the "
                         "flax-tree .npz that SimCLR pretraining writes "
                         "(simclr_backbone.npz) in either package")
     p.add_argument("--pooling", default=None,
@@ -674,6 +865,74 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=_cmd_train)
+
+    p = sub.add_parser("baselines", help="the organizers' classic baselines "
+                                         "of a subtask, each checked and "
+                                         "scored")
+    p.add_argument("--subtask", choices=["2a", "2b", "2c"], required=True)
+    p.add_argument("--train-file-path", "-tr", required=True)
+    p.add_argument("--dev-file-path", "-te", required=True)
+    p.add_argument("--out-dir", "-o", default=".")
+    p.add_argument("--image-root", default=None)
+    p.add_argument("--features-dir", default=None,
+                   help="reuse or write the feature JSONs here (default: "
+                        "<out-dir>/features)")
+    p.add_argument("--text-vocab", default=None)
+    p.add_argument("--text-params", default=None,
+                   help="BERT checkpoint for the text feature branch")
+    p.add_argument("--image-params", default=None,
+                   help="ConvNeXt-Tiny checkpoint for the image branch")
+    p.add_argument("--skip-features", action="store_true",
+                   help="skip the frozen-feature SVM rows (no device pass)")
+    p.add_argument("--ngram-probs", action="store_true",
+                   help="also write a Platt-calibrated n-gram probability "
+                        "TSV (a member for `combine`)")
+    p.add_argument("--ngram-analyzer", default="word",
+                   choices=["word", "char", "char_wb"],
+                   help="TF-IDF n-gram family (word: the organizers' row)")
+    p.add_argument("--ngram-range", type=int, nargs=2, default=[1, 1],
+                   metavar=("MIN", "MAX"),
+                   help="n-gram span for the TF-IDF vectorizer")
+    p.add_argument("--ngram-max-features", type=int, default=5000,
+                   help="TF-IDF vocabulary cap")
+    p.add_argument("--ngram-cv", type=int, default=0, metavar="K",
+                   help="also run the n-gram SVM under the 2A fold protocol "
+                        "(K folds over train+dev, each fold's val macro-F1 "
+                        "at its Youden threshold)")
+    p.add_argument("--ngram-fold-probs", type=int, default=0, metavar="K",
+                   help="write K per-fold calibrated n-gram probability "
+                        "TSVs over the dev split")
+    p.add_argument("--device", default="cuda",
+                   help="feature extraction: cuda (default) or cpu")
+    p.set_defaults(fn=_cmd_baselines)
+
+    p = sub.add_parser("extract-features", help="frozen ConvNeXt-Tiny image "
+                                                "and BERT pooler text "
+                                                "features of a manifest")
+    p.add_argument("--data-dir", "-d", required=True)
+    p.add_argument("--file-name", "-f", required=True)
+    p.add_argument("--out-file-name", "-o", required=True)
+    p.add_argument("--image-root", default=None)
+    p.add_argument("--features-dir", default=None,
+                   help="output dir (default <data-dir>/features)")
+    p.add_argument("--text-vocab", default=None,
+                   help="WordPiece vocab file (required with a corpus-MLM "
+                        "npz encoder: the vocab.txt saved next to it)")
+    p.add_argument("--text-params", default=None,
+                   help="text encoder weights: an HF BERT checkpoint (dir "
+                        "or file) or a corpus-MLM flax-tree npz")
+    p.add_argument("--image-params", default=None,
+                   help="ConvNeXt-Tiny weights (torchvision or HF state "
+                        "dict)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.set_defaults(fn=_cmd_extract_features)
+
+    p = sub.add_parser("smoke", help="train the tiny 2C model on synthetic "
+                                     "memes; exit 1 unless it learns")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.set_defaults(fn=_cmd_smoke)
     return ap
 
 

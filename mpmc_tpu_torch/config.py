@@ -235,6 +235,12 @@ class DataConfig:
     # (``train/packed.py``): 2A trains on batches of this many packed rows,
     # 2C packs each batch's text and caption tokens; eval stays unpacked.
     pack_rows: int = 0
+    # The corpus vocab of a run without a vocab file: "words" (whole words
+    # by frequency plus character pieces, at most ``corpus_vocab_size``
+    # words) or "subword" (BPE-learned WordPiece pieces,
+    # ``text/wordpiece_learn.py``, ``corpus_vocab_size`` pieces in all).
+    corpus_vocab_mode: str = "words"
+    corpus_vocab_size: int = 30000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,3 +288,6 @@ class TrainConfig:
     # this many epochs over the train images initializes the image backbone
     # (2B, and the 2C flagship).
     simclr_epochs: int = 0
+    # > 0: the train loss mixes in the char-n-gram teacher's soft targets
+    # (``train/distill.py``): (1 - λ)·loss(hard) + λ·CE(soft) per row.
+    distill_lambda: float = 0.0

@@ -1,30 +1,41 @@
 """Pretrained text encoders and image backbones spliced into a classifier
-(port of ``mpmc_tpu/models/pretrained.py`` for the flax-tree checkpoints).
+(port of ``mpmc_tpu/models/pretrained.py``).
 
-A text checkpoint is a flax-tree ``.npz`` (``a/b/c`` keys of the encoder's
-parameter tree in flax layouts, plus the ``__flax_encoder__`` marker), as
-corpus MLM pretraining writes it in either package
-(``train/pretrain.save_encoder_params``).  It is spliced into the model's
-``encoder`` (kind ``text``) or ``text_model`` (kinds ``simple`` and
-``multimodal``); the model keeps its own pooler and token-type tables when
-the file lacks them.
+A checkpoint is a file or a Hugging Face checkpoint directory
+(:func:`load_state_dict`: ``pytorch_model.bin`` or ``model.safetensors``
+in a directory, or a ``.bin``/``.pt``, ``.safetensors`` or ``.npz`` file).
+It becomes the flax-layout numpy tree of the JAX package, which the port's
+weight bridge (``models/convert.from_jax_variables``) loads:
 
-An image checkpoint is the flax-tree ``.npz`` that SimCLR pretraining
-writes in either package (``train/pretrain_image.save_image_encoder_params``):
-``params/...`` and ``batch_stats/...`` keys of the backbone's trees plus the
-``__flax_image_encoder__`` marker.  It is spliced into the model's
-``backbone`` (kinds ``image`` and ``simple``) or ``image_model.backbone``
-(kind ``multimodal``), the BatchNorm running statistics into the
-``BatchNorm`` buffers.
+* text (``--text-params``, ``--caption-params``): the flax-tree ``.npz``
+  that corpus MLM pretraining writes in either package (``a/b/c`` keys and
+  the ``__flax_encoder__`` marker, ``train/pretrain.save_encoder_params``),
+  taken as it is; anything else is a BERT or RoBERTa state dict, converted
+  by ``models/hf_convert.convert_bert_state_dict``.  It is spliced into the
+  model's ``encoder`` (kind ``text``), ``text_model`` (kinds ``simple`` and
+  ``multimodal``) or ``caption_text_model`` (the caption encoder of the
+  ``multimodal`` kind); the model keeps its own pooler and token-type
+  tables when the checkpoint lacks them.
+* image (``--image-params``): the flax-tree ``.npz`` that SimCLR
+  pretraining writes in either package (``params/...`` and
+  ``batch_stats/...`` keys and the ``__flax_image_encoder__`` marker),
+  taken as it is; anything else is a torchvision, timm or HF state dict of
+  the model's backbone arch, converted by
+  ``models/vision_convert.convert_image_state_dict`` (with its classifier
+  head for the simple model's 1000-logit backbone).  It is spliced into the
+  model's ``backbone`` (kinds ``image`` and ``simple``) or
+  ``image_model.backbone`` (kind ``multimodal``), the BatchNorm running
+  statistics into the ``BatchNorm`` buffers.
 
-Either way the leaf set and every shape must equal the model's.  Hugging
-Face text state dicts and torchvision/timm image state dicts are not
-ported yet.
+Either way the leaf set and every shape must equal the model's, so a
+checkpoint of another arch or another vocab size raises instead of
+training a half-random model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -37,20 +48,40 @@ FLAX_MARKER = "__flax_encoder__"
 FLAX_IMAGE_MARKER = "__flax_image_encoder__"
 TEXT_SUBMODULE = {"text": "encoder", "simple": "text_model",
                   "multimodal": "text_model"}
+CAPTION_SUBMODULE = "caption_text_model"
 IMAGE_SUBMODULE = {"image": "backbone", "simple": "backbone",
                    "multimodal": "image_model.backbone"}
 
 
 @dataclasses.dataclass(frozen=True)
 class PretrainedSpec:
-    """Paths of a text-encoder checkpoint (``--text-params``) and of an
-    image-backbone checkpoint (``--image-params``)."""
+    """Paths of the text-encoder (``--text-params``), caption-encoder
+    (``--caption-params``) and image-backbone (``--image-params``)
+    checkpoints."""
 
     text: Optional[str] = None
+    caption: Optional[str] = None
     image: Optional[str] = None
 
     def __bool__(self) -> bool:
-        return bool(self.text or self.image)
+        return bool(self.text or self.caption or self.image)
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A checkpoint's tensors as numpy: an HF checkpoint directory, a
+    ``.safetensors`` file (read with numpy), an ``.npz``, or any other file
+    as a torch ``state_dict`` (``torch.load(weights_only=True)``)."""
+    from mpmc_tpu_torch.models.hf_convert import (load_hf_checkpoint,
+                                                  read_safetensors,
+                                                  torch_state_dict)
+    if os.path.isdir(path):
+        return load_hf_checkpoint(path)
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            return dict(f)
+    return torch_state_dict(path)
 
 
 def flatten_params(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -86,33 +117,54 @@ def save_encoder_params(encoder_tree: Dict, path: str) -> None:
     np.savez(path, **flat)
 
 
-def read_text_params(path: str) -> Dict:
-    """The flax tree of a marked encoder npz."""
-    if not path.endswith(".npz"):
-        raise ValueError(f"{path}: only the flax-tree .npz of corpus MLM "
-                         "pretraining is read; other text checkpoints "
-                         "(Hugging Face state dicts) are not ported yet")
-    with np.load(path) as f:
-        flat = dict(f)
-    if FLAX_MARKER not in flat:
-        raise ValueError(f"{path}: no {FLAX_MARKER} entry; Hugging Face "
-                         "state dicts are not ported yet")
-    return unflatten_params(flat)
+def read_text_params(path: str, text_cfg=None) -> Dict:
+    """The encoder tree of a text checkpoint: a marked MLM npz as it is,
+    else a BERT/RoBERTa state dict converted for ``text_cfg`` (its heads
+    split the attention kernels)."""
+    sd = load_state_dict(path)
+    if FLAX_MARKER in sd:
+        return unflatten_params(sd)
+    if text_cfg is None:
+        raise ValueError(f"{path}: a Hugging Face state dict needs the "
+                         "encoder's config to be converted")
+    from mpmc_tpu_torch.models.hf_convert import convert_bert_state_dict
+    return convert_bert_state_dict(sd, text_cfg)
 
 
-def read_image_params(path: str) -> Dict:
-    """``{"params": tree, "batch_stats": tree}`` of a marked image-backbone
-    npz."""
-    if path.endswith(".npz"):
-        with np.load(path) as f:
-            flat = dict(f)
-        if FLAX_IMAGE_MARKER in flat:
-            tree = unflatten_params(flat)
-            return {"params": tree.get("params", {}),
-                    "batch_stats": tree.get("batch_stats", {})}
-    raise ValueError(f"{path}: only the flax-tree .npz of SimCLR pretraining "
-                     f"(with its {FLAX_IMAGE_MARKER} entry) is read; "
-                     "torchvision/timm image state dicts are not ported yet")
+def infer_text_config_from_tree(tree: Dict):
+    """A ``TextEncoderConfig`` from an encoder tree's shapes (an MLM npz
+    carries no config): vocab and width from the word embeddings, heads
+    from the query kernel, the layer count from the ``layer_<i>`` groups."""
+    from mpmc_tpu_torch.config import TextEncoderConfig
+    vocab, hidden = tree["word_embeddings"]["embedding"].shape
+    max_pos = tree["position_embeddings"]["embedding"].shape[0]
+    type_vocab = tree["token_type_embeddings"]["embedding"].shape[0]
+    heads = tree["layer_0"]["attention"]["query"]["kernel"].shape[1]
+    inter = tree["layer_0"]["intermediate"]["kernel"].shape[1]
+    layers = sum(1 for k in tree if k.startswith("layer_"))
+    return TextEncoderConfig(vocab_size=vocab, hidden_size=hidden,
+                             num_layers=layers, num_heads=heads,
+                             intermediate_size=inter,
+                             max_position_embeddings=max_pos,
+                             type_vocab_size=type_vocab)
+
+
+def read_image_params(path: str, arch: Optional[str] = None,
+                      num_classes: int = 0) -> Dict:
+    """``{"params": tree, "batch_stats": tree}`` of an image checkpoint: a
+    marked SimCLR npz as it is, else a torchvision/timm/HF state dict of
+    backbone ``arch`` converted (``num_classes`` > 0 keeps its classifier
+    head)."""
+    sd = load_state_dict(path)
+    if FLAX_IMAGE_MARKER in sd:
+        tree = unflatten_params(sd)
+        return {"params": tree.get("params", {}),
+                "batch_stats": tree.get("batch_stats", {})}
+    if arch is None:
+        raise ValueError(f"{path}: a torchvision/timm/HF state dict needs "
+                         "the backbone's arch to be converted")
+    from mpmc_tpu_torch.models.vision_convert import convert_image_state_dict
+    return convert_image_state_dict(sd, arch, num_classes)
 
 
 def _spec(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, Tuple]:
@@ -148,33 +200,50 @@ def _load(module: nn.Module, params: Dict, batch_stats: Dict) -> None:
     module.load_state_dict(sd)
 
 
+def _splice_text(model: nn.Module, where: str, path: str) -> None:
+    encoder = model.get_submodule(where)
+    own = to_jax_params(encoder)
+    tree = read_text_params(path, encoder.cfg)
+    for key in ("pooler", "token_type_embeddings"):
+        if key in own and key not in tree:
+            tree[key] = own[key]
+    _validate(own, tree, where)
+    _load(encoder, tree, {})
+
+
+def _splice_image(model: nn.Module, where: str, arch: str, path: str
+                  ) -> None:
+    backbone = model.get_submodule(where)
+    own, own_stats = to_jax_variables(backbone)
+    n_cls = own["classifier"]["bias"].shape[0] if "classifier" in own else 0
+    tree = read_image_params(path, arch, n_cls)
+    _validate(own, tree["params"], f"params/{where}")
+    if tree["batch_stats"]:
+        _validate(own_stats, tree["batch_stats"], f"batch_stats/{where}")
+    _load(backbone, tree["params"], tree["batch_stats"])
+
+
 def apply_pretrained(model: nn.Module, kind: str,
                      spec: Optional[PretrainedSpec]) -> nn.Module:
-    """Load ``spec.text`` into the text encoder and ``spec.image`` into the
-    image backbone of ``model`` (a classifier of ``kind``) in place;
-    returns the model."""
+    """Load ``spec.text`` into the text encoder, ``spec.caption`` into the
+    caption encoder and ``spec.image`` into the image backbone of ``model``
+    (a classifier of ``kind``) in place; returns the model.  A checkpoint
+    for a part the kind does not have raises, as in the JAX package: the
+    text model takes only a text checkpoint, the image model only an image
+    one, the simple model no caption checkpoint."""
     if not spec:
         return model
     if spec.text:
         if kind not in TEXT_SUBMODULE:
             raise ValueError(f"the {kind} model has no text encoder")
-        encoder = getattr(model, TEXT_SUBMODULE[kind])
-        own = to_jax_params(encoder)
-        tree = read_text_params(spec.text)
-        for key in ("pooler", "token_type_embeddings"):
-            if key in own and key not in tree:
-                tree[key] = own[key]
-        _validate(own, tree, TEXT_SUBMODULE[kind])
-        _load(encoder, tree, {})
+        _splice_text(model, TEXT_SUBMODULE[kind], spec.text)
+    if spec.caption:
+        if kind != "multimodal" or model.cfg.caption is None:
+            raise ValueError(f"the {kind} model has no caption encoder")
+        _splice_text(model, CAPTION_SUBMODULE, spec.caption)
     if spec.image:
         if kind not in IMAGE_SUBMODULE:
             raise ValueError(f"the {kind} model has no image backbone")
-        where = IMAGE_SUBMODULE[kind]
-        backbone = model.get_submodule(where)
-        own, own_stats = to_jax_variables(backbone)
-        tree = read_image_params(spec.image)
-        _validate(own, tree["params"], f"params/{where}")
-        if tree["batch_stats"]:
-            _validate(own_stats, tree["batch_stats"], f"batch_stats/{where}")
-        _load(backbone, tree["params"], tree["batch_stats"])
+        _splice_image(model, IMAGE_SUBMODULE[kind], model.cfg.image.arch,
+                      spec.image)
     return model

@@ -149,7 +149,12 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             train_rows = np.arange(n_train)
     check_interval = max(steps_per_epoch // max(cfg.eval_per_epoch, 1), 1)
     data_rng = np.random.default_rng(cfg.seed + fold)
-    run_id = f"{cfg.team_name}_{cfg.run_id}"
+    # Tag the run id when distillation really applies, that is when the
+    # training rows carry the teacher's soft targets (the step reads them
+    # only then): 2B and the simple 2C, which take none, stay untagged.
+    distilled = cfg.distill_lambda > 0 and "soft" in train_data
+    run_id = (f"{cfg.team_name}_{cfg.run_id}"
+              + ("_distill" if distilled else ""))
     best_f1, best_thr = -1.0, 0.5
     history: List[Dict] = []
     steps: List[Dict[str, float]] = []

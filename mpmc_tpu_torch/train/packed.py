@@ -38,7 +38,8 @@ class PackedTrainPlan:
     """Per-epoch packed 2A batch factory for ``train.loop.fit``: batches of
     ``t_ids``, ``t_segments``, ``t_positions`` ``[G, P]`` and ``t_row_of``,
     ``t_slot_of``, ``t_start_of``, ``label``, ``valid`` ``[G *
-    max_segments]``."""
+    max_segments]``, and ``soft`` (the distillation targets, 0.5 in the
+    empty slots) when the data has a ``soft`` column."""
 
     data: Dict[str, np.ndarray]
     pack_len: int
@@ -67,6 +68,8 @@ class PackedTrainPlan:
                                 self.pack_len, num_rows=self.row_budget,
                                 max_segments=self.max_segments)
         labels = np.asarray(d["label"])[perm]
+        soft = (np.asarray(d["soft"], np.float32)[perm] if "soft" in d
+                else None)
         G, cap = self.rows_per_batch, self.samples_per_batch
         for start in range(0, self.row_budget, G):
             rows = slice(start, start + G)
@@ -87,12 +90,17 @@ class PackedTrainPlan:
             batch["label"] = np.zeros(cap, labels.dtype)
             batch["label"][:k] = labels[members]
             batch["valid"] = (np.arange(cap) < k).astype(np.float32)
+            if soft is not None:
+                batch["soft"] = np.full(cap, 0.5, np.float32)
+                batch["soft"][:k] = soft[members]
             yield batch, k
 
 
 @dataclasses.dataclass
 class PackedMultimodalPlan:
-    """Per-epoch packed batch factory for ``train.loop.fit``."""
+    """Per-epoch packed batch factory for ``train.loop.fit``; every
+    per-sample column of the data (``label``, and ``soft`` when it has the
+    distillation targets) goes into the batch as it is."""
 
     data: Dict[str, np.ndarray]
     batch_size: int

@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
@@ -336,11 +337,17 @@ class Optimizer:
 # ---------------------------------------------------------------------------
 
 def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
-                      valid: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
+                      valid: torch.Tensor, cfg: TrainConfig,
+                      soft: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``cfg.loss`` (focal, or softmax cross-entropy over integer labels)
     over the valid rows: ``sum(vec * w) / max(sum(w), 1e-9)`` (replicated
-    rows of a short last batch and empty packed slots carry zero
-    weight)."""
+    rows of a short last batch and empty packed slots carry zero weight).
+
+    With ``soft`` (the teacher's per-row P(propaganda),
+    ``train/distill.py``) and ``cfg.distill_lambda`` > 0 the per-row loss
+    is ``(1-λ)·loss(hard) + λ·CE(soft)``, the soft cross-entropy over the
+    one-logit sigmoid head or the two-logit softmax head; any other head
+    raises."""
     outputs = outputs.to(torch.float32)
     if cfg.loss == LossType.FOCAL:
         vec = sigmoid_focal_loss(outputs, labels.to(torch.float32),
@@ -348,6 +355,20 @@ def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
                                  reduction="none")
     else:
         vec = softmax_cross_entropy(outputs, labels, reduction="none")
+    if soft is not None and cfg.distill_lambda > 0:
+        q = soft.to(torch.float32)
+        if outputs.ndim == 1:
+            logp1 = F.logsigmoid(outputs)
+            logp0 = F.logsigmoid(-outputs)
+        elif outputs.shape[-1] == 2:
+            logp = torch.log_softmax(outputs, dim=-1)
+            logp1, logp0 = logp[:, 1], logp[:, 0]
+        else:
+            raise ValueError("distill_lambda requires a binary head "
+                             f"(got outputs {tuple(outputs.shape)})")
+        vec_soft = -(q * logp1 + (1.0 - q) * logp0)
+        lam = cfg.distill_lambda
+        vec = (1.0 - lam) * vec + lam * vec_soft
     w = valid.to(torch.float32)
     return torch.sum(vec * w) / torch.clamp(torch.sum(w), min=1e-9)
 
@@ -419,7 +440,8 @@ class TrainStep:
         else:
             leaves = list(self.compute.values())
             outputs = functional_call(self.model, self.compute, args)
-        loss = loss_from_outputs(outputs, b["label"], b["valid"], self.cfg)
+        loss = loss_from_outputs(outputs, b["label"], b["valid"], self.cfg,
+                                 b.get("soft"))
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, torch.autograd.grad(
                      loss, leaves, allow_unused=True))]

@@ -225,6 +225,33 @@ def test_cuda_kernel_matches_plain_version(mode, shape, dtype, atol):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
 
 
+@pytest.mark.cuda
+def test_cuda_f32_forward_at_the_extract_features_shape():
+    """``extract-features``' text batch in IEEE f32: ``[32,128,12,64]``
+    padding with ragged lengths, the last five samples the zero rows that
+    fill a short last batch (fully masked); finite everywhere and equal to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(11)
+    B, S, H, D = 32, 128, 12, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).cuda() for _ in range(3))
+    lens = rng.integers(3, S + 1, B)
+    lens[-5:] = 0
+    mask = torch.from_numpy((np.arange(S)[None] < lens[:, None]).astype(
+        np.float32)).cuda()
+    before = A.launch_counts["attention_fwd"]
+    out, lse = A.attention_forward_cuda(q, k, v, mask, "padding")
+    torch.cuda.synchronize()
+    assert A.launch_counts["attention_fwd"] == before + 1
+    assert torch.isfinite(out).all()
+    ref_out, ref_lse = A.attention_forward_reference(q, k, v, mask,
+                                                     "padding")
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+
+
 # ViT's sequences, 1 + (size / patch)^2 in mode none: 17 (the tests' tiny
 # ViT), 50 (B/32 at 224), 197 (B/16 and L/16 at 224), 577 (at 384: the last
 # 64-row tile holds one row) and the cap; H = 12 (ViT-B) and 16 (ViT-L).

@@ -381,12 +381,22 @@ def test_to_jax_params_inverts_the_bridge():
 
 
 def test_text_params_refuses_other_checkpoints(tmp_path):
+    """A file that is not the marked MLM npz is a Hugging Face state dict:
+    without the encoder's config it is refused, and an incomplete one, a
+    missing file and a tree of another shape raise."""
     np.savez(tmp_path / "hf.npz", **{"embeddings.word_embeddings.weight":
                                      np.zeros((4, 2), np.float32)})
-    for path in (str(tmp_path / "hf.npz"), str(tmp_path / "model.bin")):
-        with pytest.raises(ValueError, match="not ported yet"):
-            read_text_params(path)
+    text_cfg = ModelConfig.small_2a().text
+    with pytest.raises(ValueError, match="needs the encoder's config"):
+        read_text_params(str(tmp_path / "hf.npz"))
+    with pytest.raises(KeyError, match="position_embeddings"):
+        read_text_params(str(tmp_path / "hf.npz"), text_cfg)
+    with pytest.raises(FileNotFoundError):
+        read_text_params(str(tmp_path / "model.bin"), text_cfg)
     model = build_model(ModelConfig.small_2a(), CPU, kind="text")
+    with pytest.raises(KeyError, match="position_embeddings"):
+        apply_pretrained(model, "text",
+                         PretrainedSpec(text=str(tmp_path / "hf.npz")))
     with pytest.raises(ValueError, match="leaf sets differ"):
         tree = to_jax_params(model.encoder)
         del tree["layer_0"]

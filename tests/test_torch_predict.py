@@ -118,7 +118,9 @@ def test_predict_checkpoint_needs_its_vocab(tmp_path, monkeypatch):
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter
-    (this test process has JAX loaded already)."""
+    (this test process has JAX loaded already); importing them loads no
+    sklearn, transformers or safetensors either (a GPU host need not have
+    any of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mpmc_tpu_torch, chip_smoke\n"
@@ -129,8 +131,13 @@ def test_port_imports_nothing_of_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mpmc_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('models.captioner', 'train.checkpoint', "
-        "'train.trainer'):\n"
+        "'train.trainer', 'text.wordpiece_learn', 'train.distill', "
+        "'baselines.classic', 'baselines.extract_features', "
+        "'models.hf_convert', 'models.vision_convert'):\n"
         "    assert 'mpmc_tpu_torch.' + m in sys.modules, m\n"
+        "host_only = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('sklearn', 'transformers', 'safetensors'))\n"
+        "assert not host_only, host_only\n"
         "print('ok', len([m for m in sys.modules "
         "if m.startswith('mpmc_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -295,13 +295,23 @@ def test_backbone_npz_splices_both_ways(tmp_path, kind, writer):
 
 
 def test_image_params_refuses_what_is_not_ported(tmp_path):
+    """A file that is not the marked SimCLR npz is a torchvision/timm/HF
+    state dict: without the arch it is refused, the tiny ResNet has no
+    converter (in the JAX package neither), and an incomplete one or a
+    missing file raises."""
     model = build_model(ModelConfig(num_classes=2,
                                     image=ImageEncoderConfig(**TINY)), CPU,
                         kind="image")
-    np.savez(tmp_path / "tv.npz", **{"conv1.weight": np.zeros((1, 1))})
-    for path in (str(tmp_path / "tv.npz"), str(tmp_path / "resnet.pth")):
-        with pytest.raises(ValueError, match="not ported yet"):
-            read_image_params(path)
+    np.savez(tmp_path / "tv.npz", **{"conv1.weight": np.zeros((4, 3, 7, 7))})
+    with pytest.raises(ValueError, match="needs the backbone's arch"):
+        read_image_params(str(tmp_path / "tv.npz"))
+    with pytest.raises(ValueError, match="no converter"):
+        apply_pretrained(model, "image",
+                         PretrainedSpec(image=str(tmp_path / "tv.npz")))
+    with pytest.raises(KeyError, match="bn1"):
+        read_image_params(str(tmp_path / "tv.npz"), "resnet18")
+    with pytest.raises(FileNotFoundError):
+        read_image_params(str(tmp_path / "resnet.pth"), "resnet18")
     path = str(tmp_path / "short.npz")
     params, _ = to_jax_variables(model.backbone)
     params.pop(sorted(params)[0])
