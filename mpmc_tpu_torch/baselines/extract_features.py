@@ -19,7 +19,8 @@ shapes and whose ``vocab.txt`` is then mandatory.  Without a checkpoint an
 encoder keeps random weights from a seed.  Flax ``.msgpack`` files are a
 JAX-side format and raise.  Without ``--text-vocab`` the vocabulary is the
 JAX function's inline corpus vocab.  Images decode through
-``image/decode.decode_batch``.
+``image/pipeline.ImagePipeline`` (native, then PIL), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -195,15 +196,15 @@ def prepare(data_dir: str, file_name: str, image_root: Optional[str],
             ) -> Tuple:
     """The manifest, its decoded uint8 images, token ids and mask, and the
     text config and MLM tree."""
-    from mpmc_tpu_torch.image.decode import decode_batch
+    from mpmc_tpu_torch.image.pipeline import ImagePipeline
     from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
     manifest = read_manifest(os.path.join(data_dir, file_name))
     texts = [preprocess_arabic_tweet(t) for t in manifest.texts]
     tok, cfg, mlm_tree = resolve_text(texts, text_vocab_path,
                                       text_params_path)
     ids, mask = tok.encode_batch(texts, TEXT_LEN)
-    images = decode_batch(manifest.img_paths, IMAGE_SIZE, False,
-                          image_root or data_dir, num_threads=16)
+    images = ImagePipeline(manifest.img_paths, root=image_root or data_dir,
+                           size=IMAGE_SIZE).preload()
     return manifest, images, ids, mask, cfg, mlm_tree
 
 

@@ -24,7 +24,6 @@ from mpmc_tpu_torch.config import (LossType, PoolingType, Subtask,
                                    TrainConfig, model_config_to_dict)
 from mpmc_tpu_torch.cv.kfold import stratified_kfold
 from mpmc_tpu_torch.image.augment import eval_preprocess
-from mpmc_tpu_torch.image.decode import decode_batch
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.models.captioner import precompute_captions
 from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
@@ -48,15 +47,32 @@ def corpus_wordpiece_vocab(texts, max_words: int = 30000) -> Dict[str, int]:
 
 
 def build_tokenizer(texts, vocab_path: Optional[str],
+                    cache_dir: Optional[str] = None,
                     corpus_vocab_mode: str = "words",
-                    corpus_vocab_size: int = 30000) -> WordPieceTokenizer:
-    """The vocab file when one exists, else a corpus vocab over ``texts``:
-    ``corpus_vocab_mode`` "words" (:func:`corpus_wordpiece_vocab`, at most
-    ``corpus_vocab_size`` words) or "subword" (BPE-learned pieces,
-    ``corpus_vocab_size`` in all).  The JAX package fronts the same vocab
-    with its C++ tokenizer when that is built; the token ids are the same
-    either way."""
+                    corpus_vocab_size: int = 30000):
+    """Tokenizer for the drivers, with the JAX package's dispatch: the C++
+    batch WordPiece backend (GIL-free, multi-threaded,
+    ``native/tokenizer.cpp``) behind the npz disk cache under ``cache_dir``
+    whenever its library builds, else the pure-Python
+    ``WordPieceTokenizer``; the token ids are the same either way.  The
+    vocab is the file ``vocab_path`` when it exists, else a corpus vocab
+    over ``texts``: ``corpus_vocab_mode`` "words"
+    (:func:`corpus_wordpiece_vocab`, at most ``corpus_vocab_size`` words) or
+    "subword" (BPE-learned pieces, ``corpus_vocab_size`` in all).  A corpus
+    vocab is written to ``<cache_dir>/corpus_vocab_<h>.txt`` (``.cache``
+    without one) for the native backend to load."""
+    import hashlib
+
+    from mpmc_tpu_torch.text.native import NativeWordPieceTokenizer
+    from mpmc_tpu_torch.text.tokenizer import HybridWordPieceTokenizer
+    from mpmc_tpu_torch.text.wordpiece import load_vocab
+
+    use_native = NativeWordPieceTokenizer.available()
     if vocab_path and os.path.exists(vocab_path):
+        if use_native:
+            log.info("tokenizer backend: native C++ (vocab %s)", vocab_path)
+            return HybridWordPieceTokenizer(load_vocab(vocab_path),
+                                            vocab_path, cache_dir=cache_dir)
         return WordPieceTokenizer.from_file(vocab_path)
     if corpus_vocab_mode == "subword":
         from mpmc_tpu_torch.text.wordpiece_learn import learn_wordpiece_vocab
@@ -66,6 +82,17 @@ def build_tokenizer(texts, vocab_path: Optional[str],
     else:
         raise ValueError(f"unknown corpus_vocab_mode: {corpus_vocab_mode!r} "
                          "(expected 'words' or 'subword')")
+    if use_native:
+        cache_dir = cache_dir or ".cache"
+        os.makedirs(cache_dir, exist_ok=True)
+        h = hashlib.sha256("\n".join(vocab).encode("utf-8")).hexdigest()[:16]
+        corpus_vocab_path = os.path.join(cache_dir, f"corpus_vocab_{h}.txt")
+        if not os.path.exists(corpus_vocab_path):
+            WordPieceTokenizer(vocab).save(corpus_vocab_path)
+        log.info("tokenizer backend: native C++ (corpus vocab, %d entries)",
+                 len(vocab))
+        return HybridWordPieceTokenizer(vocab, corpus_vocab_path,
+                                        cache_dir=cache_dir)
     return WordPieceTokenizer(vocab)
 
 
@@ -111,6 +138,17 @@ def bucketing_enabled(cfg: TrainConfig) -> bool:
                     cfg.model.pooling.value)
         return False
     return True
+
+
+def prepare_images(manifest: Manifest, image_root: str, size: int,
+                   grayscale: bool = False, strict: bool = False
+                   ) -> np.ndarray:
+    """The manifest's images decoded once to uint8 ``[N, size, size, C]``
+    through :class:`~mpmc_tpu_torch.image.pipeline.ImagePipeline`."""
+    from mpmc_tpu_torch.image.pipeline import ImagePipeline
+    pipe = ImagePipeline(manifest.img_paths, root=image_root, size=size,
+                         grayscale=grayscale, strict=strict)
+    return pipe.preload()
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +289,17 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                                          binary_head=binary_head),
                              kind, pretrained)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + fold)
+    embed_support = None
+    if cfg.embedding_optimizer == "sparse" and plan is None:
+        # The exact bound of an unpacked run: a step touches at most
+        # batch_size x bucketed length rows of each table.  Packed rows
+        # vary by epoch, so packed runs keep the config's bound.
+        lens = [train_d[k].shape[-1] for k in ("text_ids", "caption_ids")
+                if k in train_d]
+        if lens:
+            embed_support = bs * max(lens)
     train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
-                                  store, generator, augment)
+                                  store, generator, augment, embed_support)
     eval_step = make_eval_step(model, cfg, grayscale=grayscale,
                                cast_in_place=False)
     return FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
@@ -372,8 +419,9 @@ def prepare_2a(cfg: TrainConfig, out_dir: str,
     dev = read_manifest(cfg.data.dev_manifest)
     combined = train.concat(dev) if cfg.data.fold_over_train_plus_dev else train
     texts = [preprocess_arabic_tweet(t) for t in combined.texts]
-    tok = build_tokenizer(texts, vocab_path, cfg.data.corpus_vocab_mode,
-                          cfg.data.corpus_vocab_size)
+    tok = build_tokenizer(texts, vocab_path, cache_dir=cfg.data.cache_dir,
+                          corpus_vocab_mode=cfg.data.corpus_vocab_mode,
+                          corpus_vocab_size=cfg.data.corpus_vocab_size)
     _persist_vocab(tok, cfg, out_dir)
     mcfg = dataclasses.replace(
         cfg.model, subtask=Subtask.A, num_classes=2,
@@ -462,11 +510,9 @@ def prepare_2b(cfg: TrainConfig) -> Prepared2B:
     cfg = dataclasses.replace(cfg, model=mcfg, loss=LossType.CROSS_ENTROPY,
                               data=dataclasses.replace(cfg.data, pack_rows=0))
     size, gray = mcfg.image.image_size, mcfg.image.grayscale
-    data = {"image": decode_batch(train.img_paths, size, gray,
-                                  cfg.data.image_root),
+    data = {"image": prepare_images(train, cfg.data.image_root, size, gray),
             "label": train.labels}
-    test = {"image": decode_batch(dev.img_paths, size, gray,
-                                  cfg.data.image_root),
+    test = {"image": prepare_images(dev, cfg.data.image_root, size, gray),
             "label": dev.labels}
     return Prepared2B(cfg, data, test, train.ids, dev.ids)
 
@@ -545,8 +591,9 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
     train = read_manifest(cfg.data.train_manifest)
     dev = read_manifest(cfg.data.dev_manifest)
     tok = build_tokenizer([preprocess_arabic_tweet(t) for t in train.texts],
-                          vocab_path, cfg.data.corpus_vocab_mode,
-                          cfg.data.corpus_vocab_size)
+                          vocab_path, cache_dir=cfg.data.cache_dir,
+                          corpus_vocab_mode=cfg.data.corpus_vocab_mode,
+                          corpus_vocab_size=cfg.data.corpus_vocab_size)
     _persist_vocab(tok, cfg, out_dir)
     mcfg = dataclasses.replace(
         cfg.model, subtask=Subtask.C,
@@ -555,10 +602,8 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
         text=dataclasses.replace(cfg.model.text,
                                  vocab_size=max(tok.vocab.values()) + 1))
     size = mcfg.image.image_size
-    imgs = {"train": decode_batch(train.img_paths, size, False,
-                                  cfg.data.image_root),
-            "dev": decode_batch(dev.img_paths, size, False,
-                                cfg.data.image_root)}
+    imgs = {"train": prepare_images(train, cfg.data.image_root, size),
+            "dev": prepare_images(dev, cfg.data.image_root, size)}
     cap_tok, caps = None, {}
     if (scratch_captioner and caption_generate_fn is None
             and mcfg.caption is not None):
@@ -572,7 +617,8 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
                     generate_fn=caption_generate_fn)
                 for key, split in (("train", train), ("dev", dev))}
         cap_tok = build_tokenizer(caps["train"] + caps["dev"],
-                                  caption_vocab_path)
+                                  caption_vocab_path,
+                                  cache_dir=cfg.data.cache_dir)
         _persist_vocab(cap_tok, cfg, out_dir, "caption_vocab.txt")
         mcfg = dataclasses.replace(mcfg, caption=dataclasses.replace(
             mcfg.caption, vocab_size=max(cap_tok.vocab.values()) + 1))

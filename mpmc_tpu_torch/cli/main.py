@@ -117,11 +117,11 @@ import numpy as np
 import torch
 
 from mpmc_tpu_torch.cli.experiments import (build_tokenizer, bucket_seq_len,
-                                            bucket_trim, prepare_text)
+                                            bucket_trim, prepare_images,
+                                            prepare_text)
 from mpmc_tpu_torch.config import (DataConfig, FusionMethod, ModelConfig,
                                    PoolingType, TextEncoderConfig,
                                    TrainConfig, model_config_from_dict)
-from mpmc_tpu_torch.image.decode import decode_batch
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
 from mpmc_tpu_torch.models.captioner import precompute_captions
@@ -282,9 +282,9 @@ def prepare_inputs(args) -> PredictInputs:
         bucket("text_mask", "text_ids", variant.text_len,
                model_cfg.max_text_len)
     if kind != "text":
-        data["image"] = decode_batch(manifest.img_paths,
-                                     model_cfg.image.image_size,
-                                     variant.grayscale, args.image_root)
+        data["image"] = prepare_images(manifest, args.image_root,
+                                       model_cfg.image.image_size,
+                                       grayscale=variant.grayscale)
     if kind == "multimodal" and model_cfg.caption is not None:
         caps = precompute_captions(manifest.img_paths,
                                    cache_dir=data_cfg.cache_dir)
@@ -629,6 +629,7 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       resume=args.resume,
                       adam_mu_dtype=args.adam_mu_dtype,
                       embedding_optimizer=args.embedding_optimizer,
+                      profile_dir=args.profile_dir,
                       mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack,
                       simclr_epochs=args.simclr_epochs,
                       distill_lambda=args.distill_lambda)
@@ -771,8 +772,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "this many packed rows, 2c packs each batch's text "
                         "and caption tokens (recipe default: fast 4 for 2a "
                         "and 8 for 2c, reference 0)")
-    p.add_argument("--embedding-optimizer", choices=["factored", "adam"],
-                   default=None)
+    p.add_argument("--embedding-optimizer",
+                   choices=["adam", "factored", "sparse"], default=None,
+                   help="the word-embedding tables' optimizer: adam, "
+                        "factored (momentum-free factored RMS) or sparse "
+                        "(lazy row-Adam on the rows each step touches); "
+                        "recipe default: fast factored, reference adam")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of steady-state train "
+                        "steps (dispatches 3 to 5 of epoch 0) here")
     p.add_argument("--adam-mu-dtype", choices=["bfloat16", "float32"],
                    default=None)
     p.add_argument("--checkpoint-dir", default=None,

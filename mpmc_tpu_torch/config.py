@@ -277,9 +277,17 @@ class TrainConfig:
     # Adam first-moment dtype ("bfloat16" under the fast recipe); None keeps
     # it f32.
     adam_mu_dtype: Optional[str] = None
-    # "adam", or "factored": factored-RMS (Adafactor's second moment, no
-    # first moment) for the word-embedding tables.
+    # Write a torch.profiler trace of train dispatches 3 to 5 of epoch 0
+    # here (``train/loop.fit``).
+    profile_dir: Optional[str] = None
+    # "adam"; "factored": factored-RMS (Adafactor's second moment, no
+    # first moment) for the word-embedding tables; "sparse": lazy row-Adam
+    # on only the rows each step's gradient touches
+    # (``train/sparse_opt.py``).
     embedding_optimizer: str = "adam"
+    # A floor on the sparse optimizer's per-step row bound; 0 leaves it to
+    # the drivers (``train.step.sparse_support_rows``).
+    embedding_support_rows: int = 0
     # > 0: corpus MLM pretraining (``train/pretrain.py``) of this many
     # epochs initializes the text encoder; ``mlm_pack`` packs its corpus.
     mlm_epochs: int = 0

@@ -1,10 +1,11 @@
 """Training and batched evaluation over host arrays (port of
-``batch_iter``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``),
-with exact-state resume from a :class:`~mpmc_tpu_torch.train.checkpoint.
-Checkpointer`."""
+``batch_iter``, ``prefetch_batches``, ``run_eval`` and ``fit`` in
+``mpmc_tpu/train/loop.py``), with exact-state resume from a
+:class:`~mpmc_tpu_torch.train.checkpoint.Checkpointer`."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -51,6 +52,61 @@ def batch_iter(data: Dict[str, np.ndarray], batch_size: int,
         yield batch, len(take)
 
 
+def prefetch_batches(it: Iterator[Tuple[Dict[str, np.ndarray], int]],
+                     put: Callable = lambda b: b, depth: int = 2,
+                     stats: Optional[Dict[str, float]] = None,
+                     ) -> Iterator[Tuple[object, Dict[str, np.ndarray], int]]:
+    """Run the batch iterator ``it`` and ``put`` on a background thread
+    ``depth`` batches ahead of the consumer.  Yields ``(put(batch), batch,
+    n_valid)``: the host batch is kept for the failure dump.  An exception
+    on the thread is raised here after the batches before it.
+
+    ``stats`` (updated in place) counts ``gets`` (batches consumed),
+    ``empty_gets`` (the queue was empty when the consumer asked: the
+    producer fell behind), ``wait_s`` (consumer time blocked on the queue)
+    and ``put_s`` (producer time inside ``put``)."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+    STOP = object()
+    errs: List[BaseException] = []
+
+    def producer():
+        try:
+            for batch, n_valid in it:
+                if stats is not None:
+                    p0 = time.perf_counter()
+                    dev = put(batch)
+                    stats["put_s"] = (stats.get("put_s", 0.0)
+                                      + time.perf_counter() - p0)
+                    q.put((dev, batch, n_valid))
+                else:
+                    q.put((put(batch), batch, n_valid))
+        except BaseException as e:  # surface on the consumer thread
+            errs.append(e)
+        q.put(STOP)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        if stats is not None:
+            empty = q.empty()
+            t0 = time.perf_counter()
+            item = q.get()
+            stats["wait_s"] = (stats.get("wait_s", 0.0)
+                               + time.perf_counter() - t0)
+            if item is not STOP:
+                stats["gets"] = stats.get("gets", 0) + 1
+                stats["empty_gets"] = stats.get("empty_gets", 0) + int(empty)
+        else:
+            item = q.get()
+        if item is STOP:
+            break
+        yield item
+    if errs:
+        raise errs[0]
+
+
 @dataclasses.dataclass
 class EvalResult:
     loss: float
@@ -89,6 +145,10 @@ class FitResult:
     best_threshold: float          # the TSV labels' threshold at the best
     history: List[Dict]            # one entry per eval
     steps: List[Dict[str, float]]  # per step: loss, grad_norm
+    # prefetch_batches' stall counters over the run: gets, empty_gets,
+    # wait_s, put_s.
+    input_pipeline: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
 
 
 def _emit_threshold(cfg: TrainConfig, res: EvalResult) -> float:
@@ -96,10 +156,17 @@ def _emit_threshold(cfg: TrainConfig, res: EvalResult) -> float:
             else res.threshold)
 
 
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device
-               ) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def _host_tensors(batch: Dict[str, np.ndarray], pin: bool
+                  ) -> Dict[str, torch.Tensor]:
+    """The batch as CPU tensors, in page-locked memory under ``pin``, so
+    that the consumer's copy to the card is asynchronous.  Runs on the
+    prefetch thread; the copy itself is issued by the consumer on the
+    current stream, ordered with the steps."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory() if pin else t
+    return out
 
 
 def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
@@ -129,8 +196,15 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     Batches are the packed plan's (``packed_plan``) or, unpacked, the
     shuffled ``train_rows`` of the device-resident store as ``idx``; the
     order comes from ``np.random.default_rng(cfg.seed + fold)`` as in the
-    JAX package.  Losses and grad norms are read back at each log or eval
-    point; a non-finite loss raises ``FloatingPointError``.
+    JAX package.  A background thread (:func:`prefetch_batches`) builds
+    each batch and pins it ahead of the step.  Losses and grad norms are
+    read back at each log or eval point; a non-finite loss writes the
+    offending batch (row indices resolved to the fold's rows) and its grad
+    norm to ``nonfinite_fold<k>_epoch<e>_batch<b>.npz`` in the working
+    directory, then raises ``FloatingPointError``.  With
+    ``cfg.profile_dir`` dispatches 3 to 5 of epoch 0 run under the
+    profiler, whose trace goes there.  Each epoch ends with a log of its
+    items/s, p50 ms a step and the input wait.
 
     A ``train_step`` restored from a checkpoint carries its optimizer's
     step count, and the run resumes there as the JAX loop does: the
@@ -158,7 +232,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     best_f1, best_thr = -1.0, 0.5
     history: List[Dict] = []
     steps: List[Dict[str, float]] = []
-    pending: List[Tuple[int, int, Dict]] = []
+    pending: List[Tuple[int, int, Dict, Dict[str, np.ndarray]]] = []
     step_count = train_step.optimizer.count
     start_epoch = min(step_count // steps_per_epoch, cfg.epochs)
     resume_bi = step_count - start_epoch * steps_per_epoch
@@ -183,86 +257,143 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             log.info("restored best test F1 %.4f (threshold %.4f): TSVs "
                      "rewrite only on improvement", best_f1, best_thr)
 
+    # Row index -> row of ``train_data``, for the failure dump of an
+    # unpacked batch, which carries only the resident store's row indices.
+    local_of = None
+    if packed_plan is None and len(train_rows):
+        local_of = np.zeros(int(np.max(train_rows)) + 1, np.int64)
+        local_of[train_rows] = np.arange(len(train_rows))
+
+    def dump_payload(host_batch: Dict[str, np.ndarray]) -> Dict:
+        payload = {k: np.asarray(v) for k, v in host_batch.items()}
+        if local_of is not None and "idx" in payload:
+            idx = payload["idx"]
+            payload.update({k: np.asarray(v)[local_of[idx]]
+                            for k, v in train_data.items()})
+            payload["idx"] = idx
+        return payload
+
     def flush():
         if not pending:
             return
         vals = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
-                            for _, _, m in pending]).cpu().numpy()
-        for (ep, bi_, _), (loss, gnorm) in zip(pending, vals):
+                            for _, _, m, _ in pending]).cpu().numpy()
+        for (ep, bi_, _, host_batch), (loss, gnorm) in zip(pending, vals):
             if not np.isfinite(loss):
+                dump = f"nonfinite_fold{fold}_epoch{ep}_batch{bi_}.npz"
+                np.savez(dump, **dump_payload(host_batch),
+                         grad_norm=np.float64(gnorm))
                 pending.clear()
                 raise FloatingPointError(
                     f"non-finite loss at epoch {ep} batch {bi_} "
-                    f"(grad_norm={gnorm:.3e})")
+                    f"(grad_norm={gnorm:.3e}); batch dumped to {dump}")
             steps.append({"loss": float(loss), "grad_norm": float(gnorm)})
         pending.clear()
 
-    for epoch in range(start_epoch, cfg.epochs):
-        t0 = time.time()
-        first = len(steps)
-        if packed_plan is not None:
-            it = packed_plan.epoch_iter(data_rng)
-        else:
-            it = batch_iter({"idx": train_rows.astype(np.int64)}, bs,
-                            shuffle=True, rng=data_rng, with_valid=True)
-        bi = 0
-        for batch, _ in it:
-            if epoch == start_epoch and bi < resume_bi:
-                bi += 1                 # trained before the checkpoint
-                continue
-            metrics = train_step(_to_device(batch, device))
-            bi += 1
-            step_count += 1
-            pending.append((epoch, bi, metrics))
-            if bi % LOG_EVERY == 0:
+    from mpmc_tpu_torch.utils.profiling import StepTimer, trace
+    timer = StepTimer()
+    pf_stats: Dict[str, float] = {}
+    pin = device.type == "cuda"
+    dispatch_no = 0
+    profiler = contextlib.ExitStack()   # holds the trace while it runs
+    with profiler:                      # closed on any exit
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.time()
+            first = len(steps)
+            pf_at_start = dict(pf_stats)
+            if packed_plan is not None:
+                it = packed_plan.epoch_iter(data_rng)
+            else:
+                it = batch_iter({"idx": train_rows.astype(np.int64)}, bs,
+                                shuffle=True, rng=data_rng, with_valid=True)
+            bi = 0
+            for host, host_batch, _ in prefetch_batches(
+                    it, lambda b: _host_tensors(b, pin), stats=pf_stats):
+                if epoch == start_epoch and bi < resume_bi:
+                    bi += 1                 # trained before the checkpoint
+                    continue
+                if cfg.profile_dir and epoch == 0 and dispatch_no < 6:
+                    # Dispatches 3 to 5: the first carries the one-time set-up,
+                    # the second the warm-up; from the third on, steady state.
+                    dispatch_no += 1
+                    if dispatch_no == 3:
+                        profiler.enter_context(trace(cfg.profile_dir))
+                    elif dispatch_no == 6:
+                        flush()
+                        profiler.close()
+                        log.info("profiler trace written to %s",
+                                 cfg.profile_dir)
+                metrics = train_step({k: v.to(device, non_blocking=True)
+                                      for k, v in host.items()})
+                bi += 1
+                step_count += 1
+                timer.tick()
+                pending.append((epoch, bi, metrics, host_batch))
+                if bi % LOG_EVERY == 0:
+                    flush()
+                    log.info("TRAIN | Epoch [%d] | Batch [%d/%d] | "
+                             "Loss: %.4f | Grad Norm: %.4f", epoch, bi,
+                             steps_per_epoch,
+                             np.mean([m["loss"] for m in steps[-LOG_EVERY:]]),
+                             steps[-1]["grad_norm"])
+                if test_data is None or not (bi % check_interval == 0
+                                             or bi == steps_per_epoch):
+                    continue
                 flush()
-                log.info("TRAIN | Epoch [%d] | Batch [%d/%d] | Loss: %.4f | "
-                         "Grad Norm: %.4f", epoch, bi, steps_per_epoch,
-                         np.mean([m["loss"] for m in steps[-LOG_EVERY:]]),
-                         steps[-1]["grad_norm"])
-            if test_data is None or not (bi % check_interval == 0
-                                         or bi == steps_per_epoch):
-                continue
-            flush()
-            t_res = run_eval(eval_step, test_data, bs, device)
-            history.append({"epoch": epoch, "batch": bi, "step": step_count,
-                            "test_f1": t_res.macro_f1,
-                            "test_loss": t_res.loss})
-            log.info(" TEST | Epoch [%d] | Batch [%d/%d] | Loss: %.4f | "
-                     "Acc: %.4f | F1: %.4f | thresh: %.4f", epoch, bi,
-                     steps_per_epoch, t_res.loss, t_res.accuracy,
-                     t_res.macro_f1, t_res.threshold)
-            v_res = None
-            if val_data is not None:
-                v_res = run_eval(eval_step, val_data, bs, device)
-                log.info("  VAL | Epoch [%d] | F1: %.4f", epoch,
-                         v_res.macro_f1)
-            if t_res.macro_f1 > best_f1:
-                best_f1 = t_res.macro_f1
-                best_thr = _emit_threshold(cfg, t_res)
-                if tsv_prefix and test_ids is not None:
-                    pred = (t_res.probs > best_thr).astype(int)
-                    write_label_tsv(f"{tsv_prefix}.tsv", test_ids, pred,
-                                    run_id)
-                    write_prob_tsv(f"{tsv_prefix}_probs_fold_{fold}.tsv",
-                                   test_ids, pred, t_res.probs, run_id,
-                                   prob_header=cfg.prob_header)
-                    if (cfg.emit_val_tsv and v_res is not None
-                            and val_ids is not None):
-                        vpred = (v_res.probs > _emit_threshold(cfg, v_res)
-                                 ).astype(int)
-                        write_prob_tsv(f"{tsv_prefix}_val_fold_{fold}.tsv",
-                                       val_ids, vpred, v_res.probs, run_id,
+                t_res = run_eval(eval_step, test_data, bs, device)
+                history.append({"epoch": epoch, "batch": bi,
+                                "step": step_count,
+                                "test_f1": t_res.macro_f1,
+                                "test_loss": t_res.loss})
+                log.info(" TEST | Epoch [%d] | Batch [%d/%d] | Loss: %.4f | "
+                         "Acc: %.4f | F1: %.4f | thresh: %.4f", epoch, bi,
+                         steps_per_epoch, t_res.loss, t_res.accuracy,
+                         t_res.macro_f1, t_res.threshold)
+                v_res = None
+                if val_data is not None:
+                    v_res = run_eval(eval_step, val_data, bs, device)
+                    log.info("  VAL | Epoch [%d] | F1: %.4f", epoch,
+                             v_res.macro_f1)
+                if t_res.macro_f1 > best_f1:
+                    best_f1 = t_res.macro_f1
+                    best_thr = _emit_threshold(cfg, t_res)
+                    if tsv_prefix and test_ids is not None:
+                        pred = (t_res.probs > best_thr).astype(int)
+                        write_label_tsv(f"{tsv_prefix}.tsv", test_ids, pred,
+                                        run_id)
+                        write_prob_tsv(f"{tsv_prefix}_probs_fold_{fold}.tsv",
+                                       test_ids, pred, t_res.probs, run_id,
                                        prob_header=cfg.prob_header)
-                if on_best is not None:
-                    on_best(step_count)
-                if checkpointer is not None:
-                    checkpointer.save(train_step.state_dict(), step_count,
-                                      {"test_f1": best_f1,
-                                       "threshold": best_thr})
-        flush()
-        losses = [m["loss"] for m in steps[first:]]
-        log.info("TRAIN | Epoch [%d] done in %.1fs | loss %.4f", epoch,
-                 time.time() - t0, float(np.mean(losses)) if losses
-                 else float("nan"))
-    return FitResult(best_f1, best_thr, history, steps)
+                        if (cfg.emit_val_tsv and v_res is not None
+                                and val_ids is not None):
+                            vpred = (v_res.probs > _emit_threshold(cfg, v_res)
+                                     ).astype(int)
+                            write_prob_tsv(f"{tsv_prefix}_val_fold_{fold}.tsv",
+                                           val_ids, vpred, v_res.probs, run_id,
+                                           prob_header=cfg.prob_header)
+                    if on_best is not None:
+                        on_best(step_count)
+                    if checkpointer is not None:
+                        checkpointer.save(train_step.state_dict(), step_count,
+                                          {"test_f1": best_f1,
+                                           "threshold": best_thr})
+            flush()
+            if epoch == 0 and 3 <= dispatch_no < 6:   # ended before dispatch 6
+                profiler.close()
+                log.info("profiler trace written to %s", cfg.profile_dir)
+            losses = [m["loss"] for m in steps[first:]]
+            stats = timer.stats(batch_size=bs)
+            gets = int(pf_stats.get("gets", 0) - pf_at_start.get("gets", 0))
+            wait_s = (pf_stats.get("wait_s", 0.0)
+                      - pf_at_start.get("wait_s", 0.0))
+            empty = int(pf_stats.get("empty_gets", 0)
+                        - pf_at_start.get("empty_gets", 0))
+            log.info("TRAIN | Epoch [%d] done in %.1fs | loss %.4f | "
+                     "%.1f items/s (p50 %.0f ms/step) | input-wait %.2f ms/"
+                     "dispatch (%d/%d empty gets)", epoch, time.time() - t0,
+                     float(np.mean(losses)) if losses else float("nan"),
+                     stats.get("items_per_sec", 0.0),
+                     stats.get("step_ms_p50", 0.0),
+                     1e3 * wait_s / max(gets, 1), empty, gets)
+    return FitResult(best_f1, best_thr, history, steps,
+                     input_pipeline=dict(pf_stats))

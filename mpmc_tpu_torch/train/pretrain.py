@@ -272,7 +272,7 @@ def mlm_pretrain(text_cfg: TextEncoderConfig, ids: np.ndarray,
     mask_id = tok.vocab.get("[MASK]")
     if mask_id is None:
         raise ValueError("MLM pretraining needs a [MASK] token in the vocab")
-    special = torch.tensor([tok.cls_id, tok.vocab["[SEP]"],
+    special = torch.tensor([tok.vocab["[CLS]"], tok.vocab["[SEP]"],
                             tok.vocab["[PAD]"], mask_id], device=device)
     with torch.device(device):
         model = MLMModel(text_cfg)

@@ -2,8 +2,9 @@
 of every model kind; the train step of the 2A text model and the 2C model,
 packed or not, with the bf16 policy, the valid-weighted focal (one logit)
 or cross-entropy (two) loss, the global-norm clip, grouped Adam with the
-fast recipe's bf16 first moment and factored-RMS word embeddings, and the
-linear-warmup or constant schedule.
+fast recipe's bf16 first moment and factored-RMS word embeddings (or lazy
+row-Adam ones, ``train/sparse_opt.py``), and the linear-warmup or constant
+schedule.
 
 Precision policy under ``bf16``: the master parameters stay f32; every step
 runs the model on bf16 copies (``torch.func.functional_call``), so the
@@ -35,6 +36,7 @@ from mpmc_tpu_torch.models.classifier import (PackedMultimodalClassifier,
 from mpmc_tpu_torch.models.norm import set_dropout_generator
 from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss, softmax_cross_entropy
 from mpmc_tpu_torch.train.packed import packed_model_inputs
+from mpmc_tpu_torch.train.sparse_opt import sparse_adam_rows
 
 EvalStep = Callable[[Dict[str, torch.Tensor]],
                     Tuple[torch.Tensor, torch.Tensor]]
@@ -198,21 +200,44 @@ def adam_updates(g: List[torch.Tensor], states: List[Dict[str, torch.Tensor]],
     return updates
 
 
+def sparse_support_rows(cfg: TrainConfig,
+                        embed_support: Optional[int] = None) -> int:
+    """The per-step row bound of ``embedding_optimizer="sparse"``, as the
+    JAX ``make_optimizer`` sets it: the driver's exact bound
+    ``embed_support`` (batch size times the bucketed sequence length, for
+    unpacked runs), else the config's bound, rows times the longer of
+    ``max_text_len`` and ``max_caption_len`` (rows: the larger of
+    ``batch_size`` and ``pack_rows``); never below
+    ``cfg.embedding_support_rows``."""
+    if embed_support is not None:
+        return max(cfg.embedding_support_rows, int(embed_support))
+    rows = max(cfg.data.batch_size, cfg.data.pack_rows)
+    per_step = rows * max(cfg.model.max_text_len or 1,
+                          cfg.model.max_caption_len or 1)
+    return max(cfg.embedding_support_rows, per_step)
+
+
 class Optimizer:
     """``clip_by_global_norm(grad_clip_norm)`` then, per group, Adam at the
     head or encoder schedule (``cfg.lr_schedule``: linear warmup over
-    ``total_steps``, or constant), or (``embed``: ``word_embeddings`` under
-    ``embedding_optimizer="factored"``) factored RMS with decay 0.8 and
-    epsilon 1e-30 at the encoder schedule.  Updates the parameters in
+    ``total_steps``, or constant), or for ``embed`` (the ``word_embeddings``
+    tables) under ``embedding_optimizer="factored"`` factored RMS with
+    decay 0.8 and epsilon 1e-30, and under ``"sparse"`` lazy row-Adam
+    (``train/sparse_opt.py``) on at most :func:`sparse_support_rows` rows
+    a step, both at the encoder schedule.  Updates the parameters in
     place; parameters without a gradient take a zero one."""
 
     RMS_DECAY, RMS_EPS = 0.8, 1e-30
 
     def __init__(self, cfg: TrainConfig, total_steps: int,
-                 params: Dict[str, torch.Tensor]):
-        if cfg.embedding_optimizer not in ("adam", "factored"):
-            raise ValueError(f"embedding_optimizer "
-                             f"{cfg.embedding_optimizer!r} is not ported")
+                 params: Dict[str, torch.Tensor],
+                 embed_support: Optional[int] = None):
+        if cfg.embedding_optimizer not in ("adam", "factored", "sparse"):
+            raise ValueError(f"unknown embedding_optimizer "
+                             f"{cfg.embedding_optimizer!r} (expected "
+                             f"'adam', 'factored' or 'sparse')")
+        self.support_rows = (sparse_support_rows(cfg, embed_support)
+                             if cfg.embedding_optimizer == "sparse" else 0)
         lrs = {"head": cfg.learning_rate,
                "encoder": cfg.learning_rate * cfg.encoder_lr_scale}
         if cfg.lr_schedule == "constant":
@@ -235,7 +260,13 @@ class Optimizer:
         self.label: Dict[str, str] = {}
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         for name, p in params.items():
-            if (cfg.embedding_optimizer == "factored"
+            if (cfg.embedding_optimizer == "sparse"
+                    and "word_embeddings" in name and p.ndim == 2):
+                self.label[name] = "embed"
+                self.state[name] = {
+                    "mu": torch.zeros_like(p, dtype=torch.float32),
+                    "nu": torch.zeros_like(p, dtype=torch.float32)}
+            elif (cfg.embedding_optimizer == "factored"
                     and "word_embeddings" in name):
                 self.label[name] = "embed"
                 dims = _factored_dims(p.shape)
@@ -254,8 +285,9 @@ class Optimizer:
 
     def state_dict(self) -> Dict:
         """The step count and each parameter's state at its own dtype (the
-        Adam moments, bf16 or f32; the factored RMS rows and columns); the
-        multi-tensor scratch is left out."""
+        Adam moments, bf16 or f32; the factored RMS rows and columns; the
+        sparse tables' f32 moments); the multi-tensor scratch is left
+        out."""
         return {"count": self.count,
                 "state": {n: {k: v for k, v in st.items() if k != "mu_f32"}
                           for n, st in self.state.items()}}
@@ -300,6 +332,11 @@ class Optimizer:
         for label, schedule in self.schedules.items():
             group = [n for n in names if self.label[n] == label]
             if not group:
+                continue
+            if label == "embed" and self.support_rows:
+                for n in group:
+                    sparse_adam_rows(self.params[n], g[n], self.state[n],
+                                     schedule(c), c, self.support_rows)
                 continue
             lr = -schedule(c)
             params = [self.params[n] for n in group]
@@ -480,16 +517,20 @@ class TrainStep:
 def build_train_step(model: nn.Module, cfg: TrainConfig,
                      total_steps: int, store: Dict[str, torch.Tensor],
                      generator: torch.Generator,
-                     augment: Optional[Augment] = None) -> TrainStep:
+                     augment: Optional[Augment] = None,
+                     embed_support: Optional[int] = None) -> TrainStep:
     """The train step over ``model``'s parameters (kept f32 as masters),
     with the optimizer for ``total_steps`` steps.  ``store`` holds the
     device-resident arrays that batches index; ``augment(images_u8,
     generator)`` turns uint8 pixels into the model's f32 input
-    (default: :func:`train_augment`)."""
+    (default: :func:`train_augment`); ``embed_support`` is the sparse
+    embedding optimizer's exact per-step row bound, when the driver knows
+    it (:func:`sparse_support_rows`)."""
     for p in model.parameters():
         if p.dtype != torch.float32:
             raise ValueError("training needs f32 master parameters")
-    optimizer = Optimizer(cfg, total_steps, dict(model.named_parameters()))
+    optimizer = Optimizer(cfg, total_steps, dict(model.named_parameters()),
+                          embed_support)
     return TrainStep(model, cfg, optimizer, store, generator,
                      augment or train_augment)
 

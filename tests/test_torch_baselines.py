@@ -25,6 +25,7 @@ import torch  # noqa: E402
 from mpmc_tpu.baselines import classic as j_classic  # noqa: E402
 from mpmc_tpu.baselines.extract_features import \
     extract_features as j_extract_features  # noqa: E402
+from mpmc_tpu import native_lib as j_native_lib  # noqa: E402
 from mpmc_tpu.cli.main import main as j_main  # noqa: E402
 from mpmc_tpu.image import decode as j_decode  # noqa: E402
 from mpmc_tpu.image.pipeline import ImagePipeline  # noqa: E402
@@ -37,6 +38,20 @@ from mpmc_tpu_torch.text.normalize import \
     preprocess_arabic_tweet  # noqa: E402
 
 LETTERS = list("ابتثجحخدذرزسشصضطظعغفقكلمنهوي")
+
+
+def load_jax_native():
+    """The JAX package's decoder module, loaded.  Every test process
+    imports ``tests/test_native.py``, whose ``skipif`` builds the JAX
+    library at collection time: processes that build it at once can leave
+    one of them with a failed load, remembered for the session.  The
+    library is on disk by now, so such a process loads it again."""
+    if j_native_lib.load() is None:
+        j_native_lib._tried = False
+        j_decode._native_checked = False
+    assert j_native_lib.load() is not None, "the JAX native library builds"
+    assert j_decode._load_native() is not None
+    return j_decode
 
 
 def _rows(n, seed, off):
@@ -236,21 +251,23 @@ def feature_inputs(tmp_path_factory):
     return root
 
 
-def test_decode_equals_jax_image_pipeline(feature_inputs, monkeypatch):
+def test_decode_equals_jax_image_pipeline(feature_inputs):
     """The port's decode gives the JAX ``ImagePipeline.preload``'s uint8
-    (its PIL path) on the test images, the missing one included."""
+    (both on their native path) on the test images, the missing one
+    included.  The JAX native library is loaded first: its loader has no
+    lock, and threads that ask while it loads take the PIL path."""
     root = feature_inputs
     with open(root / "m.json", encoding="utf-8") as f:
         paths = [r["img_path"] for r in json.load(f)]
-    monkeypatch.setattr(j_decode, "_load_native", lambda: None)
+    load_jax_native()
     want = ImagePipeline(paths, root=str(root), size=224).preload()
     np.testing.assert_array_equal(
         decode_batch(paths, 224, False, str(root), num_threads=16), want)
 
 
-def test_extract_features_json_equals_jax(feature_inputs, monkeypatch):
+def test_extract_features_json_equals_jax(feature_inputs):
     root = feature_inputs
-    monkeypatch.setattr(j_decode, "_load_native", lambda: None)
+    load_jax_native()                             # both decode natively
     kw = dict(image_root=str(root), batch_size=4,
               text_vocab_path=str(root / "vocab.txt"),
               text_params_path=str(root / "bert"),

@@ -120,7 +120,8 @@ def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter
     (this test process has JAX loaded already); importing them loads no
     sklearn, transformers or safetensors either (a GPU host need not have
-    any of them)."""
+    any of them).  The port's native libraries load from its own
+    ``_build/``, never the JAX package's ``native/libmpmc_native.so``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mpmc_tpu_torch, chip_smoke\n"
@@ -138,6 +139,16 @@ def test_port_imports_nothing_of_jax():
         "host_only = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('sklearn', 'transformers', 'safetensors'))\n"
         "assert not host_only, host_only\n"
+        "import os\n"
+        "from mpmc_tpu_torch import native_lib\n"
+        "for name in ('tokenizer', 'image_decode'):\n"
+        "    lib = native_lib.load(name)\n"
+        "    assert lib is not None, native_lib.errors\n"
+        "    assert os.path.dirname(lib._name) == native_lib.BUILD_DIR\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libmpmc_native' not in maps\n"
+        "assert native_lib.BUILD_DIR + '/libtokenizer_' in maps\n"
+        "assert native_lib.BUILD_DIR + '/libimage_decode_' in maps\n"
         "print('ok', len([m for m in sys.modules "
         "if m.startswith('mpmc_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -56,7 +56,8 @@ def test_learned_vocab_equals_jax(seed, vocab_size, min_pair_freq):
                                        ("subword", 300), ("subword", 3000)])
 def test_build_tokenizer_ids_equal_jax(tmp_path, mode, size):
     texts = _corpus(7)
-    tok = build_tokenizer(texts, None, mode, size)
+    tok = build_tokenizer(texts, None, cache_dir=str(tmp_path / "port"),
+                          corpus_vocab_mode=mode, corpus_vocab_size=size)
     jtok = j_build_tokenizer(texts, None, cache_dir=str(tmp_path / "jax"),
                              corpus_vocab_mode=mode, corpus_vocab_size=size)
     assert dict(tok.vocab) == dict(jtok.vocab)
@@ -68,13 +69,15 @@ def test_build_tokenizer_ids_equal_jax(tmp_path, mode, size):
     # a vocab file wins over the mode, in both packages
     path = str(tmp_path / "vocab.txt")
     tok.save(path)
-    again = build_tokenizer(_corpus(9), path, "subword", 10)
+    again = build_tokenizer(_corpus(9), path, cache_dir=str(tmp_path),
+                            corpus_vocab_mode="subword", corpus_vocab_size=10)
     assert dict(again.vocab) == dict(tok.vocab)
 
 
 def test_build_tokenizer_refuses_unknown_mode(tmp_path):
     with pytest.raises(ValueError, match="unknown corpus_vocab_mode"):
-        build_tokenizer(_corpus(0), None, "bytes", 100)
+        build_tokenizer(_corpus(0), None, cache_dir=str(tmp_path),
+                        corpus_vocab_mode="bytes", corpus_vocab_size=100)
     with pytest.raises(ValueError, match="unknown corpus_vocab_mode"):
         j_build_tokenizer(_corpus(0), None, cache_dir=str(tmp_path),
                           corpus_vocab_mode="bytes")
