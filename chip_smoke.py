@@ -130,7 +130,23 @@ toolkit.  Phases, each of which raises on failure:
    as phase 8's, the trace naming both attention kernels); one batch of
    sparse against dense Adam on the card; and the warm 2A step under
    ``adam``, ``factored`` and ``sparse`` at the corpus vocab and at
-   64,000 rows.
+   64,000 rows;
+14. one dispatch for K steps and fold-parallel training: phase 5's run is
+   ``--scan-steps 4`` (groups of 4 steps and of 4 eval batches, each a
+   CUDA graph after an eager first group); the same command line at
+   ``--scan-steps 1``: graphs captured and replayed, the three kernels'
+   launches equal, TSVs, per-step losses and final weights bit for bit
+   (or within Adam's bound); phase 5's fold also runs 4 single steps and
+   one replay of their group in turns (warm ms a step, the busy share of
+   each profiled, one ``cudaGraphLaunch`` a group); ``predict
+   --scan-steps 8`` against 1 on phase 3's memes and warm memes/s of
+   both; phase 13's sparse 2A run again at ``--scan-steps 4`` (phase 8's
+   2A run and phase 11's kill-and-``--resume`` are at ``--scan-steps 4``
+   too); ``train --subtask 2c --fold-parallel --scan-steps 4`` (5 folds:
+   24 attention forwards and 24 backwards a step at ``[80, S, 12, 64]``,
+   one image kernel at ``[80, 224, 224, 3]``, per-fold TSVs and
+   checkpoints, ``predict --checkpoint`` from fold 2); and one f32
+   fold-parallel step against each replica's own step.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -152,8 +168,8 @@ input and output, at 12 encoder layers and, for the cross-modal one, at 4
 
 Prints the card's name and power limit, each phase's result, the
 ``predict_kinds``, ``train_2a``/``mlm``, ``train_2b``,
-``train_variants``, ``fusion_batchnorms``, ``phase_11``, ``phase_12`` and
-``phase_13`` JSON lines, a
+``train_variants``, ``fusion_batchnorms``, ``phase_11``, ``phase_12``,
+``phase_13`` and ``phase_14`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -836,7 +852,7 @@ def phase_train(torch, work: str):
     argv = ["train", "--subtask", "2c", "-tr", train_m, "-te", dev_m,
             "--image-root", work, "--fold", "0", "--epochs", "1",
             "--checkpoint-dir", ckpt, "--out-dir", out_dir,
-            "--device", "cuda"]
+            "--scan-steps", str(SCAN_K), "--device", "cuda"]
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
@@ -927,7 +943,25 @@ def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None,
         prepare, kind = ((prepare_2a, "text") if args.subtask == "2a"
                          else (prepare_2c, "multimodal"))
         prep = prepare(cfg, tempfile.mkdtemp(dir=os.getcwd()))
-    cfg = dataclasses.replace(prep.cfg, bf16=bf16)
+    cfg = _cut_cfg(prep.cfg, bf16, dropout_zero, layers, vocab)
+    tr_idx = stratified_kfold(prep.data["label"], cfg.data.num_folds,
+                              cfg.data.fold_seed)[0][0]
+    store = resident_store(cfg, prep.data, device)
+    run = build_fold(cfg, _select(prep.data, tr_idx), tr_idx, store, device,
+                     0, augment, kind)
+    rng = np.random.default_rng(cfg.seed)
+    it = (run.plan.epoch_iter(rng) if run.plan is not None else batch_iter(
+        {"idx": tr_idx.astype(np.int64)}, cfg.data.batch_size, shuffle=True,
+        rng=rng, with_valid=True))
+    return cfg, run, [b for b, _ in it]
+
+
+def _cut_cfg(cfg, bf16: bool, dropout_zero: bool, layers=None, vocab=None):
+    """``cfg`` in bf16 or f32, with dropout 0 (``dropout_zero``), the text
+    and caption encoders cut to ``layers`` (full width), and ``vocab``
+    embedding rows for the text encoder (a shape only)."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, bf16=bf16)
     if vocab:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, text=dataclasses.replace(cfg.model.text,
@@ -946,16 +980,7 @@ def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None,
             m, text=dataclasses.replace(m.text, num_layers=layers),
             caption=m.caption and dataclasses.replace(m.caption,
                                                       num_layers=layers)))
-    tr_idx = stratified_kfold(prep.data["label"], cfg.data.num_folds,
-                              cfg.data.fold_seed)[0][0]
-    store = resident_store(cfg, prep.data, device)
-    run = build_fold(cfg, _select(prep.data, tr_idx), tr_idx, store, device,
-                     0, augment, kind)
-    rng = np.random.default_rng(cfg.seed)
-    it = (run.plan.epoch_iter(rng) if run.plan is not None else batch_iter(
-        {"idx": tr_idx.astype(np.int64)}, cfg.data.batch_size, shuffle=True,
-        rng=rng, with_valid=True))
-    return cfg, run, [b for b, _ in it]
+    return cfg
 
 
 def time_attention_at(torch, mask, mode: str, dtype, gen, what: str,
@@ -1094,22 +1119,117 @@ def warm_steps(torch, run, batches, per_step: int, bwd_kernels: int = 1):
 
 
 def phase_warm_train(torch, argv):
-    """Warm train steps of the phase 5 configuration: ms per step (the
-    first step excluded), a device-time profile by kernel, and the backward
-    kernel timed at the realized packed shapes."""
+    """Warm train steps of the phase 5 configuration: K = 1 steps against
+    K = ``SCAN_K`` group replays (``scan_turns``: ms per step, device
+    profiles), and the backward kernel timed at the realized packed
+    shapes."""
     cfg, run, batches = _fold0(torch, argv, bf16=True, dropout_zero=False,
                                device=torch.device("cuda"))
-    warm, _, _, to_dev = warm_steps(torch, run, batches, 24)
+    turns = scan_turns(torch, run, batches)
     # The backward kernel at this run's packed shapes, real segment ids.
     gen = torch.Generator(device="cuda").manual_seed(3)
     shapes = {}
     for name, prefix in (("text", "t"), ("caption", "c")):
         shapes[name] = time_attention_at(
-            torch, to_dev[1][f"{prefix}_segments"].float(), "segments",
-            torch.bfloat16, gen, f"the packed {name} shape")
+            torch, torch.from_numpy(batches[1][f"{prefix}_segments"]).to(
+                torch.device("cuda")).float(), "segments", torch.bfloat16, gen,
+            f"the packed {name} shape")
     del run
     torch.cuda.empty_cache()
-    return shapes, warm
+    return shapes, turns.pop("k1_ms"), turns
+
+
+def scan_turns(torch, run, batches):
+    """Warm steps of phase 5's fold: ``SCAN_K`` single steps (K = 1) and
+    one replay of their group (K = ``SCAN_K``) on the same batches, in
+    turns (1, K, K, 1, twice): ms per step; then a device profile of one
+    single step and of one group (busy share, kernels by name, one
+    ``cudaGraphLaunch`` a group; the single step must launch one backward
+    kernel 24 times)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    group = {k: torch.from_numpy(np.stack([b[k] for b in batches[:SCAN_K]]))
+             for k in batches[0]}
+    singles = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in batches[:SCAN_K]]
+
+    def one_k1():
+        for b in singles:
+            run.train_step({k: v.to(dev, non_blocking=True)
+                            for k, v in b.items()})
+
+    def one_k4():
+        run.scan_train_step(group)
+
+    # The timed turns train past the run's 8 steps: the optimizer's
+    # tables must cover them before the capture.
+    run.train_step.optimizer.ensure_steps(run.train_step.optimizer.count
+                                          + 32 * SCAN_K)
+    one_k4()                            # eager group, then the capture
+    one_k1()
+    times = {1: [], SCAN_K: []}
+    for _ in range(2):
+        for k, fn in ((1, one_k1), (SCAN_K, one_k4), (SCAN_K, one_k4),
+                      (1, one_k1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3 / SCAN_K)
+    check(run.scan_train_step.replays >= 4, "the group did not replay")
+    shares = {}
+    # One single step at K = 1 (a profile of eager steps is costly to
+    # read back), one group at K = 4.
+    for k, fn in ((1, lambda: run.train_step(
+            {n: v.to(dev, non_blocking=True) for n, v in singles[0].items()})),
+                  (SCAN_K, one_k4)):
+        steps = 1 if k == 1 else SCAN_K
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        cuda = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in cuda
+                if "attention_" in e.key or "image_normalize" in e.key]
+        busy = sum(e.self_device_time_total for e in cuda)
+        shares[k] = dict(
+            steps=steps, wall_ms=wall_us / 1e3, kernel_ms=busy / 1e3,
+            busy_pct=100 * busy / wall_us, kernels=sum(e.count for e in cuda),
+            graph_launches=sum(e.count for e in events
+                               if e.key == "cudaGraphLaunch"),
+            our_kernels_per_step=sum(e.count for e in ours) / steps)
+        if k == 1:
+            for e in sorted(cuda, key=lambda e: -e.self_device_time_total
+                            )[:8] + ours:
+                print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+                      f"{e.count:5d}x  {e.key[:90]}")
+            bwd = [e.count for e in ours if "attention_bwd" in e.key]
+            check(bwd == [24], f"the backward should be one kernel launched "
+                               f"24 times a step, got {bwd}")
+    check(shares[SCAN_K]["graph_launches"] == 1,
+          f"the profiled group made {shares[SCAN_K]['graph_launches']} graph "
+          f"launches")
+    check(shares[SCAN_K]["our_kernels_per_step"]
+          == shares[1]["our_kernels_per_step"] > 0,
+          f"the profiles' kernels of this port a step differ: {shares}")
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    for k in (1, SCAN_K):
+        print(f"  warm 2C step at K = {k}: median {med[k]:.3f} ms/step over "
+              f"{len(times[k])} turns of {SCAN_K} steps; profiled "
+              f"{shares[k]['steps']} steps: {shares[k]['wall_ms']:.3f} ms "
+              f"wall, kernels {shares[k]['kernel_ms']:.3f} ms "
+              f"({shares[k]['busy_pct']:.1f} % busy) in "
+              f"{shares[k]['kernels']} kernels, "
+              f"{shares[k]['graph_launches']} cudaGraphLaunch, this port's "
+              f"kernels a step {shares[k]['our_kernels_per_step']:g}")
+    return dict(warm_step_ms={str(k): v for k, v in med.items()},
+                profile={str(k): v for k, v in shares.items()},
+                k1_ms=sorted(times[1]))
 
 
 def phase_train_card_vs_cpu(torch, argv):
@@ -1310,7 +1430,7 @@ def profiled_share(torch, seen, what: str):
     return wall_ms, busy_ms, ours
 
 
-def train_2a_cli(torch, work: str, name: str, flags):
+def train_2a_cli(torch, work: str, name: str, flags, checkpoint=True):
     """``train --subtask 2a`` through the command line on phase 5's
     manifests (folds over train+dev, fold 0, one epoch, batch 16, bf16, the
     given ``flags``), launch counts zeroed before and read after.  Checks
@@ -1327,8 +1447,9 @@ def train_2a_cli(torch, work: str, name: str, flags):
     argv = ["train", "--subtask", "2a",
             "-tr", os.path.join(work, "train.json"),
             "-te", os.path.join(work, "dev.json"), "--fold", "0", "--epochs",
-            "1", "--checkpoint-dir", os.path.join(work, f"{name}_ck"),
-            "--out-dir", out_dir, "--device", "cuda"] + flags
+            "1", "--out-dir", out_dir, "--device", "cuda"] + flags
+    if checkpoint:
+        argv += ["--checkpoint-dir", os.path.join(work, f"{name}_ck")]
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
@@ -1403,7 +1524,8 @@ def phase_train_2a(torch, work: str):
     5's manifests, and predict from the checkpoint over the fold's val
     memes."""
     from mpmc_tpu_torch.cli.main import main as cli_main
-    argv, launches, _, probs, _, _ = train_2a_cli(torch, work, "train_2a", [])
+    argv, launches, _, probs, _, _ = train_2a_cli(
+        torch, work, "train_2a", ["--scan-steps", str(SCAN_K)])
     # predict on the best checkpoint, over the fold's val memes (from both
     # manifests), reproduces the best eval's probabilities.
     records = {}
@@ -2629,7 +2751,8 @@ def phase_train_scratch_captioner(torch, work: str):
     from mpmc_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
     out_dir, ckpt = (os.path.join(work, n) for n in ("scratch_out",
                                                      "scratch_ck"))
-    argv = ["train", "--subtask", "2c", "-tr", os.path.join(work, "train.json"),
+    argv = ["train", "--subtask", "2c",
+            "-tr", os.path.join(work, "train.json"),
             "-te", os.path.join(work, "dev.json"), "--image-root", work,
             "--fold", "0", "--epochs", "1", "--checkpoint-dir", ckpt,
             "--out-dir", out_dir, "--scratch-captioner", "--device", "cuda"]
@@ -2715,7 +2838,8 @@ def phase_resume_2a(torch, work: str):
     argv = ["train", "--subtask", "2a", "-tr", os.path.join(work, "train.json"),
             "-te", os.path.join(work, "dev.json"), "--fold", "0", "--epochs",
             "1", "--checkpoint-dir", os.path.join(work, "resume_2a_ck"),
-            "--out-dir", out_dir, "--device", "cuda"]
+            "--out-dir", out_dir, "--scan-steps", str(SCAN_K),
+            "--device", "cuda"]
 
     class Crash(Exception):
         pass
@@ -2757,30 +2881,24 @@ def phase_resume_2a(torch, work: str):
     want = {"attention_fwd": 12 * (steps + eval_batches),
             "attention_bwd": 12 * steps, "image_normalize": 0}
     check(launches == want, f"resumed 2A launches {launches}, expected {want}")
-    worst = 0.0
-    names = ("task2A_kevinmathew.tsv", "task2A_kevinmathew_probs_fold_0.tsv",
-             "task2A_kevinmathew_val_fold_0.tsv")
-    for name in names:
-        got = tsv_rows(os.path.join(out_dir, name))
-        want_rows = tsv_rows(os.path.join(work, "train_2a_out", name))
-        check([r[:2] for r in got] == [r[:2] for r in want_rows],
-              f"{name}: ids or labels differ after the resume")
-        if len(got[0]) > 3:
-            worst = max([worst] + [abs(float(a[2]) - float(b[2])) for a, b
-                                   in zip(got[1:], want_rows[1:])])
+    cmp = compare_runs(os.path.join(work, "train_2a_out"), out_dir,
+                       "task2A", "2A resume")
+    worst = cmp["max_prob_diff"]
     check(worst <= RESUME_PROB_TOL, f"resumed probabilities differ by "
                                     f"{worst}")
-    print(f"  train --subtask 2a killed after the checkpoint at step "
-          f"{saved[0]} of {per_epoch} ({crash_wall:.3f} s), --resume: rc 0, "
-          f"{wall:.3f} s, {steps} steps; launches attention_fwd "
-          f"{launches['attention_fwd']} = 12 x ({steps} + {eval_batches} eval "
-          f"batches), attention_bwd {launches['attention_bwd']} = 12 x "
-          f"{steps}; the three TSVs against phase 8's uninterrupted run: ids "
-          f"and labels equal, max |prob diff| {worst:.3g} (tol "
+    print(f"  train --subtask 2a --scan-steps {SCAN_K} killed after the "
+          f"checkpoint at step {saved[0]} of {per_epoch} ({crash_wall:.3f} "
+          f"s), --resume: rc 0, {wall:.3f} s, {steps} steps; launches "
+          f"attention_fwd {launches['attention_fwd']} = 12 x ({steps} + "
+          f"{eval_batches} eval batches), attention_bwd "
+          f"{launches['attention_bwd']} = 12 x {steps}; the three TSVs "
+          f"against phase 8's uninterrupted K = {SCAN_K} run: identical "
+          f"{cmp['tsvs_identical']}, max |prob diff| {worst:.3g} (tol "
           f"{RESUME_PROB_TOL})")
     torch.cuda.empty_cache()
     return dict(launches=launches, wall_s=wall, crash_step=saved[0],
-                steps=steps, max_prob_diff=worst)
+                steps=steps, max_prob_diff=worst,
+                tsvs_identical=cmp["tsvs_identical"])
 
 
 def phase_trainer_clip(torch, work: str):
@@ -3702,6 +3820,465 @@ def phase_host_runtime(torch, work: str, build_routes):
     return out
 
 
+SCAN_K = 4                          # phase 5's --scan-steps: 2 groups
+PREDICT_SCAN_K = 8                  # phase 3's 8 batches: one group
+FOLDS = 5
+
+
+@contextlib.contextmanager
+def watch_fit(torch):
+    """While active, record every ``GroupedSteps`` made (its captures,
+    replays and per-graph launch tallies) and, after each ``fit`` returns,
+    its train step's final model state on the host."""
+    from mpmc_tpu_torch.train import graphs, loop
+    seen = dict(groups=[], final=[])
+    init, fit = graphs.GroupedSteps.__init__, loop.fit
+
+    def made(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen["groups"].append(self)
+
+    def fitted(train_step, *args, **kwargs):
+        res = fit(train_step, *args, **kwargs)
+        seen["final"].append({k: v.detach().cpu().clone() for k, v in
+                              train_step.model.state_dict().items()})
+        return res
+
+    graphs.GroupedSteps.__init__, loop.fit = made, fitted
+    try:
+        yield seen
+    finally:
+        graphs.GroupedSteps.__init__, loop.fit = init, fit
+
+
+def graph_launches(groups) -> dict:
+    """Kernel launches that ran inside graph replays, by kernel."""
+    out = {}
+    for g in groups:
+        for entry in g.graphs.values():
+            for name, n in entry["tally"].items():
+                out[name] = out.get(name, 0) + n * entry["replays"]
+    return out
+
+
+def replays_by_kind(groups) -> dict:
+    """Graph captures and replays of the train and eval groups."""
+    out = {}
+    for g in groups:
+        kind = "train" if g.counter is not None else "eval"
+        c, r = out.get(kind, (0, 0))
+        out[kind] = (c + g.captures, r + g.replays)
+    return out
+
+
+def max_state_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def compare_runs(out_a: str, out_b: str, prefix: str, what: str):
+    """Two runs' TSVs byte for byte, or ids and labels equal and the
+    probabilities' max |diff|; and their per-step metrics."""
+    import glob
+    names = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(out_a, "*.tsv")))
+    check(names and names == sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(out_b, "*.tsv"))), f"{what}: TSV files differ")
+    same, worst = True, 0.0
+    for name in names:
+        ra, rb = (tsv_rows(os.path.join(d, name)) for d in (out_a, out_b))
+        same &= ra == rb
+        check([r[:2] for r in ra] == [r[:2] for r in rb],
+              f"{what}: {name} ids or labels differ")
+        if len(ra[0]) > 3:
+            worst = max([worst] + [abs(float(x[2]) - float(y[2]))
+                                   for x, y in zip(ra[1:], rb[1:])])
+    with open(os.path.join(out_a, f"{prefix}_train_metrics_fold_0.json")) as f:
+        ma = json.load(f)
+    with open(os.path.join(out_b, f"{prefix}_train_metrics_fold_0.json")) as f:
+        mb = json.load(f)
+    loss = max(abs(x["loss"] - y["loss"]) for x, y in zip(ma["steps"],
+                                                         mb["steps"]))
+    return dict(tsvs_identical=bool(same), max_prob_diff=worst,
+                steps_identical=ma["steps"] == mb["steps"],
+                max_step_loss_diff=loss, steps=len(ma["steps"]), tsvs=names)
+
+
+def phase_scan_2c(torch, work: str, argv, launches_k4, watch_k4):
+    """Phase 5's ``--scan-steps 4`` run against the same command line at
+    ``--scan-steps 1``: graphs captured and replayed (train and eval) at
+    K = 4, the three kernels' launches equal, the TSVs, the per-step
+    losses, the final weights (the warm steps at K = 1 and K = 4 are phase
+    5's, ``scan_turns``)."""
+    import numpy as np
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.ops import build
+    k1 = list(argv)
+    k1[k1.index("--scan-steps") + 1] = "1"
+    k1[k1.index("--out-dir") + 1] = os.path.join(work, "train_out_k1")
+    # No checkpoints: the weights come from the run itself (``watch_fit``),
+    # and every checkpoint of a full-width run is gigabytes of writes.
+    i = k1.index("--checkpoint-dir")
+    del k1[i:i + 2]
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    with watch_fit(torch) as watch_k1:
+        check(cli_main(k1) == 0, "train --scan-steps 1 failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_k1 = dict(build.launch_counts)
+    check(launches_k1 == launches_k4, f"launches at K = 1 {launches_k1} and "
+                                      f"K = {SCAN_K} {launches_k4} differ")
+    reps = replays_by_kind(watch_k4["groups"])
+    check(reps.get("train", (0, 0))[1] > 0 and reps.get("eval", (0, 0))[1] > 0,
+          f"K = {SCAN_K}: graphs (captures, replays) {reps}")
+    in_graphs = graph_launches(watch_k4["groups"])
+    cmp = compare_runs(os.path.join(work, "train_out"),
+                       os.path.join(work, "train_out_k1"), "task2C",
+                       "2C K = 4 vs 1")
+    params = max_state_diff(watch_k4["final"][0], watch_k1["final"][0])
+    bitwise = params == 0 and cmp["tsvs_identical"] and cmp["steps_identical"]
+    # Expected bit for bit (the kernels are deterministic, the generator
+    # is registered with the graph); else within Adam's bound over the
+    # run's steps and the predict check's 1e-3 on probabilities.
+    lr = 1e-5
+    bound = 2 * 3.17 * lr * cmp["steps"]
+    check(params <= bound and cmp["max_prob_diff"] <= 1e-3,
+          f"K = {SCAN_K} vs 1: weights differ by {params}, probabilities by "
+          f"{cmp['max_prob_diff']}")
+    print(f"  train --scan-steps 1 beside phase 5's --scan-steps {SCAN_K}: "
+          f"{wall:.3f} s wall; launches equal {launches_k1}; at K = {SCAN_K} "
+          f"graphs (captures, replays) {reps}, launches inside graph replays "
+          f"{in_graphs}; bit for bit: {bitwise} (TSVs {cmp['tsvs_identical']}"
+          f", per-step losses {cmp['steps_identical']}, final weights max "
+          f"|diff| {params:.3g}; probabilities max |diff| "
+          f"{cmp['max_prob_diff']:.3g}, tol 1e-3; weights bound {bound:.3g})")
+
+    torch.cuda.empty_cache()
+    return dict(launches=launches_k1, graphs=reps,
+                launches_in_graphs=in_graphs,
+                bitwise=bitwise, final_weights_max_abs_diff=params,
+                max_prob_diff=cmp["max_prob_diff"],
+                max_step_loss_diff=cmp["max_step_loss_diff"], wall_s=wall)
+
+
+def phase_scan_predict(torch, work: str, argv):
+    """``predict --scan-steps 8`` against ``--scan-steps 1`` on phase 3's
+    128 memes (one full group): the same launches and probabilities bit
+    for bit; then warm memes/s of K = 1 passes and K = 8 replays in turns,
+    the replays' probabilities bit-equal to K = 1's."""
+    import numpy as np
+    from mpmc_tpu_torch.cli.main import (build_parser, load_model,
+                                         main as cli_main, prepare_inputs)
+    from mpmc_tpu_torch.config import TrainConfig
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train.graphs import graph_pool, make_scan_eval_step
+    from mpmc_tpu_torch.train.loop import run_eval
+    from mpmc_tpu_torch.train.step import make_eval_step
+    got = {}
+    for k in (PREDICT_SCAN_K, 1):
+        a = list(argv)
+        for flag, name in (("--out", f"pred_k{k}.tsv"),
+                           ("--probs-out", f"probs_k{k}.tsv")):
+            a[a.index(flag) + 1] = os.path.join(work, name)
+        for key in build.launch_counts:
+            build.launch_counts[key] = 0
+        check(cli_main(a + ["--scan-steps", str(k)]) == 0,
+              f"predict --scan-steps {k} failed")
+        torch.cuda.synchronize()
+        got[k] = (read_probs(os.path.join(work, f"probs_k{k}.tsv")),
+                  dict(build.launch_counts))
+    check(got[1] == got[PREDICT_SCAN_K], "predict --scan-steps 8 and 1 "
+                                         "differ (probabilities or launches)")
+    args = build_parser().parse_args(argv)
+    inputs = prepare_inputs(args)
+    dev = torch.device("cuda")
+    model = load_model(args, inputs.variant, dev, 42)
+    step = make_eval_step(model, TrainConfig(bf16=True))
+    scan = make_scan_eval_step(step, PREDICT_SCAN_K, dev, graph_pool(dev))
+    ref = run_eval(step, inputs.data, BATCH, dev).probs
+    first = run_eval(step, inputs.data, BATCH, dev, scan).probs
+    times = {1: [], PREDICT_SCAN_K: []}
+    same = bool(np.array_equal(first, ref))
+    for _ in range(3):
+        for k in (1, PREDICT_SCAN_K, PREDICT_SCAN_K, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = run_eval(step, inputs.data, BATCH, dev,
+                         scan if k > 1 else None).probs
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+            same &= bool(np.array_equal(p, ref))
+    check(scan.replays == 6 and same, f"K = 8 replays {scan.replays}, "
+                                      f"probabilities equal to K = 1: {same}")
+    rate = {k: N_MEMES / sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"  predict --scan-steps {PREDICT_SCAN_K} vs 1 on {N_MEMES} memes: "
+          f"probabilities and launches {got[1][1]} equal; warm, in turns: "
+          f"K = 1 {rate[1]:.2f} memes/s, K = {PREDICT_SCAN_K} "
+          f"{rate[PREDICT_SCAN_K]:.2f} memes/s (median of 6 passes each; "
+          f"{scan.replays} replays, probabilities bit-equal to K = 1)")
+    in_graphs = graph_launches([scan])
+    del model, step, scan
+    torch.cuda.empty_cache()
+    return dict(launches=got[1][1], launches_in_graphs=in_graphs,
+                memes_s={str(k): v for k, v in rate.items()})
+
+
+def phase_scan_2a_sparse(torch, work: str, k1_launches, k1_watch):
+    """Phase 13's ``train --subtask 2a --recipe reference
+    --embedding-optimizer sparse`` (K = 1) again at ``--scan-steps 4`` (12
+    steps an epoch, an eval every 6: groups 4, 2, 4, 2): launches, TSVs,
+    per-step losses and final weights against phase 13's run (the sparse
+    optimizer's device count and tables inside the graph)."""
+    with watch_fit(torch) as w:
+        _, launches, _, _, _, wall = train_2a_cli(
+            torch, work, f"train_2a_sparse_k{SCAN_K}",
+            SPARSE_FLAGS + ["--scan-steps", str(SCAN_K)], checkpoint=False)
+    check(launches == k1_launches,
+          f"sparse 2A launches at K = 4 {launches}, K = 1 {k1_launches}")
+    reps = replays_by_kind(w["groups"])
+    check(reps.get("train", (0, 0))[1] > 0, f"sparse 2A graphs {reps}")
+    cmp = compare_runs(os.path.join(work, f"train_2a_sparse_k{SCAN_K}_out"),
+                       os.path.join(work, "train_2a_sparse_out"),
+                       "task2A", "sparse 2A K = 4 vs 1")
+    params = max_state_diff(w["final"][0], k1_watch["final"][0])
+    bound = 2 * 3.17 * 1e-5 * cmp["steps"]
+    check(params <= bound and cmp["max_prob_diff"] <= 1e-3,
+          f"sparse 2A K = 4 vs 1: weights {params}, probs "
+          f"{cmp['max_prob_diff']}")
+    print(f"  train --subtask 2a sparse at K = {SCAN_K} against phase 13's "
+          f"K = 1: {wall:.3f} s wall, launches equal {launches}, graphs "
+          f"(captures, replays) {reps}, TSVs identical "
+          f"{cmp['tsvs_identical']}, per-step losses identical "
+          f"{cmp['steps_identical']}, final weights max |diff| {params:.3g}, "
+          f"probabilities max |diff| {cmp['max_prob_diff']:.3g} (tol 1e-3; "
+          f"weights bound {bound:.3g})")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, graphs=reps,
+                launches_in_graphs=graph_launches(w["groups"]),
+                tsvs_identical=cmp["tsvs_identical"],
+                steps_identical=cmp["steps_identical"],
+                final_weights_max_abs_diff=params, wall_s=wall)
+
+
+@contextlib.contextmanager
+def attention_shapes(torch):
+    """The ``[B, S, H, D]`` shapes the attention kernels were launched at
+    while active."""
+    from mpmc_tpu_torch.ops import attention as A
+    seen = set()
+    fwd = A.attention_forward_cuda
+
+    def recording(q, *args, **kwargs):
+        seen.add(tuple(q.shape))
+        return fwd(q, *args, **kwargs)
+
+    A.attention_forward_cuda = recording
+    try:
+        yield seen
+    finally:
+        A.attention_forward_cuda = fwd
+
+
+def phase_fold_parallel(torch, work: str):
+    """``train --subtask 2c --fold-parallel --scan-steps 4`` on phase 5's
+    manifests (5 folds at once, one epoch, unpacked): launches a step of 24
+    attention forwards and 24 backwards at ``[5*16, S, 12, 64]`` and one
+    image kernel (one fold's count), 24 forwards per eval batch; 5
+    per-fold probability TSVs and checkpoints; ``predict --checkpoint
+    <dir>/fold_2`` reproduces fold 2's best eval."""
+    # Each fold that improves writes its whole training state at full
+    # width: the 5 folds' checkpoints go to memory (/dev/shm) where there
+    # is one, to keep the script's writes to disk within what a card host
+    # with a small disk takes beside the other phases.
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    ckpt = tempfile.mkdtemp(prefix="fp_ck_", dir=shm or work)
+    try:
+        return _fold_parallel_run(torch, work, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _fold_parallel_run(torch, work: str, ckpt: str):
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.ops import build
+    out_dir = os.path.join(work, "fp_out")
+    argv = ["train", "--subtask", "2c",
+            "-tr", os.path.join(work, "train.json"),
+            "-te", os.path.join(work, "dev.json"), "--image-root", work,
+            "--epochs", "1", "--fold-parallel", "--scan-steps", str(SCAN_K),
+            "--num-folds", str(FOLDS), "--checkpoint-dir", ckpt,
+            "--out-dir", out_dir, "--device", "cuda"]
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    t0 = time.perf_counter()
+    with watch_fit(torch) as w, attention_shapes(torch) as shapes:
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    check(rc == 0, f"train --fold-parallel returned {rc}")
+    metrics = []
+    for k in range(FOLDS):
+        with open(os.path.join(out_dir,
+                               f"task2C_train_metrics_fold_{k}.json")) as f:
+            metrics.append(json.load(f))
+    steps = len(metrics[0]["steps"])
+    evals = len(metrics[0]["evals"])
+    eval_batches = evals * math.ceil(N_DEV / BATCH)
+    want = {"attention_fwd": 24 * (steps + eval_batches),
+            "attention_bwd": 24 * steps, "image_normalize": steps}
+    check(launches == want, f"fold-parallel launches {launches}, expected "
+                            f"{want} (one fold's count)")
+    reps = replays_by_kind(w["groups"])
+    check(reps.get("train", (0, 0))[1] > 0, f"fold-parallel graphs {reps}")
+    want_shapes = {(FOLDS * BATCH, 128, 12, 64), (FOLDS * BATCH, 64, 12, 64)}
+    check(shapes == want_shapes, f"fold-parallel attention shapes {shapes}")
+    bad = [s for m in metrics for s in m["steps"]
+           if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]))]
+    check(not bad, f"non-finite fold-parallel loss or grad norm: {bad}")
+    prefix = os.path.join(out_dir, "task2C_kevinmathew")
+    for k in range(FOLDS):
+        check(os.path.exists(f"{prefix}_probs_fold_{k}.tsv")
+              and os.path.exists(os.path.join(ckpt, f"fold_{k}", "model.pt")),
+              f"fold {k}: TSV or checkpoint missing")
+    pred = os.path.join(work, "fp_pred.tsv")
+    pred_probs = os.path.join(work, "fp_pred_probs.tsv")
+    check(cli_main(["predict", "--subtask", "2c", "--manifest",
+                    os.path.join(work, "dev.json"), "--checkpoint",
+                    os.path.join(ckpt, "fold_2"), "--image-root", work,
+                    "--out", pred, "--probs-out", pred_probs, "--device",
+                    "cuda"]) == 0, "predict from fold 2 failed")
+    got, best = (read_probs(p) for p in (pred_probs,
+                                         f"{prefix}_probs_fold_2.tsv"))
+    err = max(abs(a - b) for a, b in zip(got, best))
+    check(len(got) == len(best) == N_DEV and err <= 1e-4,
+          f"predict from fold 2 differs from its best eval by {err}")
+    best_f1 = [round(max(h["test_f1"] for h in m["evals"]), 4)
+               for m in metrics]
+    print(f"  train --subtask 2c --fold-parallel --scan-steps {SCAN_K}, "
+          f"{FOLDS} folds, one epoch, unpacked: rc 0, {wall:.3f} s wall; "
+          f"{steps} steps, {evals} evals; launches {launches} = one fold's "
+          f"count (24 x ({steps} steps + {eval_batches} eval batches), 24 x "
+          f"{steps}, {steps}); attention shapes {sorted(shapes)}; graphs "
+          f"(captures, replays) {reps}; best F1 per fold "
+          f"{best_f1}"
+          f"; predict --checkpoint fold_2: max |prob - best eval| {err:.3g} "
+          f"(tol 1e-4)")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=sorted(shapes), graphs=reps,
+                launches_in_graphs=graph_launches(w["groups"]), wall_s=wall,
+                steps=steps)
+
+
+def phase_fold_parallel_card_vs_single(torch, work: str):
+    """One fold-parallel step of 5 replicas in f32 (TF32 off, dropout 0,
+    encoders cut to ``CARD_VS_CPU_LAYERS`` layers at full width) against
+    each replica's own step on the same rows and augmentation draws, on
+    the card, at phase 6's tolerances.  Gain 1: a gain above 1 clips pixels
+    to exactly 1.0, whose ties in the stem's max-pool vmap's batched
+    convolutions (other rounding) may break elsewhere."""
+    import numpy as np
+    from mpmc_tpu_torch.cli.experiments import prepare_2c, resident_store
+    from mpmc_tpu_torch.cli.main import build_parser, train_config
+    from mpmc_tpu_torch.cv.kfold import stratified_kfold
+    from mpmc_tpu_torch.image.augment import augment_with_draws
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.parallel.fold_parallel import (
+        build_fold_parallel_steps)
+    from mpmc_tpu_torch.train.step import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    argv = ["train", "--subtask", "2c",
+            "-tr", os.path.join(work, "train.json"),
+            "-te", os.path.join(work, "dev.json"), "--image-root", work,
+            "--fold-parallel", "--device", "cuda"]
+    cfg, _ = train_config(build_parser().parse_args(argv))
+    prep = prepare_2c(cfg, tempfile.mkdtemp(dir=os.getcwd()))
+    cfg = _cut_cfg(prep.cfg, bf16=False, dropout_zero=True,
+                   layers=CARD_VS_CPU_LAYERS)
+    store = resident_store(cfg, prep.data, dev)
+    rng = np.random.default_rng(14)
+    n = FOLDS * BATCH
+    draws = [torch.from_numpy(x).to(dev) for x in (
+        rng.random(n) < 0.5, np.ones(n, np.float32),
+        (rng.uniform(-15, 15, n) * math.pi / 180).astype(np.float32))]
+    splits = stratified_kfold(prep.data["label"], FOLDS, cfg.data.fold_seed)
+    idx = torch.from_numpy(np.stack([rng.permutation(tr)[:BATCH]
+                                     for tr, _ in splits])).to(dev)
+    total = 8                            # warmup 0: lr > 0 at the step
+    models = [build_model(cfg.model, dev, seed=cfg.seed + k)
+              for k in range(FOLDS)]
+    init = [{k: v.clone() for k, v in m.state_dict().items()}
+            for m in models]
+    fp, _ = build_fold_parallel_steps(
+        models, cfg, total, store, store, torch.Generator(device=dev),
+        augment=lambda u8, gen: augment_with_draws(u8, *draws))
+    del models
+    m = fp({"idx": idx, "valid": torch.ones(FOLDS, BATCH, device=dev)})
+    worst = dict(loss=0.0, grad_norm=0.0, params=0.0, stats=0.0)
+    off = count = 0
+    lr = fp.optimizer.schedules["head"](0)
+    for k in range(FOLDS):
+        single = build_model(cfg.model, dev)
+        single.load_state_dict(init[k])
+        step = build_train_step(
+            single, cfg, total, store, torch.Generator(device=dev),
+            augment=lambda u8, gen, k=k: augment_with_draws(
+                u8, *(d[k * BATCH:(k + 1) * BATCH] for d in draws)))
+        ms = step({"idx": idx[k], "valid": torch.ones(BATCH, device=dev)})
+        worst["loss"] = max(worst["loss"], abs(float(m["loss"][k])
+                                               - float(ms["loss"]))
+                            / abs(float(ms["loss"])))
+        worst["grad_norm"] = max(worst["grad_norm"],
+                                 abs(float(m["grad_norm"][k])
+                                     - float(ms["grad_norm"]))
+                                 / float(ms["grad_norm"]))
+        got = fp.model.fold_state(k)
+        for name, w in single.state_dict().items():
+            d = (got[name] - w).abs()
+            if "running_" in name:
+                worst["stats"] = max(worst["stats"], d.max().item())
+                continue
+            worst["params"] = max(worst["params"], d.max().item())
+            off += int((d > 0.1 * lr).sum())
+            count += d.numel()
+        del single, step
+    print(f"  one fold-parallel f32 step of {FOLDS} replicas "
+          f"({CARD_VS_CPU_LAYERS} layers) vs each replica's own step on the "
+          f"card: loss max rel diff {worst['loss']:.3g} (tol 1e-4), grad "
+          f"norm {worst['grad_norm']:.3g}"
+          f" (tol 1e-3), parameters max |diff| {worst['params']:.3g} (bound "
+          f"{2 * 3.17 * lr:.3g}), {off} of {count} beyond 0.1 lr (tol 1 %), "
+          f"batch statistics {worst['stats']:.3g} (tol 1e-5)")
+    check(worst["loss"] <= 1e-4 and worst["grad_norm"] <= 1e-3
+          and worst["params"] <= 2 * 3.17 * lr and off <= 0.01 * count
+          and worst["stats"] <= 1e-5,
+          "fold-parallel step and single-fold steps disagree")
+    del fp
+    torch.cuda.empty_cache()
+    return dict(worst, params_beyond_tenth_lr=off, params_count=count)
+
+
+def phase_scan_and_folds(torch, work: str, predict_argv, train_argv,
+                         launches_k4, watch_k4, p13, p13_watch):
+    """Phase 14: one dispatch for K steps, and fold-parallel training."""
+    stamp("  2C train at K = 4 vs K = 1:")
+    out = dict(train_2c=phase_scan_2c(torch, work, train_argv, launches_k4,
+                                      watch_k4))
+    stamp("  predict at K = 8 vs K = 1:")
+    out["predict"] = phase_scan_predict(torch, work, predict_argv)
+    stamp("  sparse 2A at K = 4 vs phase 13's K = 1:")
+    out["train_2a_sparse"] = phase_scan_2a_sparse(
+        torch, work, p13["train_2a_sparse"]["launches"], p13_watch)
+    stamp("  fold-parallel 2C:")
+    out["fold_parallel"] = phase_fold_parallel(torch, work)
+    stamp("  fold-parallel f32 step vs single-fold steps:")
+    out["fold_parallel_f32"] = phase_fold_parallel_card_vs_single(torch, work)
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3773,8 +4350,10 @@ def main() -> int:
             stamp("phase 4 card vs CPU:")
             phase_card_vs_cpu(torch, inputs)
             stamp("phase 5 full-width 2C train:")
-            train_argv, train_launches, _ = phase_train(torch, work)
-            packed_shapes, warm_ms = phase_warm_train(torch, train_argv)
+            with watch_fit(torch) as watch_k4:
+                train_argv, train_launches, _ = phase_train(torch, work)
+            packed_shapes, warm_ms, turns = phase_warm_train(torch,
+                                                             train_argv)
             stamp("phase 6 packed train step, card vs CPU in f32:")
             phase_train_card_vs_cpu(torch, train_argv)
             stamp("phase 7 full-width predict for 2A, 2B and simple 2C:")
@@ -3814,7 +4393,14 @@ def main() -> int:
             stamp("phase 13 the host runtime: native decode and tokenizer, "
                   "the image pipeline, --embedding-optimizer sparse and "
                   "--profile-dir:")
-            p13 = phase_host_runtime(torch, work, build_routes)
+            with watch_fit(torch) as p13_watch:
+                p13 = phase_host_runtime(torch, work, build_routes)
+            stamp("phase 14 one dispatch for K steps (CUDA graphs) and "
+                  "fold-parallel training:")
+            p14 = phase_scan_and_folds(torch, work, argv, train_argv,
+                                       train_launches, watch_k4, p13,
+                                       p13_watch)
+            p14["train_2c"].update(turns)
         finally:
             os.chdir(cwd)
 
@@ -3822,6 +4408,10 @@ def main() -> int:
     paths_11 = {k: v["launches"] for k, v in p11.items() if k != "shapes"}
     paths_12 = {k: v["launches"] for k, v in p12.items()
                 if k != "extract_shape"}
+    p14_paths = [("train_2c_k4_vs_k1", p14["train_2c"]),
+                 ("predict_k8", p14["predict"]),
+                 ("train_2a_sparse_k4", p14["train_2a_sparse"]),
+                 ("fold_parallel", p14["fold_parallel"])]
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -3851,7 +4441,11 @@ def main() -> int:
             **{k: v["attention_fwd"] for k, v in paths_11.items()},
             **{k: v["attention_fwd"] for k, v in paths_12.items()},
             "train_2a_sparse": p13["train_2a_sparse"]["launches"][
-                "attention_fwd"]},
+                "attention_fwd"],
+            **{k: v["launches"]["attention_fwd"] for k, v in p14_paths}},
+        "launches_in_graphs": {k: v["launches_in_graphs"].get(
+            "attention_fwd", 0) for k, v in p14_paths},
+        "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
         "captioner_shapes": p11["shapes"],
         "extract_features_shape": p12["extract_shape"],
         "packed_train_shapes": {
@@ -3901,7 +4495,11 @@ def main() -> int:
             **{k: v["attention_bwd"] for k, v in paths_11.items()},
             **{k: v["attention_bwd"] for k, v in paths_12.items()},
             "train_2a_sparse": p13["train_2a_sparse"]["launches"][
-                "attention_bwd"]},
+                "attention_bwd"],
+            **{k: v["launches"]["attention_bwd"] for k, v in p14_paths}},
+        "launches_in_graphs": {k: v["launches_in_graphs"].get(
+            "attention_bwd", 0) for k, v in p14_paths},
+        "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
         "mlm_pack_shape": more_2a["mlm_pack"]["shape"],
@@ -3927,7 +4525,11 @@ def main() -> int:
             **{k: v["launches"]["image_normalize"]
                for k, v in variants.items()},
             **{k: v["image_normalize"] for k, v in paths_11.items()},
-            **{k: v["image_normalize"] for k, v in paths_12.items()}}}]
+            **{k: v["image_normalize"] for k, v in paths_12.items()},
+            **{k: v["launches"]["image_normalize"] for k, v in p14_paths}},
+        "launches_in_graphs": {k: v["launches_in_graphs"].get(
+            "image_normalize", 0) for k, v in p14_paths},
+        "fold_parallel_shape": [FOLDS * BATCH, 224, 224, 3]}]
     print(json.dumps({"predict_kinds": {
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
                               "profiled_wall_ms", "profiled_kernel_ms")}
@@ -3952,6 +4554,7 @@ def main() -> int:
                                    if k != "shapes"}}))
     print(json.dumps({"phase_12": p12}))
     print(json.dumps({"phase_13": p13}))
+    print(json.dumps({"phase_14": p14}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

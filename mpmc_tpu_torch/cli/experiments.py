@@ -249,6 +249,10 @@ class FoldRun:
     train_step: Callable
     eval_step: Callable
     steps_per_epoch: int
+    # With cfg.scan_steps K > 1: K train steps / eval batches a dispatch
+    # (train.graphs.GroupedSteps), sharing one graph memory pool.
+    scan_train_step: Optional[Callable] = None
+    scan_eval_step: Optional[Callable] = None
 
 
 def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
@@ -302,7 +306,17 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                                   store, generator, augment, embed_support)
     eval_step = make_eval_step(model, cfg, grayscale=grayscale,
                                cast_in_place=False)
-    return FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
+    run = FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
+    if cfg.scan_steps > 1:
+        from mpmc_tpu_torch.train.graphs import (graph_pool,
+                                                 make_scan_eval_step,
+                                                 make_scan_train_step)
+        pool = graph_pool(device)
+        run.scan_train_step = make_scan_train_step(train_step,
+                                                   cfg.scan_steps, pool)
+        run.scan_eval_step = make_scan_eval_step(eval_step, cfg.scan_steps,
+                                                 device, pool)
+    return run
 
 
 def resident_store(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
@@ -341,6 +355,14 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     from mpmc_tpu_torch.train.loop import fit
 
     os.makedirs(out_dir, exist_ok=True)
+    if cfg.mesh.is_fold_parallel:
+        if soft_targets is not None:
+            raise ValueError("--distill-lambda is not supported with "
+                             "--fold-parallel (per-fold soft-target arrays "
+                             "are not stacked over the fold axis)")
+        return _run_folds_parallel(cfg, full_data, ids, test_data, test_ids,
+                                   out_dir, name, device, augment, kind,
+                                   pretrained, grayscale, binary_head)
     splits = stratified_kfold(full_data["label"], cfg.data.num_folds,
                               cfg.data.fold_seed)
     store = resident_store(cfg, full_data, device)
@@ -377,7 +399,9 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                   test_data=t_data, val_data=val_d, test_ids=t_ids,
                   val_ids=[ids[i] for i in va_idx], fold=k,
                   tsv_prefix=prefix, packed_plan=run.plan, train_rows=tr_idx,
-                  on_best=on_best, checkpointer=checkpointer)
+                  on_best=on_best, checkpointer=checkpointer,
+                  scan_train_step=run.scan_train_step,
+                  scan_eval_step=run.scan_eval_step)
         if checkpointer is not None:
             checkpointer.wait()
         with open(os.path.join(out_dir, f"{name}_train_metrics_fold_{k}.json"),
@@ -392,6 +416,83 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         results.append(res)
         log.info("fold %d best test macro-F1: %.4f", k, res.best_macro_f1)
     return results
+
+
+def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
+                        ids: List[str],
+                        test_data: Optional[Dict[str, np.ndarray]],
+                        test_ids: Optional[List[str]], out_dir: str,
+                        name: str, device: torch.device,
+                        augment: Optional[Callable] = None,
+                        kind: str = "multimodal", pretrained=None,
+                        grayscale: bool = False,
+                        binary_head: bool = False) -> List:
+    """All ``cfg.data.num_folds`` folds as one stacked-weights step on
+    ``device`` (``cv/fold_driver.fit_folds_parallel``), unpacked, each
+    fold's weights from ``cfg.seed + fold``, the LR schedule over
+    ``ceil(N / batch) * epochs`` steps of the full data as the JAX
+    package sets it.  Writes per-fold TSVs, checkpoints under
+    ``<checkpoint_dir>/fold_<k>`` and ``<name>_train_metrics_fold_<k>.json``;
+    returns one ``FitResult`` per fold."""
+    from mpmc_tpu_torch.cv.fold_driver import fit_folds_parallel
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.models.pretrained import apply_pretrained
+    from mpmc_tpu_torch.parallel.fold_parallel import (
+        build_fold_parallel_steps)
+    from mpmc_tpu_torch.train.loop import FitResult
+
+    F = cfg.data.num_folds
+    if F % max(cfg.mesh.num_fold_shards, 1):
+        raise ValueError(
+            "mesh.num_fold_shards must divide data.num_folds for "
+            "fold-parallel training (the stacked fold axis shards over the "
+            "mesh's fold dimension; 1 trains all folds on each device)")
+    if cfg.data.pack_rows > 0:
+        log.warning("--pack-rows is not supported with --fold-parallel — "
+                    "training proceeds UNPACKED")
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, pack_rows=0))
+    n, bs = len(full_data["label"]), cfg.data.batch_size
+    total_steps = ((n + bs - 1) // bs) * cfg.epochs
+    store = resident_store(cfg, full_data, device)
+    eval_store = (store if test_data is None
+                  else resident_store(cfg, test_data, device))
+    models = [apply_pretrained(build_model(cfg.model, device,
+                                           seed=cfg.seed + k, kind=kind,
+                                           binary_head=binary_head),
+                               kind, pretrained) for k in range(F)]
+    embed_support = None
+    lens = [full_data[k].shape[-1] for k in ("text_ids", "caption_ids")
+            if k in full_data]
+    if cfg.embedding_optimizer == "sparse" and lens:
+        embed_support = bs * max(lens)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    train_step, eval_step = build_fold_parallel_steps(
+        models, cfg, total_steps, store, eval_store, generator, augment,
+        grayscale, embed_support)
+    del models
+    scan = None
+    if cfg.scan_steps > 1:
+        from mpmc_tpu_torch.train.graphs import (graph_pool,
+                                                 make_scan_train_step)
+        scan = make_scan_train_step(train_step, cfg.scan_steps,
+                                    graph_pool(device))
+    prefix = os.path.join(out_dir, f"{name}_{cfg.team_name}")
+    results = fit_folds_parallel(
+        cfg, train_step, eval_step, full_data, test_data, test_ids, device,
+        tsv_prefix=prefix, run_id=f"{cfg.team_name}_{cfg.run_id}", ids=ids,
+        checkpoint_dir=cfg.checkpoint_dir, scan_train_step=scan)
+    out = []
+    for r in results:
+        with open(os.path.join(out_dir, f"{name}_train_metrics_fold_"
+                                        f"{r['fold']}.json"), "w") as f:
+            json.dump({"fold": r["fold"], "fold_parallel": F,
+                       "steps_per_epoch": len(r["steps"]) // cfg.epochs,
+                       "steps": r["steps"], "evals": r["history"]}, f,
+                      indent=1)
+        out.append(FitResult(r["macro_f1"], r["threshold"], r["history"],
+                             r["steps"]))
+    return out
 
 
 @dataclasses.dataclass

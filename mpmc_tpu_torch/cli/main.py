@@ -3,7 +3,7 @@
   python -m mpmc_tpu_torch.cli.main predict --subtask 2a|2b|2c --manifest M \\
       --out pred.tsv [--probs-out probs.tsv] [--checkpoint DIR] \\
       [--small] [--tiny] [--simple] [--image-arch A] [--image-size N] \\
-      [--binary-head] [--device cuda|cpu] [--batch-size 16]
+      [--binary-head] [--device cuda|cpu] [--batch-size 16] [--scan-steps K]
   python -m mpmc_tpu_torch.cli.main train --subtask 2a|2b|2c -tr TRAIN \\
       -te DEV [--recipe fast|reference] [--small] [--tiny] [--simple] \\
       [--fold K] [--num-folds N] [--epochs N] [--lr X] \\
@@ -14,6 +14,7 @@
       [--image-arch A] [--image-size N] [--binary-head] \\
       [--pooling P] [--fusion concatenation|mca|cross_modal|self_attention] \\
       [--scratch-captioner] [--caption-vocab C] \\
+      [--scan-steps K] [--fold-parallel [--fold-shards 1]] \\
       [--checkpoint-dir DIR [--resume]] [--out-dir DIR] [--device cuda|cpu]
   python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
   python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
@@ -48,8 +49,13 @@ at each new best (``fold_<k>/<step>/state.pt``), from which ``--resume``
 continues a run exactly where it stopped.
 ``--recipe fast`` (the default) packs the text tokens (2A: batches of
 ``--pack-rows 4`` packed rows; 2C: each batch's text and caption tokens in
-rows, ``--pack-rows 8``), keeps the Adam first moment in bf16 and gives the
-word embeddings factored RMS; ``--recipe reference`` turns all three off.
+rows, ``--pack-rows 8``), keeps the Adam first moment in bf16, gives the
+word embeddings factored RMS and runs each full group of ``--scan-steps
+8`` steps (and eval batches) as one dispatch, a CUDA graph on the card;
+``--recipe reference`` turns all four off.  ``--fold-parallel`` trains
+every fold at once as one stacked-weights step on the device
+(``--fold-shards 1``; unpacked), each fold with its own optimizer state,
+TSVs and ``fold_<k>`` checkpoint.
 An explicitly passed flag wins over its recipe value.  ``--mlm-epochs``
 first pretrains the text encoder on the train+dev texts with masked
 language modelling (``--mlm-pack`` packs that corpus) and starts every
@@ -88,6 +94,9 @@ as ``model.pt`` in the checkpoint directory.  The model runs on CUDA unless
 ``--device cpu`` is passed; the CUDA path computes in bf16, the CPU path in
 f32.
 
+``predict --scan-steps K`` runs each full group of K batches as one
+dispatch likewise.
+
 ``check``, ``score``, ``combine`` and ``analyze`` are the JAX package's
 submission tools: the official format check, the official scorer, the fold
 ensemble (its label TSV carries the run id ``ensemble``) and the error
@@ -119,8 +128,8 @@ import torch
 from mpmc_tpu_torch.cli.experiments import (build_tokenizer, bucket_seq_len,
                                             bucket_trim, prepare_images,
                                             prepare_text)
-from mpmc_tpu_torch.config import (DataConfig, FusionMethod, ModelConfig,
-                                   PoolingType, TextEncoderConfig,
+from mpmc_tpu_torch.config import (DataConfig, FusionMethod, MeshConfig,
+                                   ModelConfig, PoolingType, TextEncoderConfig,
                                    TrainConfig, model_config_from_dict)
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
@@ -327,8 +336,14 @@ def _cmd_predict(args) -> int:
     cfg = TrainConfig(bf16=device.type == "cuda")
     model = load_model(args, inputs.variant, device, cfg.seed)
     step = make_eval_step(model, cfg, grayscale=inputs.variant.grayscale)
+    scan = None
+    if args.scan_steps > 1:
+        from mpmc_tpu_torch.train.graphs import graph_pool, make_scan_eval_step
+        scan = make_scan_eval_step(step, args.scan_steps, device,
+                                   graph_pool(device))
     t0 = time.perf_counter()
-    probs = run_eval(step, inputs.data, args.batch_size, device).probs
+    probs = run_eval(step, inputs.data, args.batch_size, device,
+                     scan_eval_step=scan).probs
     seconds = time.perf_counter() - t0
     pred = (probs > args.threshold).astype(int)
     write_label_tsv(args.out, inputs.manifest.ids, pred, args.run_id)
@@ -566,13 +581,18 @@ def _resolve_recipe(args) -> None:
     in 2C (``pack_rows`` 8); 2B has no tokens and the simple 2C model pools
     the last position, so neither packs."""
     fast = args.recipe == "fast"
+    if args.scan_steps is None:
+        args.scan_steps = 8 if fast else 1
     if args.embedding_optimizer is None:
         args.embedding_optimizer = "factored" if fast else "adam"
     if args.adam_mu_dtype is None and fast:
         args.adam_mu_dtype = "bfloat16"
     if args.pack_rows is None:
+        # Fold-parallel training stays unpacked rather than warn on a
+        # default (an explicit --pack-rows still goes through, and warns).
+        plain = not args.fold_parallel and args.fold_shards <= 1
         packs = {"2a": 4} if args.simple else {"2a": 4, "2c": 8}
-        args.pack_rows = packs.get(args.subtask, 0) if fast else 0
+        args.pack_rows = packs.get(args.subtask, 0) if fast and plain else 0
 
 
 def train_config(args) -> Tuple[TrainConfig, torch.device]:
@@ -585,6 +605,12 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
     ``--simple`` without ``--tiny`` swaps in ``simple_2c`` after all of
     that."""
     device = resolve_device(args.device)
+    if args.fold_shards > 1:
+        raise SystemExit(
+            f"--fold-shards {args.fold_shards}: sharding the fold axis over "
+            "several devices is the multi-GPU layouts' work (ROADMAP.md "
+            "Queue 1 item 7); one H100 is one device, so use --fold-shards "
+            "1 with --fold-parallel")
     _resolve_recipe(args)
     data = DataConfig(train_manifest=args.train_file_path,
                       dev_manifest=args.dev_file_path,
@@ -632,7 +658,10 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       profile_dir=args.profile_dir,
                       mlm_epochs=args.mlm_epochs, mlm_pack=args.mlm_pack,
                       simclr_epochs=args.simclr_epochs,
-                      distill_lambda=args.distill_lambda)
+                      distill_lambda=args.distill_lambda,
+                      scan_steps=args.scan_steps,
+                      mesh=MeshConfig(num_fold_shards=args.fold_shards,
+                                      fold_parallel=args.fold_parallel))
     return cfg, device
 
 
@@ -659,6 +688,8 @@ def _cmd_train(args) -> int:
                                  simple=args.simple,
                                  scratch_captioner=args.scratch_captioner,
                                  **kwargs)
+    if cfg.mesh.is_fold_parallel:
+        folds = None                    # every fold trained at once
     for k, r in zip(folds or range(args.num_folds), results):
         print(f"fold {k}: best macro-F1 {r.best_macro_f1:.4f}")
     return 0
@@ -691,6 +722,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--caption-vocab", default=None)
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--scan-steps", type=int, default=1,
+                   help=">1 runs each full group of this many batches as "
+                        "one dispatch (a CUDA graph on the card)")
     p.add_argument("--run-id", default="mpmc_tpu")
     p.add_argument("--tiny", action="store_true",
                    help="the tiny_2c config (when no run_meta.json)")
@@ -752,8 +786,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fast (default): packed text rows (2A: 4 packed "
                         "rows a step; 2C: each batch's text and caption "
                         "tokens), bf16 Adam first moment, factored-RMS word "
-                        "embeddings; reference: unpacked, f32 Adam "
-                        "everywhere")
+                        "embeddings, --scan-steps 8; reference: unpacked, "
+                        "f32 Adam everywhere, one step a dispatch")
     p.add_argument("--train-file-path", "-tr", required=True)
     p.add_argument("--dev-file-path", "-te", required=True)
     p.add_argument("--image-root", default=".")
@@ -781,6 +815,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of steady-state train "
                         "steps (dispatches 3 to 5 of epoch 0) here")
+    p.add_argument("--scan-steps", type=int, default=None,
+                   help=">1 runs each full group of this many train steps "
+                        "(and eval batches) as one dispatch, a CUDA graph "
+                        "on the card; groups never straddle an eval. "
+                        "Default: set by --recipe (fast 8, reference 1)")
+    p.add_argument("--fold-parallel", action="store_true",
+                   help="train all folds at once as one stacked-weights "
+                        "step on one device (--fold-shards 1): every "
+                        "kernel launches once for all folds; unpacked")
+    p.add_argument("--fold-shards", type=int, default=1,
+                   help="devices to shard the stacked fold axis over; "
+                        "only 1 on one H100")
     p.add_argument("--adam-mu-dtype", choices=["bfloat16", "float32"],
                    default=None)
     p.add_argument("--checkpoint-dir", default=None,

@@ -244,6 +244,23 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The fields of the JAX package's ``MeshConfig`` that the port reads:
+    fold-parallel training.  One H100 is one device, so the fold axis is
+    not sharded: ``num_fold_shards`` must be 1."""
+
+    # > 1 would shard the stacked fold axis over that many devices.
+    num_fold_shards: int = 1
+    # Train all k folds as one stacked-weights step on one device: every
+    # kernel launches once for all folds.
+    fold_parallel: bool = False
+
+    @property
+    def is_fold_parallel(self) -> bool:
+        return self.fold_parallel or self.num_fold_shards > 1
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of the JAX package's ``TrainConfig`` that 2A and 2C
     training and eval read."""
@@ -299,3 +316,9 @@ class TrainConfig:
     # > 0: the train loss mixes in the char-n-gram teacher's soft targets
     # (``train/distill.py``): (1 - λ)·loss(hard) + λ·CE(soft) per row.
     distill_lambda: float = 0.0
+    # > 1: full groups of this many train steps (and eval batches) run as
+    # one dispatch, a CUDA graph on the card (``train/graphs.py``); the
+    # fast recipe's default is 8.
+    scan_steps: int = 1
+    mesh: "MeshConfig" = dataclasses.field(
+        default_factory=lambda: MeshConfig())

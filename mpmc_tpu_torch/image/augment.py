@@ -12,6 +12,7 @@ three-shear in bf16, plain PyTorch as it is plain XLA there.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -24,11 +25,20 @@ GRAY_MEAN, GRAY_STD = (0.45,), (0.22,)
 MAX_ROTATE_DEG = 15.0
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(values: Tuple[float, ...], device: torch.device
+               ) -> torch.Tensor:
+    """``values`` as an f32 tensor on ``device``, made once: a copy from
+    the host on every call would cost a transfer a batch, and is illegal
+    while a CUDA graph is being captured."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize(x: torch.Tensor, mean=IMAGENET_MEAN,
               std=IMAGENET_STD) -> torch.Tensor:
     """uint8 ``[B,H,W,C]`` to normalized f32."""
-    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    mean = _constants(tuple(mean), x.device)
+    std = _constants(tuple(std), x.device)
     return (x.to(torch.float32) / 255.0 - mean) / std
 
 

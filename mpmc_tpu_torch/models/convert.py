@@ -31,7 +31,7 @@ encoders'.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -168,6 +168,31 @@ def to_jax_variables(module: nn.Module) -> Tuple[Dict, Dict]:
                                     f"{type(mod).__name__} at {name}")
                 leaf[pname] = f32(p)
     return params, stats
+
+
+def stack_jax_variables(variables: Sequence[Tuple[Mapping,
+                                                  Optional[Mapping]]]
+                        ) -> Dict[str, torch.Tensor]:
+    """F replicas' flax ``(params, batch_stats)`` as one stacked
+    ``state_dict`` ``[F, ...]``: the model of a fold-parallel step
+    (``parallel/fold_parallel.py``), fold f from ``variables[f]``."""
+    sds = [from_jax_variables(p, s) for p, s in variables]
+    return {k: torch.stack([sd[k] for sd in sds]) for k in sds[0]}
+
+
+def unstack_to_jax_variables(module: nn.Module,
+                             stacked: Mapping[str, torch.Tensor]
+                             ) -> List[Tuple[Dict, Dict]]:
+    """The inverse of :func:`stack_jax_variables`: each fold's slice of
+    ``stacked`` loaded into ``module`` (a port model of the replicas' kind
+    and config, whose weights it overwrites) and converted by
+    :func:`to_jax_variables`."""
+    folds = len(next(iter(stacked.values())))
+    out = []
+    for f in range(folds):
+        module.load_state_dict({k: v[f] for k, v in stacked.items()})
+        out.append(to_jax_variables(module))
+    return out
 
 
 def to_jax_params(module: nn.Module) -> Dict:

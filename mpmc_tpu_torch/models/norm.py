@@ -59,7 +59,9 @@ class Dropout(nn.Module):
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zeroed;
     the identity in eval or at rate 0.  The keep mask is drawn from
     ``generator`` (set by :func:`set_dropout_generator`; the default
-    generator when None)."""
+    generator when None) into a tensor made like ``x``, so that under
+    ``torch.func.vmap(randomness="different")`` (the fold-parallel step)
+    every fold draws its own mask from the one generator."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -70,8 +72,9 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(
-            keep_prob, generator=self.generator).bool()
+        keep = torch.empty_like(
+            x, dtype=torch.float32, memory_format=torch.contiguous_format
+        ).bernoulli_(keep_prob, generator=self.generator).bool()
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

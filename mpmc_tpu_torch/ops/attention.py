@@ -166,7 +166,7 @@ def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.stride(0), out.stride(1), out.stride(2),
             1.0 / (D ** 0.5), stream)
     build.check_launch(lib, "attention_fwd", rc)
-    launch_counts["attention_fwd"] += 1
+    build.count_launch("attention_fwd")
     return out, lse
 
 
@@ -271,7 +271,7 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
             0 if q.dtype == torch.float32 else 1, MODES[mode],
             B, H, Sq, Sk, D, 1.0 / (D ** 0.5), stream)
     build.check_launch(lib, "attention_bwd", rc)
-    launch_counts["attention_bwd"] += 1
+    build.count_launch("attention_bwd")
     return dq, dk, dv
 
 
@@ -299,22 +299,50 @@ def attention_backward(q, k, v, mask, mode, out, lse, dout):
 
 class AttentionFunction(torch.autograd.Function):
     """Attention with its hand-written backward (the JAX package's
-    ``_attention_pallas`` custom VJP): the forward saves ``(q, k, v, mask,
-    out, lse)`` and the backward rebuilds the gradients from them."""
+    ``_attention_pallas`` custom VJP): ``(out, lse)`` from the forward,
+    which saves ``(q, k, v, mask, out, lse)``; the backward rebuilds the
+    gradients from them (``lse`` has none).
+
+    Under ``torch.func.vmap`` (the fold-parallel step) the rule
+    :meth:`vmap` folds the vmapped axis into the batch axis, ``[F, B, S,
+    H, D] -> [F*B, S, H, D]`` (the mask likewise, an unbatched input
+    repeated F times), so one launch of each kernel serves every fold."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, mode):
-        out, lse = attention_forward(q, k, v, mask, mode)
+    def forward(q, k, v, mask, mode):
+        return attention_forward(q, k, v, mask, mode)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask, mode = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.mode = mode
-        return out
+        ctx.mark_non_differentiable(lse)
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _dlse):
         q, k, v, mask, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, mask, ctx.mode, out, lse,
                                         dout)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, mode):
+        n = info.batch_size
+
+        def fold(x, dim):
+            if x is None:
+                return None
+            x = (x.movedim(dim, 0) if dim is not None
+                 else x.expand(n, *x.shape))
+            return x.reshape(n * x.shape[1], *x.shape[2:])
+
+        out, lse = AttentionFunction.apply(
+            *(fold(x, d) for x, d in zip((q, k, v, mask), in_dims[:4])),
+            mode)
+        return ((out.reshape(n, -1, *out.shape[1:]),
+                 lse.reshape(n, -1, *lse.shape[1:])), (0, 0))
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -325,13 +353,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     mask: ``[B, Sk]`` (1 = attend) or None.  segments: ``[B, S]`` ids
     (0 = padding) for packed self-attention rows: token i attends token j
-    iff both carry the same non-zero id; supersedes ``mask``.  When a
-    gradient is wanted the call goes through :class:`AttentionFunction`."""
+    iff both carry the same non-zero id; supersedes ``mask``.  Goes
+    through :class:`AttentionFunction`, with or without a gradient, so
+    that ``vmap`` finds its rule either way."""
     if segments is not None:
         mask, mode = segments, "segments"
     else:
         mode = "none" if mask is None else "padding"
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return AttentionFunction.apply(q, k, v, mask, mode)
-    return attention_forward(q, k, v, mask, mode)[0]
+    return AttentionFunction.apply(q, k, v, mask, mode)[0]

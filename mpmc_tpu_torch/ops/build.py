@@ -14,9 +14,10 @@ import ctypes
 import hashlib
 import os
 import shutil
+import contextlib
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -32,6 +33,38 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # reads them after to show that the path went through the kernels.
 launch_counts: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0,
                                  "image_normalize": 0}
+# The launches recorded by the CUDA graph being captured (``capturing``):
+# a captured launch runs at every replay, so it counts there.
+_tally: Optional[Dict[str, int]] = None
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``: into ``launch_counts``, or,
+    while :func:`capturing` a graph on the current stream, into that
+    graph's tally, which :func:`add_launches` adds at each replay.  A
+    capture outside :func:`capturing` counts its launches once, here."""
+    import torch
+    if _tally is not None and torch.cuda.is_current_stream_capturing():
+        _tally[name] += 1
+    else:
+        launch_counts[name] += 1
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """The tally of the launches captured inside the block."""
+    global _tally
+    prev, _tally = _tally, dict.fromkeys(launch_counts, 0)
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``tally``."""
+    for name, n in tally.items():
+        launch_counts[name] += n
 
 
 def _nvcc() -> str:

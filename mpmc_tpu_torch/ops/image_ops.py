@@ -97,7 +97,7 @@ def fused_normalize_flip_brightness_cuda(images_u8: torch.Tensor,
             images_u8.data_ptr(), flip_u8.data_ptr(), bright_f.data_ptr(),
             out.data_ptr(), B, H, W, float(INV_255), mean, inv_std, stream)
     build.check_launch(lib, "image_normalize", rc)
-    launch_counts["image_normalize"] += 1
+    build.count_launch("image_normalize")
     return out
 
 

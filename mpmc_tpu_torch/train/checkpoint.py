@@ -40,11 +40,11 @@ STATE_FILE = "state.pt"
 META_FILE = "ckpt_meta.json"
 
 
-def _to_host(state):
+def to_host(state):
     """A copy of ``state`` (nested dicts of tensors and numbers) in host
     memory, which later steps do not touch."""
     if isinstance(state, dict):
-        return {k: _to_host(v) for k, v in state.items()}
+        return {k: to_host(v) for k, v in state.items()}
     if isinstance(state, torch.Tensor):
         return state.detach().to("cpu", copy=True)
     return state
@@ -100,7 +100,7 @@ class Checkpointer:
                         step, latest)
             return
         self._writer = threading.Thread(
-            target=self._write, args=(_to_host(state), step, meta),
+            target=self._write, args=(to_host(state), step, meta),
             name=f"checkpoint-{step}")
         self._writer.start()
         log.info("checkpoint saving @ step %d (%s)", step, metrics)

@@ -1,7 +1,10 @@
 """Training and batched evaluation over host arrays (port of
-``batch_iter``, ``prefetch_batches``, ``run_eval`` and ``fit`` in
-``mpmc_tpu/train/loop.py``), with exact-state resume from a
-:class:`~mpmc_tpu_torch.train.checkpoint.Checkpointer`."""
+``batch_iter``, ``prefetch_batches``, ``_scan_group_plan``,
+``_scan_groups``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``),
+with exact-state resume from a
+:class:`~mpmc_tpu_torch.train.checkpoint.Checkpointer` and, with
+``scan_steps`` K > 1, full groups of K steps (or eval batches) as one
+dispatch (``train/graphs.py``)."""
 
 from __future__ import annotations
 
@@ -107,6 +110,47 @@ def prefetch_batches(it: Iterator[Tuple[Dict[str, np.ndarray], int]],
         raise errs[0]
 
 
+def _scan_group_plan(steps_per_epoch: int, check_interval: int, k: int,
+                     eval_on: bool) -> List[int]:
+    """Group sizes for one epoch of grouped dispatch: full-K groups plus
+    remainders, with no group straddling an eval boundary, so the eval
+    cadence (``bi % check_interval == 0`` or the epoch's end) is the
+    per-step one.  Groups smaller than K run as single steps."""
+    if eval_on:
+        ends = [i for i in range(1, steps_per_epoch + 1)
+                if i % check_interval == 0 or i == steps_per_epoch]
+    else:
+        ends = [steps_per_epoch]
+    plan, prev = [], 0
+    for e in ends:
+        seg = e - prev
+        plan += [k] * (seg // k)
+        if seg % k:
+            plan.append(seg % k)
+        prev = e
+    return plan
+
+
+def _scan_groups(it: Iterator[Tuple[Dict[str, np.ndarray], int]],
+                 plan: List[int], k: int,
+                 ) -> Iterator[Tuple[Dict[str, np.ndarray], object]]:
+    """Chunk the per-step batch iterator by ``plan``: a full group of K
+    is stacked on a leading axis and yielded with the list of its steps'
+    ``n_valid``; a smaller group falls through as single steps."""
+    for size in plan:
+        try:
+            items = [next(it) for _ in range(size)]
+        except StopIteration as e:
+            raise RuntimeError(
+                "the group plan is longer than the batch iterator: build it "
+                "from the same steps_per_epoch") from e
+        if size == k:
+            yield ({key: np.stack([b[key] for b, _ in items])
+                    for key in items[0][0]}, [n for _, n in items])
+        else:
+            yield from items
+
+
 @dataclasses.dataclass
 class EvalResult:
     loss: float
@@ -117,15 +161,34 @@ class EvalResult:
 
 
 def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
-             batch_size: int, device: torch.device) -> EvalResult:
+             batch_size: int, device: torch.device,
+             scan_eval_step=None) -> EvalResult:
     """Full pass, sigmoid probs, ROC/Youden threshold, accuracy and
     macro-F1 (the metrics are NaN and the threshold 0.5 without labels).
     Results stay on the device until the pass ends, so the host never
-    waits on the device between batches."""
+    waits on the device between batches.  With ``scan_eval_step`` (a
+    ``train.graphs.GroupedSteps`` of K eval batches) and at least K
+    batches, each full group of K batches is one dispatch and the
+    remainder runs batch by batch."""
+    n = len(next(iter(data.values())))
+    n_batches = (n + batch_size - 1) // batch_size
+    it = batch_iter(data, batch_size)
+    k = scan_eval_step.k if scan_eval_step is not None else 1
+    if k > 1 and n_batches >= k:
+        plan = [k] * (n_batches // k) + ([n_batches % k]
+                                         if n_batches % k else [])
+        it = _scan_groups(it, plan, k)
     parts = []
-    for batch, n_valid in batch_iter(data, batch_size):
-        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        probs, loss = eval_step(dev)
+    for batch, n_valid in it:
+        host = {key: torch.from_numpy(np.ascontiguousarray(v))
+                for key, v in batch.items()}
+        if isinstance(n_valid, list):
+            out = scan_eval_step(host)
+            parts += [(out["probs"][j, :nv], out["loss"][j, :nv])
+                      for j, nv in enumerate(n_valid)]
+            continue
+        probs, loss = eval_step({key: v.to(device)
+                                 for key, v in host.items()})
         parts.append((probs[:n_valid], loss[:n_valid]))
     probs = torch.cat([p for p, _ in parts]).cpu().numpy()
     losses = torch.cat([l for _, l in parts]).cpu().numpy()
@@ -180,7 +243,8 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
         packed_plan=None,
         train_rows: Optional[np.ndarray] = None,
         on_best: Optional[Callable[[int], None]] = None,
-        checkpointer=None) -> FitResult:
+        checkpointer=None, scan_train_step=None,
+        scan_eval_step=None) -> FitResult:
     """The epoch loop with the reference's cadence, on one device: eval of
     the test (and val) split ``cfg.eval_per_epoch`` times per epoch and at
     its end, and on a new best test macro-F1 the label and probability
@@ -206,6 +270,13 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     profiler, whose trace goes there.  Each epoch ends with a log of its
     items/s, p50 ms a step and the input wait.
 
+    With ``scan_train_step`` (``train.graphs.make_scan_train_step`` over
+    ``train_step``, K = ``cfg.scan_steps`` > 1) the epoch runs by the
+    group plan (``_scan_group_plan``): each full group of K steps is one
+    dispatch of the stacked ``[K, ...]`` batch, the rest single steps; a
+    non-finite loss inside a group dumps and names its own step.  With
+    ``scan_eval_step`` the evals group K batches a dispatch likewise.
+
     A ``train_step`` restored from a checkpoint carries its optimizer's
     step count, and the run resumes there as the JAX loop does: the
     skipped epochs' shuffles are drawn, a mid-epoch prefix of batches is
@@ -214,6 +285,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     improvement.  The dropout and augmentation draws continue from the
     restored generator."""
     bs = cfg.data.batch_size
+    scan_k = scan_train_step.k if scan_train_step is not None else 1
     n_train = len(train_data["label"])
     if packed_plan is not None:
         steps_per_epoch = packed_plan.steps_per_epoch
@@ -264,8 +336,11 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
         local_of = np.zeros(int(np.max(train_rows)) + 1, np.int64)
         local_of[train_rows] = np.arange(len(train_rows))
 
-    def dump_payload(host_batch: Dict[str, np.ndarray]) -> Dict:
-        payload = {k: np.asarray(v) for k, v in host_batch.items()}
+    def dump_payload(host_batch: Dict[str, np.ndarray],
+                     j: Optional[int]) -> Dict:
+        """The offending step's batch (step ``j`` of a stacked group)."""
+        payload = {k: np.asarray(v if j is None else v[j])
+                   for k, v in host_batch.items()}
         if local_of is not None and "idx" in payload:
             idx = payload["idx"]
             payload.update({k: np.asarray(v)[local_of[idx]]
@@ -276,18 +351,25 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     def flush():
         if not pending:
             return
-        vals = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
-                            for _, _, m, _ in pending]).cpu().numpy()
-        for (ep, bi_, _, host_batch), (loss, gnorm) in zip(pending, vals):
-            if not np.isfinite(loss):
-                dump = f"nonfinite_fold{fold}_epoch{ep}_batch{bi_}.npz"
-                np.savez(dump, **dump_payload(host_batch),
-                         grad_norm=np.float64(gnorm))
-                pending.clear()
-                raise FloatingPointError(
-                    f"non-finite loss at epoch {ep} batch {bi_} "
-                    f"(grad_norm={gnorm:.3e}); batch dumped to {dump}")
-            steps.append({"loss": float(loss), "grad_norm": float(gnorm)})
+        vals = torch.cat([torch.stack([m["loss"].reshape(-1),
+                                       m["grad_norm"].reshape(-1)], 1)
+                          for _, _, m, _ in pending]).cpu().numpy()
+        row = 0
+        for ep, bi_, m, host_batch in pending:
+            size = m["loss"].numel()
+            for j, (loss, gnorm) in enumerate(vals[row:row + size]):
+                if not np.isfinite(loss):
+                    step_bi = bi_ - (size - 1 - j)    # bi_: the group's last
+                    dump = f"nonfinite_fold{fold}_epoch{ep}_batch{step_bi}.npz"
+                    np.savez(dump, **dump_payload(
+                        host_batch, j if m["loss"].dim() else None),
+                             grad_norm=np.float64(gnorm))
+                    pending.clear()
+                    raise FloatingPointError(
+                        f"non-finite loss at epoch {ep} batch {step_bi} "
+                        f"(grad_norm={gnorm:.3e}); batch dumped to {dump}")
+                steps.append({"loss": float(loss), "grad_norm": float(gnorm)})
+            row += size
         pending.clear()
 
     from mpmc_tpu_torch.utils.profiling import StepTimer, trace
@@ -306,11 +388,16 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             else:
                 it = batch_iter({"idx": train_rows.astype(np.int64)}, bs,
                                 shuffle=True, rng=data_rng, with_valid=True)
+            if scan_k > 1:
+                it = _scan_groups(it, _scan_group_plan(
+                    steps_per_epoch, check_interval, scan_k,
+                    eval_on=test_data is not None), scan_k)
             bi = 0
-            for host, host_batch, _ in prefetch_batches(
+            for host, host_batch, n_valid in prefetch_batches(
                     it, lambda b: _host_tensors(b, pin), stats=pf_stats):
-                if epoch == start_epoch and bi < resume_bi:
-                    bi += 1                 # trained before the checkpoint
+                group = len(n_valid) if isinstance(n_valid, list) else 1
+                if epoch == start_epoch and bi + group <= resume_bi:
+                    bi += group             # trained before the checkpoint
                     continue
                 if cfg.profile_dir and epoch == 0 and dispatch_no < 6:
                     # Dispatches 3 to 5: the first carries the one-time set-up,
@@ -323,13 +410,16 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                         profiler.close()
                         log.info("profiler trace written to %s",
                                  cfg.profile_dir)
-                metrics = train_step({k: v.to(device, non_blocking=True)
-                                      for k, v in host.items()})
-                bi += 1
-                step_count += 1
-                timer.tick()
+                if group > 1:
+                    metrics = scan_train_step(host)
+                else:
+                    metrics = train_step({k: v.to(device, non_blocking=True)
+                                          for k, v in host.items()})
+                prev_bi, bi = bi, bi + group
+                step_count += group
+                timer.tick(group)
                 pending.append((epoch, bi, metrics, host_batch))
-                if bi % LOG_EVERY == 0:
+                if bi // LOG_EVERY > prev_bi // LOG_EVERY:
                     flush()
                     log.info("TRAIN | Epoch [%d] | Batch [%d/%d] | "
                              "Loss: %.4f | Grad Norm: %.4f", epoch, bi,
@@ -340,7 +430,8 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                                              or bi == steps_per_epoch):
                     continue
                 flush()
-                t_res = run_eval(eval_step, test_data, bs, device)
+                t_res = run_eval(eval_step, test_data, bs, device,
+                                 scan_eval_step)
                 history.append({"epoch": epoch, "batch": bi,
                                 "step": step_count,
                                 "test_f1": t_res.macro_f1,
@@ -351,7 +442,8 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                          t_res.macro_f1, t_res.threshold)
                 v_res = None
                 if val_data is not None:
-                    v_res = run_eval(eval_step, val_data, bs, device)
+                    v_res = run_eval(eval_step, val_data, bs, device,
+                                     scan_eval_step)
                     log.info("  VAL | Epoch [%d] | F1: %.4f", epoch,
                              v_res.macro_f1)
                 if t_res.macro_f1 > best_f1:

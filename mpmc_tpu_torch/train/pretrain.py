@@ -40,8 +40,8 @@ from mpmc_tpu_torch.models.convert import to_jax_params
 from mpmc_tpu_torch.models.norm import set_dropout_generator
 from mpmc_tpu_torch.models.pretrained import save_encoder_params
 from mpmc_tpu_torch.ops.packing import pack_sequences
-from mpmc_tpu_torch.train.step import (Optimizer, adam_updates,
-                                       clip_by_global_norm)
+from mpmc_tpu_torch.train.step import (adam_bias_corrections, adam_updates,
+                                       clip_by_global_norm, global_norm)
 
 log = logging.getLogger(__name__)
 
@@ -160,10 +160,11 @@ class AdamW:
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """One update from f32 ``grads`` (in ``params`` order); returns
         their pre-clip global norm."""
-        norm = Optimizer.global_norm(grads)
+        norm = global_norm(grads)
         params = list(self.params.values())
         updates = adam_updates(clip_by_global_norm(grads, norm, self.clip),
-                               self.states, self.count)
+                               self.states,
+                               *adam_bias_corrections(self.count))
         torch._foreach_add_(updates, torch._foreach_mul(params,
                                                         self.weight_decay))
         torch._foreach_mul_(updates, -self.schedule(self.count))

@@ -20,7 +20,8 @@ Selected slots without gradient (fewer touched rows than ``K``) are
 masked: they write back the values they read, so they change neither the
 moments nor the parameters.  ``topk``'s indices are distinct, so no two
 slots write one row.  The state is a full f32 ``mu`` and ``nu`` per table,
-beside the optimizer's step count.
+beside the optimizer's step count.  Nothing is read back from the
+device, so a CUDA graph can capture the update.
 """
 
 from __future__ import annotations
@@ -32,12 +33,13 @@ import torch
 
 @torch.no_grad()
 def sparse_adam_rows(param: torch.Tensor, grad: torch.Tensor,
-                     state: Dict[str, torch.Tensor], lr: float, count: int,
+                     state: Dict[str, torch.Tensor], neg_lr, bc1, bc2,
                      support_rows: int) -> None:
     """Lazy Adam in place on one ``[V, H]`` table ``param`` and its f32
-    ``state["mu"]``, ``state["nu"]``: at 0-based step ``count`` with
-    learning rate ``lr``, on at most ``support_rows`` rows, those whose
-    ``grad`` row is nonzero, largest L1 norm first."""
+    ``state["mu"]``, ``state["nu"]``, with the step's negated learning
+    rate ``neg_lr`` and Adam's bias corrections ``bc1``, ``bc2`` (0-dim
+    device tensors, or floats), on at most ``support_rows`` rows, those
+    whose ``grad`` row is nonzero, largest L1 norm first."""
     from mpmc_tpu_torch.train.step import adam_updates
     k = min(int(support_rows), grad.shape[0])
     g = grad.to(torch.float32)
@@ -45,9 +47,9 @@ def sparse_adam_rows(param: torch.Tensor, grad: torch.Tensor,
     valid = (vals > 0)[:, None]
     mu, nu = state["mu"], state["nu"]
     mu_rows, nu_rows = mu.index_select(0, idx), nu.index_select(0, idx)
-    rows = {"mu": mu_rows.clone(), "nu": nu_rows}
-    update = adam_updates([g.index_select(0, idx)], [rows], count)[0]
-    update.mul_(-lr)
+    rows = {"mu": mu_rows.clone(), "nu": nu_rows.clone()}
+    update = adam_updates([g.index_select(0, idx)], [rows], bc1, bc2)[0]
+    update.mul_(neg_lr)
     p_rows = param.index_select(0, idx)
     mu.index_copy_(0, idx, torch.where(valid, rows["mu"], mu_rows))
     nu.index_copy_(0, idx, torch.where(valid, rows["nu"], nu_rows))

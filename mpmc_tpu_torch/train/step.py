@@ -15,6 +15,11 @@ The optimizer is written out by hand on tensors, following optax 0.2.6
 (``scale_by_adam``, ``scale_by_factored_rms``, ``clip_by_global_norm``,
 ``multi_transform``) rounding for rounding, including the bf16 first moment
 whose decay product is taken in bf16.
+
+A train step reads nothing back from the device and updates every piece of
+its state in place (weights, compute copies, BatchNorm statistics,
+optimizer slots, the optimizer's device step count), so that a CUDA graph
+of K steps (``train/graphs.py``) replays them exactly.
 """
 
 from __future__ import annotations
@@ -152,24 +157,41 @@ def _factored_dims(shape) -> Optional[Tuple[int, int]]:
 
 def clip_by_global_norm(grads: List[torch.Tensor], grad_norm: torch.Tensor,
                         clip: float) -> List[torch.Tensor]:
-    """optax's ``clip_by_global_norm``: the gradients as they are when their
-    global norm is below ``clip``, else scaled by ``clip / norm`` (divided,
-    then multiplied, as optax rounds)."""
-    if float(grad_norm) < clip:
-        return grads
-    grads = torch._foreach_div(grads, grad_norm)
-    torch._foreach_mul_(grads, clip)
-    return grads
+    """optax's ``clip_by_global_norm`` on the device: each gradient as it
+    is where the global norm is below ``clip``, else ``g / norm * clip``
+    (divided, then multiplied, as optax rounds), chosen by a select, so
+    the host never waits for the norm.  ``grad_norm`` is 0-dim, or ``[F]``
+    per-fold norms of gradients stacked on a leading fold axis."""
+    if grad_norm.dim() == 0:
+        trigger = grad_norm < clip
+        scaled = torch._foreach_div(grads, grad_norm)
+        torch._foreach_mul_(scaled, clip)
+        return [torch.where(trigger, g, s) for g, s in zip(grads, scaled)]
+    out = []
+    for g in grads:
+        norm = grad_norm.view(-1, *[1] * (g.dim() - 1))
+        out.append(torch.where(norm < clip, g, g / norm * clip))
+    return out
 
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
+def adam_bias_corrections(c: int) -> Tuple[float, float]:
+    """Adam's ``1 - b1^t`` and ``1 - b2^t`` at 0-based step ``c``, in f32
+    as optax computes them."""
+    t = np.float32(c + 1)
+    return (float(np.float32(1) - np.float32(ADAM_B1) ** t),
+            float(np.float32(1) - np.float32(ADAM_B2) ** t))
+
+
 def adam_updates(g: List[torch.Tensor], states: List[Dict[str, torch.Tensor]],
-                 c: int) -> List[torch.Tensor]:
-    """optax ``scale_by_adam`` at step ``c`` (0-based) for the gradients
-    ``g``: updates each state's ``mu`` (f32 or bf16) and f32 ``nu`` and
-    returns the bias-corrected ``mu_hat / (sqrt(nu_hat) + eps)``."""
+                 bc1, bc2) -> List[torch.Tensor]:
+    """optax ``scale_by_adam`` for the gradients ``g`` with the bias
+    corrections ``bc1``, ``bc2`` (floats, or 0-dim f32 tensors on the
+    device): updates each state's ``mu`` (f32 or bf16) and f32 ``nu`` in
+    place and returns the bias-corrected ``mu_hat / (sqrt(nu_hat) +
+    eps)``."""
     mu = [st["mu"] for st in states]
     nu = [st["nu"] for st in states]
     # The decay product is taken in the moment's dtype (bf16 under the
@@ -188,15 +210,11 @@ def adam_updates(g: List[torch.Tensor], states: List[Dict[str, torch.Tensor]],
     nu_new = torch._foreach_mul(g, g)
     torch._foreach_mul_(nu_new, 1 - ADAM_B2)
     torch._foreach_add_(nu_new, torch._foreach_mul(nu, ADAM_B2))
-    t = np.float32(c + 1)
-    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** t)
-    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** t)
     denom = torch._foreach_sqrt(torch._foreach_div(nu_new, bc2))
     torch._foreach_add_(denom, ADAM_EPS)
     updates = torch._foreach_div(torch._foreach_div(mu_new, bc1), denom)
     torch._foreach_copy_(mu, mu_new)               # rounds to mu's dtype
-    for st, v in zip(states, nu_new):
-        st["nu"] = v
+    torch._foreach_copy_(nu, nu_new)
     return updates
 
 
@@ -224,14 +242,29 @@ class Optimizer:
     tables) under ``embedding_optimizer="factored"`` factored RMS with
     decay 0.8 and epsilon 1e-30, and under ``"sparse"`` lazy row-Adam
     (``train/sparse_opt.py``) on at most :func:`sparse_support_rows` rows
-    a step, both at the encoder schedule.  Updates the parameters in
-    place; parameters without a gradient take a zero one."""
+    a step, both at the encoder schedule.  Updates the parameters and
+    every state tensor in place; parameters without a gradient take a zero
+    one.
+
+    The step count lives on the device (``count_t``, advanced by the step
+    itself) beside a host mirror (``count``, for checkpoints and logs).
+    Each per-step scalar (the learning rates, Adam's bias corrections, the
+    factored-RMS decay) is read from an f32 table over the steps, made on
+    the host with the same numpy rounding as before and uploaded once, at
+    the device count: a step reads nothing from the host, so a CUDA graph
+    of K steps replays with the right scalars at every step.
+
+    ``folds`` F: every parameter carries a leading fold axis, and the
+    optimizer runs per fold, as optax does under ``vmap``: each fold's own
+    global norm and clip, ``_factored_dims`` on the per-fold shape, the
+    sparse rows per fold."""
 
     RMS_DECAY, RMS_EPS = 0.8, 1e-30
 
     def __init__(self, cfg: TrainConfig, total_steps: int,
                  params: Dict[str, torch.Tensor],
-                 embed_support: Optional[int] = None):
+                 embed_support: Optional[int] = None,
+                 folds: Optional[int] = None):
         if cfg.embedding_optimizer not in ("adam", "factored", "sparse"):
             raise ValueError(f"unknown embedding_optimizer "
                              f"{cfg.embedding_optimizer!r} (expected "
@@ -256,12 +289,19 @@ class Optimizer:
         mu_dtype = (getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype
                     else None)
         self.params = params
+        self.folds = folds
+        lead = 1 if folds else 0
+        self.device = next((p.device for p in params.values()),
+                           torch.device("cpu"))
         self.count = 0
+        self.count_t = torch.zeros((), dtype=torch.long, device=self.device)
+        self.tables: Dict[str, torch.Tensor] = {}
+        self.ensure_steps(max(total_steps, 1))
         self.label: Dict[str, str] = {}
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         for name, p in params.items():
             if (cfg.embedding_optimizer == "sparse"
-                    and "word_embeddings" in name and p.ndim == 2):
+                    and "word_embeddings" in name and p.ndim == 2 + lead):
                 self.label[name] = "embed"
                 self.state[name] = {
                     "mu": torch.zeros_like(p, dtype=torch.float32),
@@ -269,7 +309,7 @@ class Optimizer:
             elif (cfg.embedding_optimizer == "factored"
                     and "word_embeddings" in name):
                 self.label[name] = "embed"
-                dims = _factored_dims(p.shape)
+                dims = self._fold_factored_dims(p.shape)
                 if dims is None:
                     self.state[name] = {"v": torch.zeros_like(p)}
                 else:
@@ -282,6 +322,37 @@ class Optimizer:
                 self.state[name] = {
                     "mu": torch.zeros_like(p, dtype=mu_dtype or p.dtype),
                     "nu": torch.zeros_like(p)}
+
+    def _fold_factored_dims(self, shape) -> Optional[Tuple[int, int]]:
+        """:func:`_factored_dims` of the per-fold shape, as dims of the
+        (stacked) tensor."""
+        lead = 1 if self.folds else 0
+        dims = _factored_dims(tuple(shape)[lead:])
+        return None if dims is None else (dims[0] + lead, dims[1] + lead)
+
+    def ensure_steps(self, n: int) -> None:
+        """Make the per-step tables cover steps ``0 .. n - 1`` (at least
+        twice what they covered, when they grow)."""
+        have = len(next(iter(self.tables.values()))) if self.tables else 0
+        if n <= have:
+            return
+        steps = range(max(n, 2 * have))
+        cols = {f"lr_{g}": [sched(c) for c in steps]
+                for g, sched in self.schedules.items()}
+        cols["bc1"], cols["bc2"] = zip(*(adam_bias_corrections(c)
+                                         for c in steps))
+        decay = [np.float32(1) - np.float32(c + 1) ** np.float32(
+            -self.RMS_DECAY) for c in steps]
+        cols["rms_keep"] = decay
+        cols["rms_new"] = [np.float32(1) - d for d in decay]
+        self.tables = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
+                           self.device) for k, v in cols.items()}
+
+    def _at(self, name: str) -> torch.Tensor:
+        """Table ``name`` at the device count, 0-dim (``index_select``: a
+        tensor index would read the count on the host)."""
+        return self.tables[name].index_select(0, self.count_t.view(1)
+                                              ).view(())
 
     def state_dict(self) -> Dict:
         """The step count and each parameter's state at its own dtype (the
@@ -311,62 +382,82 @@ class Optimizer:
                         f"{own[k].dtype} {tuple(own[k].shape)}")
                 own[k].copy_(v)
         self.count = int(sd["count"])
+        self.ensure_steps(self.count + 1)
+        self.count_t.fill_(self.count)
 
     @staticmethod
-    def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-        """``sqrt(sum over tensors of sum(g * g))``, as optax."""
-        sums = torch._foreach_norm(torch._foreach_mul(grads, grads), 1)
-        return torch.sqrt(torch.stack(sums).sum())
+    def global_norm(grads: List[torch.Tensor],
+                    folds: Optional[int] = None) -> torch.Tensor:
+        """``sqrt(sum over tensors of sum(g * g))``, as optax; ``[F]``, one
+        per fold, for gradients stacked over ``folds``."""
+        if not folds:
+            return global_norm(grads)
+        return torch.stack([global_norm([g[f] for g in grads])
+                            for f in range(folds)])
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor], grad_norm: torch.Tensor
              ) -> None:
-        """One update from f32 ``grads`` and their pre-clip global norm.
-        The tensors of each group go through multi-tensor (``_foreach``)
-        ops, a few launches per group; reading the norm to decide the clip
-        is the step's one wait on the device."""
-        c = self.count
+        """One update from f32 ``grads`` and their pre-clip global norm
+        (``[F]`` over folds).  The tensors of each group go through
+        multi-tensor (``_foreach``) ops, a few launches per group; nothing
+        is read back from the device."""
+        self.ensure_steps(self.count + 1)
         names = list(self.params)
         g = dict(zip(names, clip_by_global_norm(
             [grads[n] for n in names], grad_norm, self.clip)))
-        for label, schedule in self.schedules.items():
+        bc1, bc2 = self._at("bc1"), self._at("bc2")
+        for label in self.schedules:
             group = [n for n in names if self.label[n] == label]
             if not group:
                 continue
+            neg_lr = -self._at(f"lr_{label}")
             if label == "embed" and self.support_rows:
                 for n in group:
-                    sparse_adam_rows(self.params[n], g[n], self.state[n],
-                                     schedule(c), c, self.support_rows)
+                    p, st = self.params[n], self.state[n]
+                    for f in (range(self.folds) if self.folds else [None]):
+                        pick = (lambda t: t) if f is None else (
+                            lambda t, f=f: t[f])
+                        sparse_adam_rows(pick(p), pick(g[n]),
+                                         {k: pick(v) for k, v in st.items()},
+                                         neg_lr, bc1, bc2, self.support_rows)
                 continue
-            lr = -schedule(c)
             params = [self.params[n] for n in group]
             if label == "embed":
-                updates = [self._factored_rms(g[n], self.state[n], c)
+                keep, new = self._at("rms_keep"), self._at("rms_new")
+                updates = [self._factored_rms(g[n], self.state[n], keep, new)
                            for n in group]
             else:
                 updates = adam_updates([g[n] for n in group],
-                                       [self.state[n] for n in group], c)
-            torch._foreach_mul_(updates, lr)
+                                       [self.state[n] for n in group],
+                                       bc1, bc2)
+            torch._foreach_mul_(updates, neg_lr)
             torch._foreach_add_(params, updates)
-        self.count = c + 1
+        self.count_t.add_(1)
+        self.count += 1
 
-    def _factored_rms(self, g, st, c):
-        decay = np.float32(1) - np.float32(c + 1) ** np.float32(
-            -self.RMS_DECAY)
-        keep, new = float(decay), float(np.float32(1) - decay)
+    def _factored_rms(self, g, st, keep, new):
+        """optax ``scale_by_factored_rms`` with the step's decay ``keep``
+        and ``1 - keep`` (0-dim tensors); the state updated in place."""
         grad_sqr = g * g + self.RMS_EPS
-        dims = _factored_dims(g.shape)
+        dims = self._fold_factored_dims(g.shape)
         if dims is None:
-            st["v"] = keep * st["v"] + new * grad_sqr
+            st["v"].copy_(keep * st["v"] + new * grad_sqr)
             return g * st["v"] ** -0.5
         d1, d0 = dims
-        st["v_row"] = keep * st["v_row"] + new * grad_sqr.mean(dim=d0)
-        st["v_col"] = keep * st["v_col"] + new * grad_sqr.mean(dim=d1)
+        st["v_row"].copy_(keep * st["v_row"] + new * grad_sqr.mean(dim=d0))
+        st["v_col"].copy_(keep * st["v_col"] + new * grad_sqr.mean(dim=d1))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
         row_factor = (st["v_row"] / row_col_mean) ** -0.5
         col_factor = st["v_col"] ** -0.5
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(sum over tensors of sum(g * g))``, as optax."""
+    sums = torch._foreach_norm(torch._foreach_mul(grads, grads), 1)
+    return torch.sqrt(torch.stack(sums).sum())
 
 
 # ---------------------------------------------------------------------------

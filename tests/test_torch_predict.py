@@ -188,4 +188,4 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
     assert not (tmp_path / "out").exists()
     # Flags the port does not take are refused, not ignored.
     with pytest.raises(SystemExit):
-        build_parser().parse_args(train + ["--scan-steps", "8"])
+        build_parser().parse_args(train + ["--data-shards", "2"])
