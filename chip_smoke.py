@@ -142,11 +142,23 @@ toolkit.  Phases, each of which raises on failure:
    --scan-steps 8`` against 1 on phase 3's memes and warm memes/s of
    both; phase 13's sparse 2A run again at ``--scan-steps 4`` (phase 8's
    2A run and phase 11's kill-and-``--resume`` are at ``--scan-steps 4``
-   too); ``train --subtask 2c --fold-parallel --scan-steps 4`` (5 folds:
-   24 attention forwards and 24 backwards a step at ``[80, S, 12, 64]``,
-   one image kernel at ``[80, 224, 224, 3]``, per-fold TSVs and
+   too); ``train --subtask 2c --fold-parallel --scan-steps 4`` (4 folds:
+   24 attention forwards and 24 backwards a step at ``[64, S, 12, 64]``,
+   one image kernel at ``[64, 224, 224, 3]``, per-fold TSVs and
    checkpoints, ``predict --checkpoint`` from fold 2); and one f32
-   fold-parallel step against each replica's own step.
+   fold-parallel step against each replica's own step;
+15. the multi-GPU layouts at world size 1 (one card): phase 5's command
+   line again, without checkpoints, in a world of one process over NCCL
+   (``parallel/dist_worker.launch_processes``), through the data-parallel
+   path (rows of each global batch, the BatchNorm statistics, the loss
+   weight and the gradients summed over the data group in one flat buffer,
+   evals gathered); its TSVs, per-step losses and final weights against
+   phase 5's (bit for bit, else within Adam's bound), the three kernels'
+   launches equal, the collectives a step, its warm group replay beside
+   phase 5's; then, in that world, the 2A text classifier at full width
+   (12 layers, ``[16, 128]``, bf16) sequence-parallel (ring, Ulysses) and
+   pipelined (S = 1, M = 4) and tensor-parallel (one shard), forward and
+   backward against the plain classifier, with their kernel launches.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -169,7 +181,7 @@ input and output, at 12 encoder layers and, for the cross-modal one, at 4
 Prints the card's name and power limit, each phase's result, the
 ``predict_kinds``, ``train_2a``/``mlm``, ``train_2b``,
 ``train_variants``, ``fusion_batchnorms``, ``phase_11``, ``phase_12``,
-``phase_13`` and ``phase_14`` JSON lines, a
+``phase_13``, ``phase_14`` and ``phase_15`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -3822,7 +3834,11 @@ def phase_host_runtime(torch, work: str, build_routes):
 
 SCAN_K = 4                          # phase 5's --scan-steps: 2 groups
 PREDICT_SCAN_K = 8                  # phase 3's 8 batches: one group
-FOLDS = 5
+# Folds of phase 14's fold-parallel run: 4, so that the whole script keeps
+# its time with phase 15's second process; fewer would leave each fold
+# fewer than 8 steps of 16, hence no full group of SCAN_K between evals
+# and no graph to replay.
+FOLDS = 4
 
 
 @contextlib.contextmanager
@@ -4082,13 +4098,14 @@ def attention_shapes(torch):
 
 def phase_fold_parallel(torch, work: str):
     """``train --subtask 2c --fold-parallel --scan-steps 4`` on phase 5's
-    manifests (5 folds at once, one epoch, unpacked): launches a step of 24
-    attention forwards and 24 backwards at ``[5*16, S, 12, 64]`` and one
+    manifests (``FOLDS`` folds at once, one epoch, unpacked): launches a
+    step of 24 attention forwards and 24 backwards at ``[FOLDS*16, S, 12,
+    64]`` and one
     image kernel (one fold's count), 24 forwards per eval batch; 5
     per-fold probability TSVs and checkpoints; ``predict --checkpoint
     <dir>/fold_2`` reproduces fold 2's best eval."""
     # Each fold that improves writes its whole training state at full
-    # width: the 5 folds' checkpoints go to memory (/dev/shm) where there
+    # width: the folds' checkpoints go to memory (/dev/shm) where there
     # is one, to keep the script's writes to disk within what a card host
     # with a small disk takes beside the other phases.
     shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
@@ -4172,8 +4189,9 @@ def _fold_parallel_run(torch, work: str, ckpt: str):
 
 
 def phase_fold_parallel_card_vs_single(torch, work: str):
-    """One fold-parallel step of 5 replicas in f32 (TF32 off, dropout 0,
-    encoders cut to ``CARD_VS_CPU_LAYERS`` layers at full width) against
+    """One fold-parallel step of ``FOLDS`` replicas in f32 (TF32 off,
+    dropout 0, encoders cut to ``CARD_VS_CPU_LAYERS`` layers at full
+    width) against
     each replica's own step on the same rows and augmentation draws, on
     the card, at phase 6's tolerances.  Gain 1: a gain above 1 clips pixels
     to exactly 1.0, whose ties in the stem's max-pool vmap's batched
@@ -4280,6 +4298,298 @@ def phase_scan_and_folds(torch, work: str, predict_argv, train_argv,
 
 
 T_START = time.perf_counter()
+
+
+# Phase 15: the multi-GPU layouts at world size 1.  Each sharded encoder
+# against the plain one in bf16, each path at its own limit:
+# * Ulysses runs the plain encoder's operations (an all-to-all of one rank
+#   moves nothing): logits and every gradient bit for bit;
+# * PP at S = 1 runs each microbatch's forward as the plain one does row
+#   for row: logits bit for bit; its gradients sum four microbatches'
+#   bf16 GEMMs in another order;
+# * ring (its own f32 online softmax on bf16 inputs, as the JAX package's
+#   is XLA) and TP (the row-parallel layers' separate bias add): logits
+#   and gradients rounded in other places.
+# Those three are held per leaf: ||g - plain|| / ||plain|| (L2 over the
+# leaf) within the path's LAYOUT_LEAF_TOL, and the logits the same way:
+# above the sound readings and below planted faults of 0.25 (one of four
+# microbatches' gradient lost from a leaf) and 1 (a leaf's gradient
+# dropped or doubled); the script plants both and checks that they fail.
+# Measured worst leaves (H100, PERF.md PR 13): ring 5.4e-2 (the pooling's
+# first bias, which bf16 rounding alone moves by 3.5e-2), TP 1.8e-2, PP
+# 4.2e-3.
+# The bf16 control (the plain encoder in bf16 against the same weights in
+# f32) shows what bf16 rounding alone does to each leaf.  Leaves whose
+# gradient is zero in exact arithmetic (every key bias and the attention
+# pooling's score bias: softmax is shift-invariant) are all rounding; they
+# are held to a hundredth of the largest gradient entry instead.
+LAYOUT_LEAF_TOL = {"sp_ring": 0.1, "tp_1": 0.1, "pp_s1_m4": 0.02}
+LAYOUT_EXACT = {"sp_ulysses": ("logits", "grads"), "pp_s1_m4": ("logits",)}
+ZERO_GRAD_LEAVES = ("attention.key.bias", "attn_fc2.bias")
+LAYOUT_SHAPE = (16, 128)
+
+
+def leaf_errors(torch, names, grads, ref_grads):
+    """Per leaf of ``names``: ||g - r|| / ||r|| (``rel``), and for the
+    leaves whose gradient is zero in exact arithmetic max |g - r| over the
+    largest entry of any gradient (``zero``); the leaves without a
+    gradient are skipped."""
+    largest = max(r.float().abs().max().item() for r in ref_grads
+                  if r is not None)
+    rel, zero = {}, {}
+    for n, g, r in zip(names, grads, ref_grads):
+        if r is None:
+            continue
+        d = g.float() - r.float()
+        if n.endswith(ZERO_GRAD_LEAVES):
+            zero[n] = d.abs().max().item() / largest
+        else:
+            rel[n] = (d.norm() / r.float().norm().clamp_min(1e-30)).item()
+    return rel, zero
+
+
+def layout_encoders(torch):
+    """In a launched world of one process: the full-width 2A text
+    classifier sequence-parallel (ring, Ulysses), pipelined (S = 1, M = 4)
+    and tensor-parallel (one shard: the vocabulary-parallel lookup and the
+    row-parallel layers' separate bias add) against the plain classifier
+    on the same bf16 weights and batch,
+    forward and backward (eval mode: no dropout), with each path's kernel
+    launches and a warm forward-and-backward time."""
+    from torch.func import functional_call
+    from mpmc_tpu_torch.config import ModelConfig, PoolingType
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.parallel.pp import PipelineText
+    from mpmc_tpu_torch.parallel.sp import SequenceParallelText
+    from mpmc_tpu_torch.parallel.tp import tensor_parallel
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mcfg = dataclasses.replace(ModelConfig(), num_classes=2,
+                               pooling=PoolingType.ATTENTION)
+    plain = build_model(mcfg, dev, seed=0, kind="text")
+    weights = {n: p.detach().to(torch.bfloat16).requires_grad_()
+               for n, p in plain.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B, S = LAYOUT_SHAPE
+    ids = torch.randint(5, mcfg.text.vocab_size, (B, S), generator=gen,
+                        device=dev)
+    lens = torch.randint(S // 4, S + 1, (B,), generator=gen, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).long()
+    w = torch.randn(B, 2, generator=gen, device=dev)
+    names = list(weights)
+
+    def run(model):
+        model.eval()
+        for key in build.launch_counts:
+            build.launch_counts[key] = 0
+        out = functional_call(model, weights, (ids, mask)).float()
+        grads = torch.autograd.grad((out * w).sum(), list(weights.values()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        t0 = time.perf_counter()
+        again = functional_call(model, weights, (ids, mask)).float()
+        torch.autograd.grad((again * w).sum(), list(weights.values()),
+                            allow_unused=True)
+        torch.cuda.synchronize()
+        return out, grads, launches, (time.perf_counter() - t0) * 1e3
+
+    ref_out, ref_grads, ref_launches, ref_ms = run(plain)
+    check(ref_launches["attention_fwd"] == 12
+          and ref_launches["attention_bwd"] == 12,
+          f"plain encoder launches {ref_launches}")
+    # The bf16 control: the plain encoder on the same weights in f32.
+    bf16_weights = weights
+    weights = {n: p.detach().float().requires_grad_()
+               for n, p in bf16_weights.items()}
+    f32_out, f32_grads, _, _ = run(plain)
+    weights = bf16_weights
+    ctl_rel, ctl_zero = leaf_errors(torch, names, ref_grads, f32_grads)
+    control = dict(
+        logits_rel_err=((ref_out - f32_out).norm()
+                        / f32_out.norm()).item(),
+        grad_rel_err=max(ctl_rel.values()),
+        worst_grad=max(ctl_rel, key=ctl_rel.get),
+        zero_grad_err=max(ctl_zero.values()))
+    del f32_out, f32_grads
+    world = torch.distributed.group.WORLD
+    res = {"plain": dict(launches=ref_launches, fwd_bwd_ms=ref_ms,
+                         bf16_control=control)}
+    expect = {"sp_ring": (0, 0), "sp_ulysses": (12, 12),
+              "pp_s1_m4": (48, 48), "tp_1": (12, 12)}
+    for name, model in (
+            ("sp_ring", SequenceParallelText.wrap(plain, world, "ring")),
+            ("sp_ulysses", SequenceParallelText.wrap(plain, world,
+                                                     "ulysses")),
+            ("pp_s1_m4", PipelineText.wrap(plain, world, 4)),
+            ("tp_1", tensor_parallel(
+                build_model(mcfg, dev, seed=0, kind="text"), world,
+                lambda: build_model(mcfg, torch.device("meta"),
+                                    kind="text")))):
+        out, grads, launches, ms = run(model)
+        logits = ((out - ref_out).norm() / ref_out.norm()).item()
+        rel, zero = leaf_errors(torch, names, grads, ref_grads)
+        where = max(rel, key=rel.get)
+        worst, zero_worst = rel[where], max(zero.values())
+        exact = LAYOUT_EXACT.get(name, ())
+        tol = LAYOUT_LEAF_TOL.get(name, 0.0)
+        check(logits <= (0.0 if "logits" in exact else tol),
+              f"{name}: logits {logits:.3g} relative to the plain encoder "
+              f"(limit {0.0 if 'logits' in exact else tol})")
+        if "grads" in exact:
+            check(worst == 0 and zero_worst == 0,
+                  f"{name}: gradients differ from the plain encoder's "
+                  f"({where} {worst:.3g}), expected bit for bit")
+        else:
+            check(worst <= tol and zero_worst <= 1e-2,
+                  f"{name}: gradient {where} {worst:.3g} relative to the "
+                  f"plain encoder (limit {tol}), zero-gradient "
+                  f"leaves {zero_worst:.3g} of the largest entry (limit "
+                  f"1e-2)")
+            # Planted faults, which the limit must catch: the leaf with
+            # the largest gradient missing one of four microbatches, and
+            # dropped.
+            big = max(rel, key=lambda n: ref_grads[names.index(n)].norm())
+            i = names.index(big)
+            planted = {}
+            for fault, scale in (("quarter_lost", 0.75), ("dropped", 0.0)):
+                bad = list(grads)
+                bad[i] = grads[i] * scale
+                planted[fault] = leaf_errors(torch, [big], [bad[i]],
+                                             [ref_grads[i]])[0][big]
+                check(planted[fault] > tol,
+                      f"{name}: the planted fault {fault} on {big} reads "
+                      f"{planted[fault]:.3g}, within the limit")
+        fwd, bwd = expect[name]
+        check(launches["attention_fwd"] == fwd
+              and launches["attention_bwd"] == bwd,
+              f"{name}: launches {launches}, expected {expect[name]}")
+        res[name] = dict(launches=launches, logits_rel_err=logits,
+                         grad_rel_err=worst, worst_grad=where,
+                         zero_grad_err=zero_worst, fwd_bwd_ms=ms,
+                         bitwise=bool(logits == 0 and worst == 0
+                                      and zero_worst == 0))
+        if "grads" not in exact:
+            res[name]["planted"] = planted
+        del model
+    del plain, weights
+    torch.cuda.empty_cache()
+    return res
+
+
+def layouts_worker(argv, final_path: str):
+    """Phase 15 on the one rank of a launched world: phase 5's command line
+    through the data-parallel path (its launches and collectives, its
+    final weights saved to ``final_path``, its train group replays timed),
+    then :func:`layout_encoders`."""
+    import torch
+    from mpmc_tpu_torch.cli.main import main as cli_main
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train import graphs
+    replays = []
+    call = graphs.GroupedSteps.__call__
+
+    def timed(self, group):
+        before = self.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, group)
+        torch.cuda.synchronize()
+        if self.counter is not None and self.replays > before:
+            replays.append((time.perf_counter() - t0) * 1e3 / self.k)
+        return out
+
+    graphs.GroupedSteps.__call__ = timed
+    try:
+        with watch_fit(torch) as seen:
+            rc = cli_main(argv)
+    finally:
+        graphs.GroupedSteps.__call__ = call
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    collectives = dict(build.collective_calls)
+    torch.save(seen["final"][0], final_path)
+    graphs_run = replays_by_kind(seen["groups"])
+    del seen
+    torch.cuda.empty_cache()
+    return dict(rc=rc, launches=launches, collectives=collectives,
+                replay_ms=replays, graphs=graphs_run,
+                encoders=layout_encoders(torch))
+
+
+def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns):
+    """Phase 15: phase 5's run through the data-parallel path in a world of
+    one process over NCCL, against phase 5's own run; the sharded 2A
+    encoders against the plain one (:func:`layouts_worker`)."""
+    from mpmc_tpu_torch.parallel.dist_worker import launch_processes
+    dp = list(argv)
+    dp[dp.index("--out-dir") + 1] = os.path.join(work, "train_out_dp")
+    i = dp.index("--checkpoint-dir")
+    del dp[i:i + 2]
+    final = os.path.join(work, "dp_final.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    [line] = launch_processes(
+        1, device="cuda", target="chip_smoke:layouts_worker",
+        kwargs={"argv": dp, "final_path": final}, timeout=600)
+    wall = time.perf_counter() - t0
+    res = line["result"]
+    check(res["rc"] == 0, f"train in a world of one returned {res['rc']}")
+    check(res["launches"] == launches_k4,
+          f"launches in a world of one {res['launches']}, phase 5 "
+          f"{launches_k4}")
+    check(res["graphs"].get("train", (0, 0))[1] > 0,
+          f"no train graph replayed in a world of one: {res['graphs']}")
+    cmp = compare_runs(os.path.join(work, "train_out"),
+                       os.path.join(work, "train_out_dp"), "task2C",
+                       "2C world 1 vs phase 5")
+    params = max_state_diff(watch_k4["final"][0],
+                            torch.load(final, weights_only=True))
+    bitwise = params == 0 and cmp["tsvs_identical"] and cmp["steps_identical"]
+    # Expected bit for bit: in a world of one every collective sums one
+    # term, and the BatchNorm statistics are divided by 1.  Else within
+    # Adam's bound over the run's steps and 1e-3 on probabilities.
+    bound = 2 * 3.17 * 1e-5 * cmp["steps"]
+    check(params <= bound and cmp["max_prob_diff"] <= 1e-3,
+          f"world 1 vs phase 5: weights differ by {params}, probabilities "
+          f"by {cmp['max_prob_diff']}")
+    per_step = {k: v / cmp["steps"] for k, v in res["collectives"].items()
+                if k == "all_reduce"}
+    warm = sorted(res["replay_ms"])
+    print(f"  train --subtask 2c in a world of one over NCCL: {wall:.3f} s "
+          f"wall (process start included); launches {res['launches']} equal "
+          f"phase 5's; collectives {res['collectives']} ({per_step} a step; "
+          f"the all-gathers are the evals'); bit for bit: {bitwise} (TSVs "
+          f"{cmp['tsvs_identical']}, per-step losses {cmp['steps_identical']}"
+          f", final weights max |diff| {params:.3g}, probabilities max "
+          f"|diff| {cmp['max_prob_diff']:.3g}); train group replays "
+          f"{[round(x, 3) for x in warm]} ms/step beside phase 5's warm K = "
+          f"{SCAN_K} {turns['warm_step_ms'][str(SCAN_K)]:.3f} ms/step")
+    control = res["encoders"]["plain"]["bf16_control"]
+    print(f"  2A encoder bf16 against f32 (the control): logits "
+          f"{control['logits_rel_err']:.3g}, worst leaf "
+          f"{control['grad_rel_err']:.3g} ({control['worst_grad']}), "
+          f"zero-gradient leaves {control['zero_grad_err']:.3g} of the "
+          f"largest entry")
+    for name, r in res["encoders"].items():
+        print(f"  2A encoder {name}: launches {r['launches']}, forward and "
+              f"backward {r['fwd_bwd_ms']:.3f} ms warm"
+              + ("" if name == "plain" else
+                 f", logits {r['logits_rel_err']:.3g}, worst leaf "
+                 f"{r['grad_rel_err']:.3g} ({r['worst_grad']}), "
+                 f"zero-gradient leaves {r['zero_grad_err']:.3g} relative "
+                 f"to plain, bit for bit {r['bitwise']}"
+                 + (f", planted faults {r['planted']}" if "planted" in r
+                    else "")))
+    return dict(dp_world1=dict(
+        launches=res["launches"], collectives=res["collectives"],
+        all_reduce_per_step=per_step.get("all_reduce"), bitwise=bitwise,
+        final_weights_max_abs_diff=params,
+        max_prob_diff=cmp["max_prob_diff"],
+        max_step_loss_diff=cmp["max_step_loss_diff"],
+        replay_ms_per_step=warm, graphs=res["graphs"], wall_s=wall,
+        phase5_warm_k4_ms=turns["warm_step_ms"][str(SCAN_K)]),
+        encoders=res["encoders"])
 
 
 def stamp(title: str) -> None:
@@ -4401,6 +4711,9 @@ def main() -> int:
                                        train_launches, watch_k4, p13,
                                        p13_watch)
             p14["train_2c"].update(turns)
+            stamp("phase 15 the multi-GPU layouts at world size 1:")
+            p15 = phase_layouts(torch, work, train_argv, train_launches,
+                                watch_k4, turns)
         finally:
             os.chdir(cwd)
 
@@ -4412,6 +4725,9 @@ def main() -> int:
                  ("predict_k8", p14["predict"]),
                  ("train_2a_sparse_k4", p14["train_2a_sparse"]),
                  ("fold_parallel", p14["fold_parallel"])]
+    p15_paths = [("train_2c_world1", p15["dp_world1"]),
+                 *((f"text_{k}", v) for k, v in p15["encoders"].items()
+                   if k != "plain")]
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -4442,7 +4758,8 @@ def main() -> int:
             **{k: v["attention_fwd"] for k, v in paths_12.items()},
             "train_2a_sparse": p13["train_2a_sparse"]["launches"][
                 "attention_fwd"],
-            **{k: v["launches"]["attention_fwd"] for k, v in p14_paths}},
+            **{k: v["launches"]["attention_fwd"] for k, v in p14_paths},
+            **{k: v["launches"]["attention_fwd"] for k, v in p15_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "attention_fwd", 0) for k, v in p14_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
@@ -4496,7 +4813,8 @@ def main() -> int:
             **{k: v["attention_bwd"] for k, v in paths_12.items()},
             "train_2a_sparse": p13["train_2a_sparse"]["launches"][
                 "attention_bwd"],
-            **{k: v["launches"]["attention_bwd"] for k, v in p14_paths}},
+            **{k: v["launches"]["attention_bwd"] for k, v in p14_paths},
+            **{k: v["launches"]["attention_bwd"] for k, v in p15_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "attention_bwd", 0) for k, v in p14_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
@@ -4526,7 +4844,9 @@ def main() -> int:
                for k, v in variants.items()},
             **{k: v["image_normalize"] for k, v in paths_11.items()},
             **{k: v["image_normalize"] for k, v in paths_12.items()},
-            **{k: v["launches"]["image_normalize"] for k, v in p14_paths}},
+            **{k: v["launches"]["image_normalize"] for k, v in p14_paths},
+            **{k: v["launches"].get("image_normalize", 0)
+               for k, v in p15_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "image_normalize", 0) for k, v in p14_paths},
         "fold_parallel_shape": [FOLDS * BATCH, 224, 224, 3]}]
@@ -4555,6 +4875,7 @@ def main() -> int:
     print(json.dumps({"phase_12": p12}))
     print(json.dumps({"phase_13": p13}))
     print(json.dumps({"phase_14": p14}))
+    print(json.dumps({"phase_15": p15}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

@@ -4,10 +4,22 @@ the entry points, the optional corpus MLM stage (``_maybe_mlm_pretrain``)
 and SimCLR image stage (``_maybe_simclr_pretrain``), and the training
 entry points ``run_subtask_2a`` (text), ``run_subtask_2b`` (image) and
 ``run_subtask_2c`` (multimodal, or the simple baseline) over
-``_run_folds`` on one device.  Packed (``pack_rows > 0``) 2A is fed from
-the host by a ``PackedTrainPlan``; packed 2C keeps its images on the
-device; unpacked (2B and the simple 2C always), every array stays on the
-device and batches carry row indices."""
+``_run_folds``.  Packed (``pack_rows > 0``) 2A is fed from the host by a
+``PackedTrainPlan``; packed 2C keeps its images on the device; unpacked
+(2B and the simple 2C always), every array stays on the device and
+batches carry row indices.
+
+In a launched world (``parallel/distributed.py``) the folds train under
+the mesh of ``cfg.mesh`` (``parallel/mesh.py``): each rank holds the whole
+data store and feeds its rows of every batch (``--data-shards``), the
+encoders may split their heads, hidden units and vocabulary
+(``--model-shards``, ``parallel/tp.py``), the 2A encoder may run
+sequence-sharded (``--seq-shards``, ``parallel/sp.py``) or pipelined
+(``--pipeline-stages``, ``parallel/pp.py``), and ``--fold-shards`` gives
+each fold group its share of the folds.  Rank 0
+prepares the data first (it fills the caches), runs the pretraining
+stages while the others wait, and alone writes the vocab files,
+``run_meta.json``, TSVs, metrics and checkpoints."""
 
 from __future__ import annotations
 
@@ -26,6 +38,8 @@ from mpmc_tpu_torch.cv.kfold import stratified_kfold
 from mpmc_tpu_torch.image.augment import eval_preprocess
 from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.models.captioner import precompute_captions
+from mpmc_tpu_torch.parallel.distributed import (is_writer, on_rank0,
+                                                 rank0_first)
 from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
 from mpmc_tpu_torch.text.wordpiece import WordPieceTokenizer
 
@@ -163,6 +177,8 @@ def _persist_vocab(tok: WordPieceTokenizer, cfg: TrainConfig, out_dir: str,
                    filename: str = "vocab.txt") -> None:
     """Save the training vocab next to the outputs and the checkpoints, so
     ``predict`` restores the exact token ids."""
+    if not is_writer():
+        return
     for d in [out_dir] + ([cfg.checkpoint_dir] if cfg.checkpoint_dir else []):
         os.makedirs(d, exist_ok=True)
         tok.save(os.path.join(d, filename))
@@ -180,10 +196,10 @@ def _maybe_mlm_pretrain(cfg: TrainConfig, mcfg, tok, corpus_texts,
         return pretrained
     os.makedirs(out_dir, exist_ok=True)
     mlm_path = os.path.join(out_dir, "mlm_encoder.npz")
-    pretrain_and_save(mcfg.text, list(corpus_texts), tok, mlm_path,
-                      MLMConfig(epochs=cfg.mlm_epochs, seed=cfg.seed,
-                                pack=cfg.mlm_pack),
-                      max_len=seq_len, device=device)
+    on_rank0(lambda: pretrain_and_save(
+        mcfg.text, list(corpus_texts), tok, mlm_path,
+        MLMConfig(epochs=cfg.mlm_epochs, seed=cfg.seed, pack=cfg.mlm_pack),
+        max_len=seq_len, device=device))
     return (dataclasses.replace(pretrained, text=mlm_path)
             if pretrained else PretrainedSpec(text=mlm_path))
 
@@ -200,12 +216,12 @@ def _maybe_simclr_pretrain(cfg: TrainConfig, mcfg, images_u8: np.ndarray,
         return pretrained
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "simclr_backbone.npz")
-    pretrain_and_save_image(
+    on_rank0(lambda: pretrain_and_save_image(
         mcfg.image, images_u8, path,
         SimCLRConfig(epochs=cfg.simclr_epochs, seed=cfg.seed,
                      batch_size=min(cfg.data.batch_size * 4,
                                     len(images_u8))),
-        device=device)
+        device=device))
     return (dataclasses.replace(pretrained, image=path)
             if pretrained else PretrainedSpec(image=path))
 
@@ -233,6 +249,8 @@ def _persist_run_meta(cfg: TrainConfig, mcfg, kind: str, out_dir: str,
                         if "caption_ids" in data else None),
         "pipeline_stages": 1,
     }
+    if not is_writer():
+        return
     for d in [out_dir] + ([cfg.checkpoint_dir] if cfg.checkpoint_dir else []):
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "run_meta.json"), "w") as f:
@@ -255,12 +273,44 @@ class FoldRun:
     scan_eval_step: Optional[Callable] = None
 
 
+def shard_model(model: torch.nn.Module, cfg: TrainConfig, layout):
+    """The 2A text model with its encoder sequence-sharded
+    (``--seq-shards``) or pipelined (``--pipeline-stages``) over the
+    layout's inner axis, or any model split Megatron-style over it
+    (``--model-shards``, ``parallel/tp.py``), or ``model`` itself."""
+    inner = layout.inner
+    if inner is None:
+        return model
+    if inner == cfg.mesh.model_axis:
+        from mpmc_tpu_torch.models.classifier import build_model
+        from mpmc_tpu_torch.parallel.tp import tensor_parallel
+
+        def plain_skeleton():
+            return build_model(model.cfg, torch.device("meta"),
+                               kind=model.kind, binary_head=getattr(
+                                   model, "binary_head", None) is not None)
+
+        return tensor_parallel(model, layout.group(inner), plain_skeleton)
+    if model.kind != "text":
+        flag = ("--seq-shards" if inner == cfg.mesh.seq_axis
+                else "--pipeline-stages")
+        raise ValueError(f"{flag} shards the 2A text encoder; the "
+                         f"{model.kind} model has none to shard")
+    if inner == cfg.mesh.seq_axis:
+        from mpmc_tpu_torch.parallel.sp import SequenceParallelText
+        return SequenceParallelText.wrap(model, layout.group(inner),
+                                         cfg.mesh.sp_impl)
+    from mpmc_tpu_torch.parallel.pp import PipelineText, microbatches
+    return PipelineText.wrap(model, layout.group(inner),
+                             microbatches(cfg.mesh, cfg.data.batch_size))
+
+
 def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                tr_idx: np.ndarray, store: Dict[str, torch.Tensor],
                device: torch.device, fold: int,
                augment: Optional[Callable] = None, kind: str = "multimodal",
                pretrained=None, grayscale: bool = False,
-               binary_head: bool = False) -> FoldRun:
+               binary_head: bool = False, layout=None) -> FoldRun:
     """Model of ``kind`` (the image model with ``binary_head``), plan and
     steps of fold ``fold`` over its train rows ``tr_idx`` of the resident
     ``store``: random weights from ``cfg.seed`` (the same for every fold,
@@ -270,22 +320,32 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
     under ``grayscale``.
     Packing gives 2A a ``PackedTrainPlan`` of ``pack_rows`` rows a step
     over the host arrays, and 2C a ``PackedMultimodalPlan`` that indexes
-    the resident images."""
+    the resident images.
+
+    Under a multi-process ``layout`` (``parallel/mesh.py``) the plan yields
+    this rank's part of each batch, BatchNorm and dropout work on the
+    global batch (``models.norm.set_data_shard``), the steps combine the
+    ranks (``train.step.GradSync``), and the model is split as the layout
+    says (:func:`shard_model`)."""
     from mpmc_tpu_torch.models.classifier import build_model
     from mpmc_tpu_torch.models.pretrained import apply_pretrained
     from mpmc_tpu_torch.train.packed import (PackedMultimodalPlan,
                                              PackedTrainPlan)
-    from mpmc_tpu_torch.train.step import build_train_step, make_eval_step
+    from mpmc_tpu_torch.train.step import (TrainStep, build_train_step,
+                                           make_eval_step)
 
     bs = cfg.data.batch_size
     packing = cfg.data.pack_rows > 0
+    shard = (0, 1) if layout is None else (layout.data_rank,
+                                           layout.data_size)
     plan = None
     if packing and kind == "text":
         plan = PackedTrainPlan(train_d, pack_len=train_d["text_ids"].shape[1],
-                               rows_per_batch=cfg.data.pack_rows)
+                               rows_per_batch=cfg.data.pack_rows,
+                               shard=shard)
     elif packing:
         plan = PackedMultimodalPlan(train_d, batch_size=bs, abs_idx=tr_idx,
-                                    resident_images=True)
+                                    resident_images=True, shard=shard)
     steps_per_epoch = (plan.steps_per_epoch if plan is not None
                        else (len(tr_idx) + bs - 1) // bs)
     model = apply_pretrained(build_model(cfg.model, device, seed=cfg.seed,
@@ -302,10 +362,27 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                 if k in train_d]
         if lens:
             embed_support = bs * max(lens)
+    sync = None
+    if layout is not None:
+        from mpmc_tpu_torch.models.norm import set_data_shard
+        from mpmc_tpu_torch.train.step import GradSync
+        model = shard_model(model, cfg, layout)
+        set_data_shard(model, layout.data_group)
+        sync = GradSync(layout, [n for n, _ in model.named_parameters()],
+                        getattr(model, "sharded_params", ()))
+    step_cls = TrainStep
+    if layout is not None and layout.inner == cfg.mesh.stage_axis:
+        from mpmc_tpu_torch.parallel.pp import PipelineTrainStep as step_cls
+    elif layout is not None and layout.inner == cfg.mesh.model_axis:
+        from mpmc_tpu_torch.parallel.tp import (
+            TensorParallelTrainStep as step_cls)
     train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
-                                  store, generator, augment, embed_support)
+                                  store, generator, augment, embed_support,
+                                  sync, step_cls=step_cls)
     eval_step = make_eval_step(model, cfg, grayscale=grayscale,
                                cast_in_place=False)
+    if sync is not None:
+        eval_step = sync.eval_step(eval_step)
     run = FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
     if cfg.scan_steps > 1:
         from mpmc_tpu_torch.train.graphs import (graph_pool,
@@ -327,6 +404,26 @@ def resident_store(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     packing = cfg.data.pack_rows > 0
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in full_data.items() if k == "image" or not packing}
+
+
+def _check_layout(cfg: TrainConfig, layout, kind: str) -> TrainConfig:
+    """The JAX driver's limits on a multi-process layout: the batch (and
+    2A's packed rows) split evenly over ``data``; packing off, with a
+    warning, under a sequence-sharded or pipelined encoder."""
+    dp = layout.data_size
+    if cfg.data.batch_size % dp:
+        raise ValueError(f"batch_size={cfg.data.batch_size} not divisible "
+                         f"by the data-axis extent {dp}")
+    packing = cfg.data.pack_rows > 0 and kind in ("text", "multimodal")
+    if packing and layout.inner in (cfg.mesh.stage_axis, cfg.mesh.seq_axis):
+        log.warning("--pack-rows is not supported with --pipeline-stages/"
+                    "--seq-shards — training proceeds UNPACKED")
+        return dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, pack_rows=0))
+    if packing and kind == "text" and cfg.data.pack_rows % dp:
+        raise ValueError(f"--pack-rows={cfg.data.pack_rows} not divisible "
+                         f"by the data-axis extent {dp}")
+    return cfg
 
 
 def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
@@ -351,10 +448,12 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
 
     ``soft_targets`` ``[F, N]`` (``train/distill.py``): fold k trains on
     ``soft_targets[k]`` of its train rows, beside their labels."""
+    from mpmc_tpu_torch.parallel.mesh import make_layout
     from mpmc_tpu_torch.train.checkpoint import Checkpointer
     from mpmc_tpu_torch.train.loop import fit
 
     os.makedirs(out_dir, exist_ok=True)
+    layout = make_layout(cfg.mesh, device)
     if cfg.mesh.is_fold_parallel:
         if soft_targets is not None:
             raise ValueError("--distill-lambda is not supported with "
@@ -362,7 +461,10 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                              "are not stacked over the fold axis)")
         return _run_folds_parallel(cfg, full_data, ids, test_data, test_ids,
                                    out_dir, name, device, augment, kind,
-                                   pretrained, grayscale, binary_head)
+                                   pretrained, grayscale, binary_head,
+                                   layout)
+    if layout is not None:
+        cfg = _check_layout(cfg, layout, kind)
     splits = stratified_kfold(full_data["label"], cfg.data.num_folds,
                               cfg.data.fold_seed)
     store = resident_store(cfg, full_data, device)
@@ -382,7 +484,7 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         t_data = test_data if test_data is not None else val_d
         t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
         run = build_fold(cfg, train_d, tr_idx, fold_store, device, k, augment,
-                         kind, pretrained, grayscale, binary_head)
+                         kind, pretrained, grayscale, binary_head, layout)
         on_best, checkpointer = None, None
         if cfg.checkpoint_dir:
             fold_dir = os.path.join(cfg.checkpoint_dir, f"fold_{k}")
@@ -391,9 +493,14 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                 checkpointer.restore_latest(run.train_step)
 
             def on_best(step, fold_dir=fold_dir, model=run.model):
-                torch.save(model.state_dict(),
-                           os.path.join(fold_dir, "model.pt"))
-                log.info("best weights at step %d -> %s", step, fold_dir)
+                # The plain model's weights (a pipelined or tensor-
+                # parallel model gathers its parts on every rank).
+                gather = getattr(model, "full_state_dict", model.state_dict)
+                state = gather()
+                if is_writer():
+                    torch.save(state, os.path.join(fold_dir, "model.pt"))
+                    log.info("best weights at step %d -> %s", step,
+                             fold_dir)
         prefix = os.path.join(out_dir, f"{name}_{cfg.team_name}")
         res = fit(run.train_step, run.eval_step, cfg, train_d, device,
                   test_data=t_data, val_data=val_d, test_ids=t_ids,
@@ -404,15 +511,16 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                   scan_eval_step=run.scan_eval_step)
         if checkpointer is not None:
             checkpointer.wait()
-        with open(os.path.join(out_dir, f"{name}_train_metrics_fold_{k}.json"),
-                  "w") as f:
-            json.dump({"fold": k, "n_train": len(tr_idx),
-                       "n_val": len(va_idx), "n_test": len(t_ids),
-                       "steps_per_epoch": run.steps_per_epoch,
-                       "row_budgets": (list(run.plan.row_budgets)
-                                       if run.plan else None),
-                       "steps": res.steps, "evals": res.history}, f,
-                      indent=1)
+        if is_writer():
+            with open(os.path.join(
+                    out_dir, f"{name}_train_metrics_fold_{k}.json"), "w") as f:
+                json.dump({"fold": k, "n_train": len(tr_idx),
+                           "n_val": len(va_idx), "n_test": len(t_ids),
+                           "steps_per_epoch": run.steps_per_epoch,
+                           "row_budgets": (list(run.plan.row_budgets)
+                                           if run.plan else None),
+                           "steps": res.steps, "evals": res.history}, f,
+                          indent=1)
         results.append(res)
         log.info("fold %d best test macro-F1: %.4f", k, res.best_macro_f1)
     return results
@@ -426,14 +534,20 @@ def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                         augment: Optional[Callable] = None,
                         kind: str = "multimodal", pretrained=None,
                         grayscale: bool = False,
-                        binary_head: bool = False) -> List:
+                        binary_head: bool = False, layout=None) -> List:
     """All ``cfg.data.num_folds`` folds as one stacked-weights step on
     ``device`` (``cv/fold_driver.fit_folds_parallel``), unpacked, each
     fold's weights from ``cfg.seed + fold``, the LR schedule over
     ``ceil(N / batch) * epochs`` steps of the full data as the JAX
     package sets it.  Writes per-fold TSVs, checkpoints under
     ``<checkpoint_dir>/fold_<k>`` and ``<name>_train_metrics_fold_<k>.json``;
-    returns one ``FitResult`` per fold."""
+    returns one ``FitResult`` per fold.
+
+    Under a ``(fold, data)`` layout (``--fold-shards N``) fold group c
+    trains folds ``c*F/N .. (c+1)*F/N - 1``, each of its ``data`` ranks on
+    its rows of every batch, and its first rank writes their
+    checkpoints; rank 0 gathers every group's results and writes the TSVs
+    and metrics."""
     from mpmc_tpu_torch.cv.fold_driver import fit_folds_parallel
     from mpmc_tpu_torch.models.classifier import build_model
     from mpmc_tpu_torch.models.pretrained import apply_pretrained
@@ -447,6 +561,15 @@ def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
             "mesh.num_fold_shards must divide data.num_folds for "
             "fold-parallel training (the stacked fold axis shards over the "
             "mesh's fold dimension; 1 trains all folds on each device)")
+    mine, sync = list(range(F)), None
+    if layout is not None:
+        groups, c = layout.size(cfg.mesh.fold_axis), \
+            layout.coord(cfg.mesh.fold_axis)
+        mine = list(range(c * F // groups, (c + 1) * F // groups))
+        if cfg.data.batch_size % layout.data_size:
+            raise ValueError(f"batch_size={cfg.data.batch_size} not "
+                             f"divisible by the data-axis extent "
+                             f"{layout.data_size}")
     if cfg.data.pack_rows > 0:
         log.warning("--pack-rows is not supported with --fold-parallel — "
                     "training proceeds UNPACKED")
@@ -460,16 +583,19 @@ def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     models = [apply_pretrained(build_model(cfg.model, device,
                                            seed=cfg.seed + k, kind=kind,
                                            binary_head=binary_head),
-                               kind, pretrained) for k in range(F)]
+                               kind, pretrained) for k in mine]
     embed_support = None
     lens = [full_data[k].shape[-1] for k in ("text_ids", "caption_ids")
             if k in full_data]
     if cfg.embedding_optimizer == "sparse" and lens:
         embed_support = bs * max(lens)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    if layout is not None:
+        from mpmc_tpu_torch.train.step import GradSync
+        sync = GradSync(layout, [n for n, _ in models[0].named_parameters()])
     train_step, eval_step = build_fold_parallel_steps(
         models, cfg, total_steps, store, eval_store, generator, augment,
-        grayscale, embed_support)
+        grayscale, embed_support, sync, fold_slice=(mine[0], F))
     del models
     scan = None
     if cfg.scan_steps > 1:
@@ -478,18 +604,39 @@ def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         scan = make_scan_train_step(train_step, cfg.scan_steps,
                                     graph_pool(device))
     prefix = os.path.join(out_dir, f"{name}_{cfg.team_name}")
+    run_id = f"{cfg.team_name}_{cfg.run_id}"
+    # One rank of each fold group writes its folds' checkpoints.
+    writes = layout is None or layout.data_rank == 0
     results = fit_folds_parallel(
         cfg, train_step, eval_step, full_data, test_data, test_ids, device,
-        tsv_prefix=prefix, run_id=f"{cfg.team_name}_{cfg.run_id}", ids=ids,
-        checkpoint_dir=cfg.checkpoint_dir, scan_train_step=scan)
+        tsv_prefix=prefix, run_id=run_id, ids=ids,
+        checkpoint_dir=cfg.checkpoint_dir if writes else None,
+        scan_train_step=scan, folds=mine if layout is not None else None)
+    if layout is not None:
+        from mpmc_tpu_torch.cv.fold_driver import write_fold_tsvs
+        parts: List = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(parts, results)
+        # A fold group's data ranks hold the same results: one each.
+        results = sorted({r["fold"]: r for p in parts for r in p}.values(),
+                         key=lambda r: r["fold"])
+        if is_writer():
+            # The one-device run's order: by the step each fold's best was
+            # reached, folds in order within a step.
+            for r in sorted(results, key=lambda r: (r["best_step"],
+                                                    r["fold"])):
+                if r["probs"] is not None:
+                    write_fold_tsvs(cfg, prefix, run_id, r["fold"], r["ids"],
+                                    r["probs"], r["threshold"],
+                                    test_data is None)
     out = []
     for r in results:
-        with open(os.path.join(out_dir, f"{name}_train_metrics_fold_"
-                                        f"{r['fold']}.json"), "w") as f:
-            json.dump({"fold": r["fold"], "fold_parallel": F,
-                       "steps_per_epoch": len(r["steps"]) // cfg.epochs,
-                       "steps": r["steps"], "evals": r["history"]}, f,
-                      indent=1)
+        if is_writer():
+            with open(os.path.join(out_dir, f"{name}_train_metrics_fold_"
+                                            f"{r['fold']}.json"), "w") as f:
+                json.dump({"fold": r["fold"], "fold_parallel": F,
+                           "steps_per_epoch": len(r["steps"]) // cfg.epochs,
+                           "steps": r["steps"], "evals": r["history"]}, f,
+                          indent=1)
         out.append(FitResult(r["macro_f1"], r["threshold"], r["history"],
                              r["steps"]))
     return out
@@ -570,11 +717,14 @@ def run_subtask_2a(cfg: TrainConfig, device: torch.device,
     corpus MLM stage first when ``cfg.mlm_epochs`` > 0; with
     ``cfg.distill_lambda`` > 0 each fold mixes in the teacher's soft
     targets over the same folds."""
-    prep = prepare_2a(cfg, out_dir, vocab_path)
+    with rank0_first():
+        prep = prepare_2a(cfg, out_dir, vocab_path)
     pretrained = _maybe_mlm_pretrain(
         prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
         prep.data["text_ids"].shape[1], out_dir, pretrained, device)
-    soft = distill_soft_targets(prep.cfg, prep.raw_texts, prep.data["label"])
+    with rank0_first():
+        soft = distill_soft_targets(prep.cfg, prep.raw_texts,
+                                    prep.data["label"])
     _persist_run_meta(prep.cfg, prep.cfg.model, "text", out_dir, prep.data,
                       augment=False)
     return _run_folds(prep.cfg, prep.data, prep.ids, None, None, out_dir,
@@ -631,7 +781,8 @@ def run_subtask_2b(cfg: TrainConfig, device: torch.device,
     SimCLR stage runs first over the train images when
     ``cfg.simclr_epochs`` > 0 (color only).  A ``pretrained`` text
     checkpoint is refused: the model has no text encoder."""
-    prep = prepare_2b(cfg)
+    with rank0_first():
+        prep = prepare_2b(cfg)
     gray = prep.cfg.model.image.grayscale
     pretrained = _maybe_simclr_pretrain(prep.cfg, prep.cfg.model,
                                         prep.data["image"], out_dir,
@@ -787,8 +938,10 @@ def run_subtask_2c(cfg: TrainConfig, device: torch.device,
     and no distillation.  Otherwise, with ``cfg.distill_lambda`` > 0, each
     fold mixes the teacher's soft targets (over the train-only folds) into
     the focal loss."""
-    prep = prepare_2c(cfg, out_dir, vocab_path, simple, caption_vocab_path,
-                      caption_generate_fn, scratch_captioner, device)
+    with rank0_first():
+        prep = prepare_2c(cfg, out_dir, vocab_path, simple,
+                          caption_vocab_path, caption_generate_fn,
+                          scratch_captioner, device)
     pretrained = _maybe_mlm_pretrain(
         prep.cfg, prep.cfg.model, prep.tok, prep.corpus,
         prep.data["text_ids"].shape[1], out_dir, pretrained, device)
@@ -802,7 +955,9 @@ def run_subtask_2c(cfg: TrainConfig, device: torch.device,
     pretrained = _maybe_simclr_pretrain(prep.cfg, prep.cfg.model,
                                         prep.data["image"], out_dir,
                                         pretrained, device)
-    soft = distill_soft_targets(prep.cfg, prep.raw_texts, prep.data["label"])
+    with rank0_first():
+        soft = distill_soft_targets(prep.cfg, prep.raw_texts,
+                                    prep.data["label"])
     _persist_run_meta(prep.cfg, prep.cfg.model, "multimodal", out_dir,
                       prep.data, augment=True)
     return _run_folds(prep.cfg, prep.data, prep.train_ids, prep.test,

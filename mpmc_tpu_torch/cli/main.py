@@ -14,8 +14,13 @@
       [--image-arch A] [--image-size N] [--binary-head] \\
       [--pooling P] [--fusion concatenation|mca|cross_modal|self_attention] \\
       [--scratch-captioner] [--caption-vocab C] \\
-      [--scan-steps K] [--fold-parallel [--fold-shards 1]] \\
+      [--scan-steps K] [--fold-parallel] [--fold-shards N] \\
+      [--data-shards N] [--model-shards N] [--pipeline-stages S] \\
+      [--pp-microbatches M] [--seq-shards P] [--sp-impl ring|ulysses] \\
       [--checkpoint-dir DIR [--resume]] [--out-dir DIR] [--device cuda|cpu]
+  torchrun --nproc-per-node N -m mpmc_tpu_torch.cli.main train ... \\
+      [--data-shards N | --pipeline-stages S | --seq-shards P | \\
+       --fold-shards N]
   python -m mpmc_tpu_torch.cli.main check -p pred.tsv [more.tsv ...]
   python -m mpmc_tpu_torch.cli.main score -g gold.json -p pred.tsv
   python -m mpmc_tpu_torch.cli.main combine --files f0.tsv .. --gold G \\
@@ -53,9 +58,19 @@ rows, ``--pack-rows 8``), keeps the Adam first moment in bf16, gives the
 word embeddings factored RMS and runs each full group of ``--scan-steps
 8`` steps (and eval batches) as one dispatch, a CUDA graph on the card;
 ``--recipe reference`` turns all four off.  ``--fold-parallel`` trains
-every fold at once as one stacked-weights step on the device
-(``--fold-shards 1``; unpacked), each fold with its own optimizer state,
-TSVs and ``fold_<k>`` checkpoint.
+every fold at once as one stacked-weights step on the device (unpacked),
+each fold with its own optimizer state, TSVs and ``fold_<k>`` checkpoint.
+
+Under ``torchrun`` (one process per GPU, NCCL; gloo with ``--device cpu``)
+the mesh flags lay the processes out as the JAX package's mesh
+(``parallel/mesh.py``): ``--data-shards`` splits each batch (1: all the
+processes the other axis leaves), ``--pipeline-stages`` pipelines the 2A
+encoder's layers (``--pp-microbatches``, 0: 4 x stages), ``--seq-shards``
+shards its sequence (``--sp-impl`` ring or ulysses), ``--fold-shards N``
+gives each of N process groups its share of the folds; the extents must
+multiply to the world size; ``--model-shards`` splits the encoders'
+heads, hidden units and vocabulary Megatron-style (``parallel/tp.py``).
+Rank 0 writes the outputs.
 An explicitly passed flag wins over its recipe value.  ``--mlm-epochs``
 first pretrains the text encoder on the train+dev texts with masked
 language modelling (``--mlm-pack`` packs that corpus) and starts every
@@ -135,6 +150,7 @@ from mpmc_tpu_torch.io.manifest import Manifest, read_manifest
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
 from mpmc_tpu_torch.models.captioner import precompute_captions
 from mpmc_tpu_torch.models.classifier import build_model
+from mpmc_tpu_torch.parallel import distributed
 from mpmc_tpu_torch.train.loop import run_eval
 from mpmc_tpu_torch.train.step import make_eval_step
 
@@ -579,7 +595,9 @@ def _resolve_recipe(args) -> None:
     package's ``_resolve_recipe`` does for the flags the port takes: the
     fast recipe packs 4 rows a step in 2A and each batch's tokens into rows
     in 2C (``pack_rows`` 8); 2B has no tokens and the simple 2C model pools
-    the last position, so neither packs."""
+    the last position, so neither packs.  A layout never changes the
+    default: under data parallelism 2A keeps 4 rows, and a data extent
+    that does not divide them is refused, naming ``--pack-rows``."""
     fast = args.recipe == "fast"
     if args.scan_steps is None:
         args.scan_steps = 8 if fast else 1
@@ -588,16 +606,22 @@ def _resolve_recipe(args) -> None:
     if args.adam_mu_dtype is None and fast:
         args.adam_mu_dtype = "bfloat16"
     if args.pack_rows is None:
-        # Fold-parallel training stays unpacked rather than warn on a
-        # default (an explicit --pack-rows still goes through, and warns).
-        plain = not args.fold_parallel and args.fold_shards <= 1
+        # Fold-parallel, pipelined, sequence- and tensor-parallel training
+        # stay unpacked rather than warn on a default (an explicit
+        # --pack-rows still goes through, and warns); data parallelism
+        # packs.
+        plain = (not args.fold_parallel and args.fold_shards <= 1
+                 and args.pipeline_stages <= 1 and args.seq_shards <= 1
+                 and args.model_shards <= 1)
         packs = {"2a": 4} if args.simple else {"2a": 4, "2c": 8}
         args.pack_rows = packs.get(args.subtask, 0) if fast and plain else 0
 
 
 def train_config(args) -> Tuple[TrainConfig, torch.device]:
     """The ``TrainConfig`` and device of a parsed ``train`` command line;
-    raises when CUDA is asked for and absent.  As in the JAX package:
+    raises when CUDA is asked for and absent.  In a launched world
+    (``torchrun``) the process joins it first, and takes its own GPU.
+    As in the JAX package:
     ``--image-arch`` and ``--image-size`` swap the image backbone or its
     resolution of the chosen preset; ``--pooling`` and ``--fusion`` set
     those fields, and a fusion other than concatenation sets the image
@@ -605,12 +629,8 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
     ``--simple`` without ``--tiny`` swaps in ``simple_2c`` after all of
     that."""
     device = resolve_device(args.device)
-    if args.fold_shards > 1:
-        raise SystemExit(
-            f"--fold-shards {args.fold_shards}: sharding the fold axis over "
-            "several devices is the multi-GPU layouts' work (ROADMAP.md "
-            "Queue 1 item 7); one H100 is one device, so use --fold-shards "
-            "1 with --fold-parallel")
+    distributed.initialize(args.device)
+    device = distributed.device_for(args.device)
     _resolve_recipe(args)
     data = DataConfig(train_manifest=args.train_file_path,
                       dev_manifest=args.dev_file_path,
@@ -661,6 +681,12 @@ def train_config(args) -> Tuple[TrainConfig, torch.device]:
                       distill_lambda=args.distill_lambda,
                       scan_steps=args.scan_steps,
                       mesh=MeshConfig(num_fold_shards=args.fold_shards,
+                                      num_data_shards=args.data_shards,
+                                      num_model_shards=args.model_shards,
+                                      num_stage_shards=args.pipeline_stages,
+                                      pp_microbatches=args.pp_microbatches,
+                                      num_seq_shards=args.seq_shards,
+                                      sp_impl=args.sp_impl,
                                       fold_parallel=args.fold_parallel))
     return cfg, device
 
@@ -822,11 +848,45 @@ def build_parser() -> argparse.ArgumentParser:
                         "Default: set by --recipe (fast 8, reference 1)")
     p.add_argument("--fold-parallel", action="store_true",
                    help="train all folds at once as one stacked-weights "
-                        "step on one device (--fold-shards 1): every "
-                        "kernel launches once for all folds; unpacked")
+                        "step: every kernel launches once for all folds; "
+                        "unpacked")
+    p.add_argument("--data-shards", type=int, default=1,
+                   help=">1 shards each batch over a `data` mesh axis (DP)")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help=">1 adds a trailing `model` mesh axis and shards "
+                        "the transformer weights Megatron-style (QKV/MLP-in "
+                        "column-split, out/MLP-out row-split, two "
+                        "all-reduces per layer, parallel/tp.py). For "
+                        "encoders too large for one GPU; mutually "
+                        "exclusive with --fold-shards/--fold-parallel")
+    p.add_argument("--pipeline-stages", type=int, default=1,
+                   help=">1 pipelines the 2A text encoder's layer stack "
+                        "over a trailing `stage` mesh axis (GPipe "
+                        "schedule, parallel/pp.py): each stage's process "
+                        "holds 1/S of the layers; microbatch activations "
+                        "flow stage-to-stage by neighbour send/recv. "
+                        "Checkpoints are gathered to the plain layout. "
+                        "Encoder-layer dropout runs deterministic inside "
+                        "the pipelined region")
+    p.add_argument("--pp-microbatches", type=int, default=0,
+                   help="microbatches per pipeline flush (0 = 4x stages); "
+                        "must divide --batch-size")
+    p.add_argument("--seq-shards", type=int, default=1,
+                   help=">1 shards the 2A text encoder's activations over "
+                        "a trailing `seq` mesh axis (parallel/sp.py): "
+                        "per-token ops stay local, attention mixes across "
+                        "shards via --sp-impl. Same checkpoints as plain "
+                        "training. Encoder-layer dropout runs "
+                        "deterministic inside the SP region")
+    p.add_argument("--sp-impl", default="ring",
+                   choices=["ring", "ulysses"],
+                   help="sequence-parallel attention: 'ring' rotates K/V "
+                        "blocks between neighbours; 'ulysses' swaps "
+                        "sequence for head sharding with two all-to-alls")
     p.add_argument("--fold-shards", type=int, default=1,
-                   help="devices to shard the stacked fold axis over; "
-                        "only 1 on one H100")
+                   help=">1 trains all folds simultaneously, sharding the "
+                        "stacked fold axis over this many process groups "
+                        "(must divide --num-folds)")
     p.add_argument("--adam-mu-dtype", choices=["bfloat16", "float32"],
                    default=None)
     p.add_argument("--checkpoint-dir", default=None,

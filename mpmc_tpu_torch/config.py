@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+from typing import Optional, Tuple
 
 
 class Subtask(str, enum.Enum):
@@ -245,19 +245,56 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The fields of the JAX package's ``MeshConfig`` that the port reads:
-    fold-parallel training.  One H100 is one device, so the fold axis is
-    not sharded: ``num_fold_shards`` must be 1."""
+    """The process mesh (``parallel/mesh.py``), with the JAX package's
+    fields, defaults and axis names.  Each process of a launched world
+    (``torchrun``) is one GPU and one position of the mesh.
 
-    # > 1 would shard the stacked fold axis over that many devices.
-    num_fold_shards: int = 1
-    # Train all k folds as one stacked-weights step on one device: every
-    # kernel launches once for all folds.
+    ``data`` splits each batch over processes (DP); ``fold`` trains k folds
+    at once with stacked weights, F/N folds a fold group; ``model`` shards
+    the transformer weights Megatron-style (TP); ``stage`` pipelines the
+    2A encoder's layers (PP, GPipe schedule); ``seq`` shards the 2A
+    encoder's activations over the sequence (SP: ring or Ulysses
+    attention).  Model, stage and seq exclude each other and fold
+    parallelism.  Inside a pipelined or sequence-sharded region the
+    encoder layers' dropout is off (the JAX package's trade); embedding
+    dropout stays live."""
+
+    data_axis: str = "data"
+    fold_axis: str = "fold"
+    num_fold_shards: int = 1          # mesh extent of the fold axis
+    # > 1 splits each batch over that many processes; 1 is unspecified:
+    # the data extent is what the other axes leave of the world.
+    num_data_shards: int = 1
+    # Train all k folds as one stacked-weights step; num_fold_shards > 1
+    # implies it (num_fold_shards must divide the number of folds).
     fold_parallel: bool = False
+    num_model_shards: int = 1
+    model_axis: str = "model"
+    num_stage_shards: int = 1
+    stage_axis: str = "stage"
+    # Microbatches per pipeline flush; 0 = 4x stages.  Must divide the
+    # batch size.
+    pp_microbatches: int = 0
+    num_seq_shards: int = 1
+    seq_axis: str = "seq"
+    # "ring" (K/V blocks rotate between neighbours) or "ulysses" (two
+    # all-to-all re-shards, exact local attention over H/P heads).
+    sp_impl: str = "ring"
 
     @property
     def is_fold_parallel(self) -> bool:
         return self.fold_parallel or self.num_fold_shards > 1
+
+    def axis_names(self) -> Tuple[str, ...]:
+        if self.is_fold_parallel:
+            return (self.fold_axis, self.data_axis)
+        if self.num_model_shards > 1:
+            return (self.data_axis, self.model_axis)
+        if self.num_stage_shards > 1:
+            return (self.data_axis, self.stage_axis)
+        if self.num_seq_shards > 1:
+            return (self.data_axis, self.seq_axis)
+        return (self.data_axis,)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,13 @@ device-resident data.  The semantics are the JAX driver's:
   which ``predict --checkpoint`` reads, and the fold's training state;
 * per-fold held-out eval in 2A mode (``test_data=None``): each fold scores
   only its own validation rows.
+
+Under ``--fold-shards N`` each fold group trains its ``folds`` (F/N of
+them) with the steps and seeds they have among all F, writes their
+checkpoints, and defers its TSVs: :func:`write_fold_tsvs` writes them on
+rank 0 from every group's results, in the order the one-device run would.
+Within a fold group each rank of ``data`` feeds its rows of every fold's
+batch (``train_step.sync``), and the eval step gathers them.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
                        run_id: str = "fold-parallel",
                        ids: Optional[List[str]] = None,
                        checkpoint_dir: Optional[str] = None,
-                       scan_train_step=None) -> List[Dict]:
+                       scan_train_step=None,
+                       folds: Optional[List[int]] = None) -> List[Dict]:
     """Train all folds simultaneously with ``train_step`` (a
     ``FoldParallelTrainStep`` over the resident ``full_data``) and
     ``eval_step`` (a ``FoldParallelEvalStep`` over the resident test
@@ -59,14 +67,21 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
     ``test_data=None`` selects per-fold held-out eval (the 2A pattern;
     needs ``ids``): fold k is scored on rows ``val_idx[k]`` of
     ``full_data``.  Otherwise every fold scores the shared ``test_data``
-    split (the 2C dev-set pattern).  Returns per fold ``{"fold",
-    "macro_f1", "threshold", "probs", "history", "steps"}``."""
-    F = cfg.data.num_folds
+    split (the 2C dev-set pattern).  ``folds`` (default all) are the
+    folds the steps hold, in order; without them each fold writes its TSVs
+    as it improves.  Returns per fold ``{"fold", "macro_f1", "threshold",
+    "probs", "history", "steps", "best_step"}``."""
     bs = cfg.data.batch_size
     labels = full_data["label"]
-    splits = stratified_kfold(labels, F, cfg.data.fold_seed)
-    train_idx = [tr for tr, _ in splits]
-    val_idx = [va for _, va in splits]
+    splits = stratified_kfold(labels, cfg.data.num_folds, cfg.data.fold_seed)
+    # Every fold's size sets the steps, so that each group steps alike.
+    steps_per_epoch = max((max(len(tr) for tr, _ in splits) + bs - 1)
+                          // bs, 1)
+    emit = folds is None
+    folds = list(range(cfg.data.num_folds)) if folds is None else folds
+    F = len(folds)
+    train_idx = [splits[k][0] for k in folds]
+    val_idx = [splits[k][1] for k in folds]
 
     per_fold_eval = test_data is None
     if per_fold_eval and ids is None:
@@ -81,10 +96,10 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
         eval_ids = [list(test_ids)] * F
         eval_labels = [test_data.get("label")] * F
     scan_k = scan_train_step.k if scan_train_step is not None else 1
+    sync = getattr(train_step, "sync", None)
 
-    steps_per_epoch = max((max(len(t) for t in train_idx) + bs - 1) // bs, 1)
     check_interval = max(steps_per_epoch // max(cfg.eval_per_epoch, 1), 1)
-    rngs = [np.random.default_rng(cfg.seed + k) for k in range(F)]
+    rngs = [np.random.default_rng(cfg.seed + k) for k in folds]
 
     def fold_rows(perms, step):
         """``[F, B]`` absolute row indices: each fold samples its own train
@@ -116,6 +131,7 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
     best_f1 = [-1.0] * F
     best_thr = [0.5] * F
     best_probs: List[Optional[np.ndarray]] = [None] * F
+    best_step = [-1] * F
     history: List[List[Dict]] = [[] for _ in range(F)]
     steps: List[List[Dict[str, float]]] = [[] for _ in range(F)]
     checkpointers: List = [None] * F
@@ -123,7 +139,7 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
         from mpmc_tpu_torch.train.checkpoint import Checkpointer, to_host
         checkpointers = [Checkpointer(os.path.join(checkpoint_dir,
                                                    f"fold_{k}"))
-                         for k in range(F)]
+                         for k in folds]
     step_count = 0
     pending: List[Dict[str, torch.Tensor]] = []
 
@@ -164,19 +180,11 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
             best_thr[k] = (cfg.emit_threshold
                            if cfg.emit_threshold is not None else thr)
             best_probs[k] = probs_list[k]
-            if tsv_prefix:
-                pred = (probs_list[k] > best_thr[k]).astype(int)
-                write_prob_tsv(f"{tsv_prefix}_probs_fold_{k}.tsv",
-                               eval_ids[k], pred, probs_list[k], run_id,
-                               prob_header=cfg.prob_header)
-                write_label_tsv(f"{tsv_prefix}.tsv", eval_ids[k], pred,
-                                run_id)
-                if cfg.emit_val_tsv and per_fold_eval:
-                    # The val split is the test split: the val TSV
-                    # mirrors the fold's.
-                    write_prob_tsv(f"{tsv_prefix}_val_fold_{k}.tsv",
-                                   eval_ids[k], pred, probs_list[k], run_id,
-                                   prob_header=cfg.prob_header)
+            best_step[k] = step_count
+            if tsv_prefix and emit:
+                write_fold_tsvs(cfg, tsv_prefix, run_id, folds[k],
+                                eval_ids[k], probs_list[k], best_thr[k],
+                                per_fold_eval)
             if checkpointers[k] is not None:
                 # One copy of the fold's state in host memory, out of the
                 # stacked tensors; model.pt is its weights.
@@ -198,6 +206,8 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
         step = 0
         for g in plan:
             idx = np.stack([fold_rows(perms, step + j) for j in range(g)])
+            if sync is not None:        # this rank's rows of every fold's
+                idx = np.ascontiguousarray(idx[..., sync.rows(bs)])
             valid = np.ones(idx.shape, np.float32)
             if g == scan_k > 1:
                 pending.append(scan_train_step({
@@ -222,8 +232,24 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
             checkpointers[k].wait()
     results = []
     for k in range(F):
-        results.append({"fold": k, "macro_f1": best_f1[k],
+        results.append({"fold": folds[k], "macro_f1": best_f1[k],
                         "threshold": best_thr[k], "probs": best_probs[k],
-                        "history": history[k], "steps": steps[k]})
-        log.info("fold %d: best macro-F1 %.4f", k, best_f1[k])
+                        "history": history[k], "steps": steps[k],
+                        "best_step": best_step[k], "ids": eval_ids[k]})
+        log.info("fold %d: best macro-F1 %.4f", folds[k], best_f1[k])
     return results
+
+
+def write_fold_tsvs(cfg: TrainConfig, tsv_prefix: str, run_id: str,
+                    fold: int, ids: List[str], probs: np.ndarray,
+                    threshold: float, per_fold_eval: bool) -> None:
+    """Fold ``fold``'s best TSVs: its probabilities, the label TSV (the
+    last fold to write it wins, as each improves) and, where the val split
+    is the test split, its val TSV, the same rows."""
+    pred = (probs > threshold).astype(int)
+    write_prob_tsv(f"{tsv_prefix}_probs_fold_{fold}.tsv", ids, pred, probs,
+                   run_id, prob_header=cfg.prob_header)
+    write_label_tsv(f"{tsv_prefix}.tsv", ids, pred, run_id)
+    if cfg.emit_val_tsv and per_fold_eval:
+        write_prob_tsv(f"{tsv_prefix}_val_fold_{fold}.tsv", ids, pred,
+                       probs, run_id, prob_header=cfg.prob_header)

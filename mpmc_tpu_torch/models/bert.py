@@ -21,6 +21,7 @@ from torch import nn
 from mpmc_tpu_torch.config import TextEncoderConfig
 from mpmc_tpu_torch.models.norm import Dropout
 from mpmc_tpu_torch.ops.attention import dot_product_attention
+from mpmc_tpu_torch.parallel.collectives import copy_to_group, row_parallel
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -34,15 +35,25 @@ class MultiHeadSelfAttention(nn.Module):
         self.value = nn.Linear(cfg.hidden_size, width)
         self.out = nn.Linear(width, cfg.hidden_size)
         self.dropout = Dropout(cfg.attention_dropout)
+        # A sequence-parallel impl ("ring" or "ulysses") and its process
+        # group (parallel/sp.py), else the plain attention.
+        self.impl, self.group = "auto", None
+        # Tensor parallelism (parallel/tp.py): the process group over which
+        # the heads are split; this rank holds num_heads of them.
+        self.tp = None
 
     def forward(self, x, mask, segments=None):
         B, S, _ = x.shape
         shape = (B, S, self.num_heads, self.head_dim)
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp)
         q = self.query(x).view(shape)
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
-        ctx = dot_product_attention(q, k, v, mask, segments=segments)
-        return self.dropout(self.out(ctx.reshape(B, S, -1)))
+        ctx = dot_product_attention(q, k, v, mask, segments=segments,
+                                    impl=self.impl, group=self.group)
+        return self.dropout(row_parallel(self.out, ctx.reshape(B, S, -1),
+                                         self.tp))
 
 
 class EncoderLayer(nn.Module):
@@ -55,12 +66,15 @@ class EncoderLayer(nn.Module):
         self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.output_ln = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout)
+        self.tp = None              # the MLP's tensor-parallel group
 
     def forward(self, x, mask, segments=None):
         # Post-LN (BERT-style): sublayer, residual, LayerNorm.
         x = self.attention_ln(x + self.attention(x, mask, segments))
-        h = F.gelu(self.intermediate(x), approximate=self.gelu_approx)
-        return self.output_ln(x + self.dropout(self.output(h)))
+        h = x if self.tp is None else copy_to_group(x, self.tp)
+        h = F.gelu(self.intermediate(h), approximate=self.gelu_approx)
+        return self.output_ln(x + self.dropout(row_parallel(self.output, h,
+                                                            self.tp)))
 
 
 class TextEncoder(nn.Module):

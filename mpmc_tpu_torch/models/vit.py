@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpmc_tpu_torch.ops.attention import dot_product_attention
+from mpmc_tpu_torch.parallel.collectives import copy_to_group, row_parallel
 
 
 class ViTEncoderLayer(nn.Module):
@@ -41,17 +42,24 @@ class ViTEncoderLayer(nn.Module):
         self.ln2 = nn.LayerNorm(hidden_size, ln_eps)
         self.mlp1 = nn.Linear(hidden_size, mlp_dim)
         self.mlp2 = nn.Linear(mlp_dim, hidden_size)
+        # Tensor parallelism (parallel/tp.py): the group over which the
+        # heads and the MLP's hidden units are split.
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape
         shape = (B, S, self.num_heads, self.head_dim)
         h = self.ln1(x)
+        if self.tp is not None:
+            h = copy_to_group(h, self.tp)
         ctx = dot_product_attention(self.q(h).view(shape),
                                     self.k(h).view(shape),
                                     self.v(h).view(shape))
-        x = x + self.out(ctx.reshape(B, S, -1))
-        h = F.gelu(self.mlp1(self.ln2(x)))
-        return x + self.mlp2(h)
+        x = x + row_parallel(self.out, ctx.reshape(B, S, -1), self.tp)
+        h = self.ln2(x)
+        if self.tp is not None:
+            h = copy_to_group(h, self.tp)
+        return x + row_parallel(self.mlp2, F.gelu(self.mlp1(h)), self.tp)
 
 
 class ViT(nn.Module):

@@ -347,17 +347,108 @@ class AttentionFunction(torch.autograd.Function):
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          segments: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          segments: Optional[torch.Tensor] = None,
+                          impl: str = "auto", group=None) -> torch.Tensor:
     """Multi-head scaled dot-product attention, ``[B, Sq, H, D]`` out.
 
     mask: ``[B, Sk]`` (1 = attend) or None.  segments: ``[B, S]`` ids
     (0 = padding) for packed self-attention rows: token i attends token j
     iff both carry the same non-zero id; supersedes ``mask``.  Goes
     through :class:`AttentionFunction`, with or without a gradient, so
-    that ``vmap`` finds its rule either way."""
+    that ``vmap`` finds its rule either way.
+
+    ``impl`` "ring" or "ulysses" (with the process ``group`` of the
+    sequence axis) is sequence-parallel attention, as the JAX package's
+    ``ring:<axis>`` and ``ulysses:<axis>``: q, k, v and the mask are this
+    rank's block of the sequence (:func:`ring_attention`,
+    :func:`ulysses_attention`); they take no segments."""
+    if impl in ("ring", "ulysses"):
+        if segments is not None:
+            raise ValueError("segment packing is not supported by the "
+                             "sequence-parallel impls")
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        return fn(q, k, v, mask, group)
+    if impl != "auto":
+        raise ValueError(f"unknown attention impl {impl!r}")
     if segments is not None:
         mask, mode = segments, "segments"
     else:
         mode = "none" if mask is None else "padding"
     return AttentionFunction.apply(q, k, v, mask, mode)[0]
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel attention (port of ``_attention_ring`` and
+# ``_attention_ulysses``).  Each rank of ``group`` holds one block of the
+# sequence: q, k, v ``[B, S/P, H, D]``, the key-padding mask ``[B, S/P]``.
+# ---------------------------------------------------------------------------
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor], group) -> torch.Tensor:
+    """Ring attention, in plain tensor operations as the JAX package's is
+    in plain XLA: the K/V blocks (and their mask) pass around the ring of
+    ``group`` in P - 1 rotations (``parallel.collectives.shift``), and each
+    rank accumulates its queries' softmax block by block with an f32
+    running max and denominator, so no ``[S, S]`` score matrix exists
+    anywhere.  The scale is folded into q in the input dtype; scores and
+    ``P.V`` take f32 products of the input-dtype operands, P rounded to
+    V's dtype first.  The running max only shifts the exponents (the
+    output does not depend on it), so no gradient flows through it; the
+    gradient of the rotations is the reverse rotation."""
+    from mpmc_tpu_torch.parallel.collectives import (_send_recv, group_size,
+                                                     shift)
+    P = group_size(group)
+    B, Sq, H, D = q.shape
+    scale = torch.full((), 1.0 / D ** 0.5, dtype=q.dtype, device=q.device)
+    qs = (q * scale).transpose(1, 2).to(torch.float32)       # [B, H, Sq, D]
+    kv = torch.stack([k, v])                                 # rotate as one
+    mb = (torch.ones(B, k.shape[1], device=q.device) if mask is None
+          else mask.to(torch.float32))
+    acc = q.new_zeros((B, H, Sq, D), dtype=torch.float32)
+    m = q.new_full((B, H, Sq), float("-inf"), dtype=torch.float32)
+    l = q.new_zeros((B, H, Sq), dtype=torch.float32)
+    for step in range(P):
+        kb = kv[0].transpose(1, 2).to(torch.float32)          # [B, H, Sk, D]
+        vb = kv[1].transpose(1, 2)
+        s = torch.matmul(qs, kb.transpose(-1, -2))
+        s = s + ((1.0 - mb) * NEG_INF)[:, None, None, :]
+        new_m = torch.maximum(m, s.amax(dim=-1)).detach()
+        alpha = torch.exp(m - new_m)
+        p = torch.exp(s - new_m[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.matmul(p.to(v.dtype).to(torch.float32),
+                          vb.to(torch.float32))
+        acc = acc * alpha[..., None] + pv
+        m = new_m
+        if step < P - 1:
+            kv = shift(kv, group, wrap=True)
+            mb = _send_recv(mb, group, 1, wrap=True)
+    return (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: Optional[torch.Tensor], group) -> torch.Tensor:
+    """DeepSpeed-Ulysses sequence parallelism: one all-to-all swaps the
+    sequence sharding of q, k and v for a sharding of the heads, the
+    exact attention runs over the whole sequence for H/P heads through
+    :func:`dot_product_attention` (the hand-written kernels on the card,
+    where the JAX package runs XLA's), and the inverse all-to-all restores
+    the sequence sharding."""
+    from mpmc_tpu_torch.parallel.collectives import (all_to_all, gather_rows,
+                                                     group_size)
+    P = group_size(group)
+    B, S, H, D = q.shape
+    if H % P:
+        raise ValueError(f"ulysses needs heads ({H}) divisible by the "
+                         f"sequence-axis size ({P})")
+    h = H // P
+    # [3, B, S/P, H, D] -> chunk j (head group j) to rank j; back come the
+    # rank's head group over every rank's block of the sequence.
+    qkv = torch.stack([q, k, v]).view(3, B, S, P, h, D)
+    got = all_to_all(qkv.permute(3, 0, 1, 2, 4, 5), group)
+    qg, kg, vg = got.permute(1, 2, 0, 3, 4, 5).reshape(3, B, P * S, h, D)
+    if mask is not None:
+        mask = gather_rows(mask.t(), group).t()
+    out = dot_product_attention(qg, kg, vg, mask)            # [B, S, h, D]
+    back = all_to_all(out.view(B, P, S, h, D).transpose(0, 1), group)
+    return back.permute(1, 2, 0, 3, 4).reshape(B, S, H, D)

@@ -33,21 +33,26 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # reads them after to show that the path went through the kernels.
 launch_counts: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0,
                                  "image_normalize": 0}
+# Calls of the ``torch.distributed`` collectives by name
+# (``parallel/collectives.py``), counted as launches are.
+collective_calls: Dict[str, int] = {}
 # The launches recorded by the CUDA graph being captured (``capturing``):
 # a captured launch runs at every replay, so it counts there.
 _tally: Optional[Dict[str, int]] = None
 
 
 def count_launch(name: str) -> None:
-    """Count one launch of kernel ``name``: into ``launch_counts``, or,
-    while :func:`capturing` a graph on the current stream, into that
-    graph's tally, which :func:`add_launches` adds at each replay.  A
-    capture outside :func:`capturing` counts its launches once, here."""
+    """Count one launch of kernel ``name`` (or one call of collective
+    ``name``): into ``launch_counts`` (``collective_calls``), or, while
+    :func:`capturing` a graph on the current stream, into that graph's
+    tally, which :func:`add_launches` adds at each replay.  A capture
+    outside :func:`capturing` counts its launches once, here."""
     import torch
     if _tally is not None and torch.cuda.is_current_stream_capturing():
-        _tally[name] += 1
+        _tally[name] = _tally.get(name, 0) + 1
     else:
-        launch_counts[name] += 1
+        counts = launch_counts if name in launch_counts else collective_calls
+        counts[name] = counts.get(name, 0) + 1
 
 
 @contextlib.contextmanager
@@ -64,7 +69,8 @@ def capturing() -> Iterator[Dict[str, int]]:
 def add_launches(tally: Dict[str, int]) -> None:
     """Count one replay of a graph whose capture recorded ``tally``."""
     for name, n in tally.items():
-        launch_counts[name] += n
+        counts = launch_counts if name in launch_counts else collective_calls
+        counts[name] = counts.get(name, 0) + n
 
 
 def _nvcc() -> str:

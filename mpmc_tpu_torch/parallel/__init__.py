@@ -1,3 +1,5 @@
-"""Training several replicas at once (port of ``mpmc_tpu/parallel``): the
-fold-parallel step on one device.  The mesh layouts (data, model, pipeline
-and sequence shards) are not ported yet."""
+"""Training over several processes and replicas (port of
+``mpmc_tpu/parallel``): the process mesh (``mesh``, ``distributed``,
+``dist_worker``), the collectives with their gradients (``collectives``),
+data, tensor (``tp``), pipeline (``pp``) and sequence (``sp``)
+parallelism, and fold-parallel training (``fold_parallel``)."""

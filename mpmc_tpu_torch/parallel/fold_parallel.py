@@ -15,6 +15,20 @@ optimizer runs per fold (``train.step.Optimizer(folds=F)``: each fold's
 own global norm and clip, factored dims of the per-fold shape, sparse rows
 per fold), as optax does under JAX's ``vmap``.
 
+Under a ``(fold, data)`` mesh with a data extent above 1 (``sync``, a
+``train.step.GradSync``) each rank feeds its rows of every fold's batch:
+the augmentation draws the global batch's numbers and keeps the rank's,
+BatchNorm and dropout work on the global batch
+(``models.norm.set_data_shard`` on the skeleton; the all-reduce has a
+``vmap`` rule), each fold's loss divides by its global valid weight, and
+the stacked gradients and losses sum over ``data`` before the per-fold
+clip.  Under ``--fold-shards N`` a fold group holds folds ``lo .. lo + F
+- 1`` of all ``total`` (``fold_slice``): its augmentation and dropout
+draw the numbers of every fold and keep its own
+(``models.norm.set_fold_slice``), so each fold trains on what it would
+with all folds on one device, and every group's generator advances
+alike.
+
 Batches are device-resident, as the JAX package's gather steps: a train
 batch carries ``idx [F, B]`` rows of the resident store and ``valid [F,
 B]``; an eval batch ``idx [F, B]`` rows of the eval store, each fold its
@@ -31,9 +45,11 @@ from torch import nn
 from torch.func import functional_call, vmap
 
 from mpmc_tpu_torch.config import TrainConfig
-from mpmc_tpu_torch.image.augment import eval_preprocess, train_augment
+from mpmc_tpu_torch.image.augment import (augment_draws, augment_with_draws,
+                                          eval_preprocess, train_augment)
 from mpmc_tpu_torch.models.classifier import build_model
-from mpmc_tpu_torch.models.norm import set_dropout_generator
+from mpmc_tpu_torch.models.norm import (set_data_shard, set_dropout_generator,
+                                       set_fold_slice)
 from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss, softmax_cross_entropy
 from mpmc_tpu_torch.train.step import (Augment, Optimizer, _compute_dtype,
                                        loss_from_outputs)
@@ -142,7 +158,8 @@ class FoldParallelTrainStep:
                  total_steps: int, store: Dict[str, torch.Tensor],
                  generator: torch.Generator,
                  augment: Optional[Augment] = None,
-                 embed_support: Optional[int] = None):
+                 embed_support: Optional[int] = None, sync=None,
+                 fold_slice: Optional[Tuple[int, int]] = None):
         for m in models:
             for p in m.parameters():
                 if p.dtype != torch.float32:
@@ -151,7 +168,12 @@ class FoldParallelTrainStep:
         self.augment = augment or train_augment
         self.model = _Stacked(models)
         self.folds = self.model.folds
+        self.sync = sync
+        self.fold_slice = fold_slice or (0, self.folds)
         set_dropout_generator(self.model.skeleton, generator)
+        set_fold_slice(self.model.skeleton, fold_slice)
+        if sync is not None:
+            set_data_shard(self.model.skeleton, sync.data_group)
         self.dtype = _compute_dtype(cfg)
         for p in self.model.params.values():
             p.requires_grad_()
@@ -168,15 +190,30 @@ class FoldParallelTrainStep:
                  ) -> Dict[str, torch.Tensor]:
         b = _gather(self.store, batch["idx"])
         b["valid"] = batch["valid"]
+        sync = self.sync
         if "image" in self.model.inputs:
-            b["image"] = _image_flat(
-                lambda x: self.augment(x, self.generator),
-                b["image"]).to(self.dtype)
+            augment = lambda x: self.augment(x, self.generator)  # noqa: E731
+            if self.augment is train_augment:
+                # The draws of every fold's global batch; this process
+                # keeps its folds' rows of them.
+                F_, n = b["image"].shape[:2]
+                lo, total = self.fold_slice
+                dp, r = ((sync.data_size, sync.data_rank) if sync is not None
+                         else (1, 0))
+                draws = [d.view(total, dp * n)[lo:lo + F_, r * n:(r + 1) * n]
+                         .reshape(-1)
+                         for d in augment_draws(total * dp * n,
+                                                self.generator)]
+                augment = lambda x: augment_with_draws(  # noqa: E731
+                    x, *draws)
+            b["image"] = _image_flat(augment, b["image"]).to(self.dtype)
+        if sync is not None:
+            b["weight"] = sync.valid_weight(b["valid"])
         cfg = self.cfg
 
         def loss(outputs, e):
             return loss_from_outputs(outputs, e["label"], e["valid"], cfg,
-                                     e.get("soft"))
+                                     e.get("soft"), e.get("weight"))
 
         self.model.skeleton.train()
         params = self.model.params
@@ -189,12 +226,15 @@ class FoldParallelTrainStep:
         if self.compute is not None:
             torch._foreach_copy_(self.grads, grads)   # bf16 -> f32, exact
             grads = self.grads
+        losses = losses.detach()
+        if sync is not None:
+            losses = sync.reduce(dict(zip(params, grads)), losses)
         grad_norm = Optimizer.global_norm(grads, self.folds)
         self.optimizer.step(dict(zip(params, grads)), grad_norm)
         if self.compute is not None:
             with torch.no_grad():
                 torch._foreach_copy_(leaves, list(params.values()))
-        return {"loss": losses.detach(), "grad_norm": grad_norm}
+        return {"loss": losses, "grad_norm": grad_norm}
 
     def state_dict(self) -> Dict:
         """The stacked training state: weights and BatchNorm statistics,
@@ -260,11 +300,17 @@ def build_fold_parallel_steps(models: List[nn.Module], cfg: TrainConfig,
                               generator: torch.Generator,
                               augment: Optional[Augment] = None,
                               grayscale: bool = False,
-                              embed_support: Optional[int] = None
-                              ) -> Tuple[FoldParallelTrainStep,
-                                         FoldParallelEvalStep]:
+                              embed_support: Optional[int] = None,
+                              sync=None,
+                              fold_slice: Optional[Tuple[int, int]] = None):
     """The fold-parallel train and eval steps over the replicas
-    ``models`` (one per fold, f32), for ``total_steps`` optimizer steps."""
+    ``models`` (one per fold, f32), for ``total_steps`` optimizer steps;
+    with ``sync`` the eval step takes the global ``[F, B]`` batch and
+    gathers every rank's rows; ``fold_slice`` ``(lo, total)``: the
+    replicas are folds ``lo ..`` of ``total``."""
     train = FoldParallelTrainStep(models, cfg, total_steps, store, generator,
-                                  augment, embed_support)
-    return train, FoldParallelEvalStep(train, eval_store, grayscale)
+                                  augment, embed_support, sync, fold_slice)
+    evaluate = FoldParallelEvalStep(train, eval_store, grayscale)
+    if sync is not None:
+        evaluate = sync.eval_step(evaluate, dim=1)
+    return train, evaluate

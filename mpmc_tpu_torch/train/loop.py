@@ -283,9 +283,18 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     replayed without training, and the best F1 and threshold come back
     from the checkpointer's sidecar, so the TSVs are rewritten only on an
     improvement.  The dropout and augmentation draws continue from the
-    restored generator."""
+    restored generator.
+
+    Under a multi-process layout (``train_step.sync``) every rank runs this
+    loop alike: an unpacked batch is cut to the rank's rows (a packed plan
+    yields them itself), the evals gather every rank's rows
+    (``GradSync.eval_step``), and rank 0 alone writes the TSVs, the dump
+    and the checkpoints; ``on_best`` runs on every rank (it may gather)."""
+    from mpmc_tpu_torch.parallel.distributed import is_writer
     bs = cfg.data.batch_size
     scan_k = scan_train_step.k if scan_train_step is not None else 1
+    sync = getattr(train_step, "sync", None)
+    writer = is_writer()
     n_train = len(train_data["label"])
     if packed_plan is not None:
         steps_per_epoch = packed_plan.steps_per_epoch
@@ -361,9 +370,10 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                 if not np.isfinite(loss):
                     step_bi = bi_ - (size - 1 - j)    # bi_: the group's last
                     dump = f"nonfinite_fold{fold}_epoch{ep}_batch{step_bi}.npz"
-                    np.savez(dump, **dump_payload(
-                        host_batch, j if m["loss"].dim() else None),
-                             grad_norm=np.float64(gnorm))
+                    if writer:
+                        np.savez(dump, **dump_payload(
+                            host_batch, j if m["loss"].dim() else None),
+                                 grad_norm=np.float64(gnorm))
                     pending.clear()
                     raise FloatingPointError(
                         f"non-finite loss at epoch {ep} batch {step_bi} "
@@ -388,6 +398,9 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             else:
                 it = batch_iter({"idx": train_rows.astype(np.int64)}, bs,
                                 shuffle=True, rng=data_rng, with_valid=True)
+                if sync is not None:
+                    it = (({k: v[sync.rows(bs)] for k, v in b.items()}, n)
+                          for b, n in it)
             if scan_k > 1:
                 it = _scan_groups(it, _scan_group_plan(
                     steps_per_epoch, check_interval, scan_k,
@@ -449,7 +462,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                 if t_res.macro_f1 > best_f1:
                     best_f1 = t_res.macro_f1
                     best_thr = _emit_threshold(cfg, t_res)
-                    if tsv_prefix and test_ids is not None:
+                    if tsv_prefix and test_ids is not None and writer:
                         pred = (t_res.probs > best_thr).astype(int)
                         write_label_tsv(f"{tsv_prefix}.tsv", test_ids, pred,
                                         run_id)
@@ -466,9 +479,11 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                     if on_best is not None:
                         on_best(step_count)
                     if checkpointer is not None:
-                        checkpointer.save(train_step.state_dict(), step_count,
-                                          {"test_f1": best_f1,
-                                           "threshold": best_thr})
+                        state = train_step.state_dict()   # may gather
+                        if writer:
+                            checkpointer.save(state, step_count,
+                                              {"test_f1": best_f1,
+                                               "threshold": best_thr})
             flush()
             if epoch == 0 and 3 <= dispatch_no < 6:   # ended before dispatch 6
                 profiler.close()

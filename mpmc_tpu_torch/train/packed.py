@@ -21,6 +21,13 @@ largest first-fit-decreasing row count over the epoch's batches, rounded
 up to ``row_multiple`` and never shrinking across epochs, so every batch of
 an epoch has one shape.  With ``resident_images`` a batch carries
 ``img_idx`` (rows of the image store on the device) instead of pixels.
+
+Under data parallelism (``shard`` ``(rank, size)``) every rank draws the
+same epoch and yields its own part of each global batch: 2A the rank's
+``rows_per_batch / size`` consecutive rows with the samples packed there,
+2C the rank's ``batch_size / size`` samples, packed on their own into rows
+whose budgets cover every rank's part, so that all ranks step with one
+shape.  ``size`` 1 gives the unsharded batches.
 """
 
 from __future__ import annotations
@@ -45,13 +52,19 @@ class PackedTrainPlan:
     pack_len: int
     rows_per_batch: int
     max_segments: int = 16
+    shard: Tuple[int, int] = (0, 1)
 
     def __post_init__(self):
+        if self.rows_per_batch % self.shard[1]:
+            raise ValueError(
+                f"--pack-rows={self.rows_per_batch} not divisible by the "
+                f"data-axis extent {self.shard[1]}")
         probe = pack_sequences(self.data["text_ids"], self.data["text_mask"],
                                self.pack_len, max_segments=self.max_segments)
         self.row_budget = probe.num_rows
         self.steps_per_epoch = -(-self.row_budget // self.rows_per_batch)
-        self.samples_per_batch = self.rows_per_batch * self.max_segments
+        self.samples_per_batch = (self.rows_per_batch // self.shard[1]
+                                  * self.max_segments)
 
     @property
     def row_budgets(self) -> Tuple[int]:
@@ -71,11 +84,14 @@ class PackedTrainPlan:
         soft = (np.asarray(d["soft"], np.float32)[perm] if "soft" in d
                 else None)
         G, cap = self.rows_per_batch, self.samples_per_batch
-        for start in range(0, self.row_budget, G):
-            rows = slice(start, start + G)
-            pad = ((0, G - packed.ids[rows].shape[0]), (0, 0))
+        rank, size = self.shard
+        g = G // size
+        for step_start in range(0, self.row_budget, G):
+            start = step_start + rank * g
+            rows = slice(start, start + g)
+            pad = ((0, g - packed.ids[rows].shape[0]), (0, 0))
             members = np.nonzero((packed.row_of >= start)
-                                 & (packed.row_of < start + G))[0]
+                                 & (packed.row_of < start + g))[0]
             k = len(members)
             if k > cap:
                 raise ValueError("more samples in a batch than its slots")
@@ -107,8 +123,13 @@ class PackedMultimodalPlan:
     abs_idx: Optional[np.ndarray] = None
     resident_images: bool = False
     row_multiple: int = 2
+    shard: Tuple[int, int] = (0, 1)
 
     def __post_init__(self):
+        if self.batch_size % self.shard[1]:
+            raise ValueError(
+                f"batch_size={self.batch_size} not divisible by the "
+                f"data-axis extent {self.shard[1]}")
         n = len(self.data["label"])
         self.steps_per_epoch = -(-n // self.batch_size)
         self.has_caption = "caption_ids" in self.data
@@ -149,19 +170,24 @@ class PackedMultimodalPlan:
         n = len(d["label"])
         bs = self.batch_size
         idx = rng.permutation(n)
-        takes = []
+        rank, size = self.shard
+        per = bs // size
+        takes, parts = [], []
         for start in range(0, n, bs):
             take = idx[start:start + bs]
             if len(take) < bs:
                 take = np.concatenate([take, np.resize(idx, bs - len(take))])
-            takes.append((take, min(bs, n - start)))
+            k = min(bs, n - start)
+            parts += [take[p * per:(p + 1) * per] for p in range(size)]
+            takes.append((take[rank * per:(rank + 1) * per],
+                          min(max(k - rank * per, 0), per)))
         m = self._mult
         bt = max(self._ffd_rows(d["text_mask"][t], self.text_len)
-                 for t, _ in takes)
+                 for t in parts)
         self._budget_t = max(self._budget_t, -(-bt // m) * m)
         if self.has_caption:
             bc = max(self._ffd_rows(d["caption_mask"][t], self.caption_len)
-                     for t, _ in takes)
+                     for t in parts)
             self._budget_c = max(self._budget_c, -(-bc // m) * m)
         skip = {"text_ids", "text_mask", "caption_ids", "caption_mask"}
         if self.resident_images:
@@ -186,7 +212,7 @@ class PackedMultimodalPlan:
                 batch.update(c_ids=cids, c_segments=csegs,
                              c_positions=cposs, c_row_of=cp.row_of,
                              c_slot_of=cp.slot_of, c_start_of=cp.start_of)
-            batch["valid"] = (np.arange(bs) < k).astype(np.float32)
+            batch["valid"] = (np.arange(per) < k).astype(np.float32)
             yield batch, k
 
 

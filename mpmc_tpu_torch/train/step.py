@@ -34,7 +34,8 @@ from torch import nn
 from torch.func import functional_call
 
 from mpmc_tpu_torch.config import LossType, TrainConfig
-from mpmc_tpu_torch.image.augment import eval_preprocess, train_augment
+from mpmc_tpu_torch.image.augment import (augment_draws, augment_with_draws,
+                                          eval_preprocess, train_augment)
 from mpmc_tpu_torch.models.classifier import (PackedMultimodalClassifier,
                                               PackedTextClassifier,
                                               build_model)
@@ -73,8 +74,10 @@ def make_eval_step(model: nn.Module, cfg: TrainConfig,
             p.data = p.data.to(dtype)
         run = model
     else:
-        # The unpacked model of the same kind and config, without storage.
-        skeleton = build_model(
+        # The unpacked model of the same kind and config, without storage
+        # (a sharded model makes its own).
+        make = getattr(model, "meta_skeleton", None)
+        skeleton = make() if make is not None else build_model(
             model.cfg, torch.device("meta"), kind=model.kind,
             binary_head=getattr(model, "binary_head", None) is not None)
 
@@ -257,14 +260,21 @@ class Optimizer:
     ``folds`` F: every parameter carries a leading fold axis, and the
     optimizer runs per fold, as optax does under ``vmap``: each fold's own
     global norm and clip, ``_factored_dims`` on the per-fold shape, the
-    sparse rows per fold."""
+    sparse rows per fold.
+
+    ``shards`` (tensor parallelism, ``parallel/tp.py``): ``{name: (dim,
+    group)}`` for parameters this rank holds a slice of along ``dim``.
+    Factored RMS then factors the whole table's shape and takes its means
+    over a split dimension across ``group``, as JAX's global arrays do;
+    everything else is elementwise, hence local."""
 
     RMS_DECAY, RMS_EPS = 0.8, 1e-30
 
     def __init__(self, cfg: TrainConfig, total_steps: int,
                  params: Dict[str, torch.Tensor],
                  embed_support: Optional[int] = None,
-                 folds: Optional[int] = None):
+                 folds: Optional[int] = None,
+                 shards: Optional[Dict[str, Tuple[int, object]]] = None):
         if cfg.embedding_optimizer not in ("adam", "factored", "sparse"):
             raise ValueError(f"unknown embedding_optimizer "
                              f"{cfg.embedding_optimizer!r} (expected "
@@ -290,6 +300,7 @@ class Optimizer:
                     else None)
         self.params = params
         self.folds = folds
+        self.shards = shards or {}
         lead = 1 if folds else 0
         self.device = next((p.device for p in params.values()),
                            torch.device("cpu"))
@@ -309,7 +320,7 @@ class Optimizer:
             elif (cfg.embedding_optimizer == "factored"
                     and "word_embeddings" in name):
                 self.label[name] = "embed"
-                dims = self._fold_factored_dims(p.shape)
+                dims = self._fold_factored_dims(p.shape, name)
                 if dims is None:
                     self.state[name] = {"v": torch.zeros_like(p)}
                 else:
@@ -323,10 +334,16 @@ class Optimizer:
                     "mu": torch.zeros_like(p, dtype=mu_dtype or p.dtype),
                     "nu": torch.zeros_like(p)}
 
-    def _fold_factored_dims(self, shape) -> Optional[Tuple[int, int]]:
-        """:func:`_factored_dims` of the per-fold shape, as dims of the
-        (stacked) tensor."""
+    def _fold_factored_dims(self, shape, name: Optional[str] = None
+                            ) -> Optional[Tuple[int, int]]:
+        """:func:`_factored_dims` of the per-fold shape (of the whole table
+        for a tensor-parallel slice), as dims of the (stacked) tensor."""
         lead = 1 if self.folds else 0
+        shape = list(shape)
+        if name in self.shards:
+            from mpmc_tpu_torch.parallel.collectives import group_size
+            dim, group = self.shards[name]
+            shape[dim] *= group_size(group)
         dims = _factored_dims(tuple(shape)[lead:])
         return None if dims is None else (dims[0] + lead, dims[1] + lead)
 
@@ -425,8 +442,8 @@ class Optimizer:
             params = [self.params[n] for n in group]
             if label == "embed":
                 keep, new = self._at("rms_keep"), self._at("rms_new")
-                updates = [self._factored_rms(g[n], self.state[n], keep, new)
-                           for n in group]
+                updates = [self._factored_rms(g[n], self.state[n], keep, new,
+                                              n) for n in group]
             else:
                 updates = adam_updates([g[n] for n in group],
                                        [self.state[n] for n in group],
@@ -436,19 +453,35 @@ class Optimizer:
         self.count_t.add_(1)
         self.count += 1
 
-    def _factored_rms(self, g, st, keep, new):
+    def _factored_rms(self, g, st, keep, new, name=None):
         """optax ``scale_by_factored_rms`` with the step's decay ``keep``
         and ``1 - keep`` (0-dim tensors); the state updated in place."""
         grad_sqr = g * g + self.RMS_EPS
-        dims = self._fold_factored_dims(g.shape)
+        dims = self._fold_factored_dims(g.shape, name)
         if dims is None:
             st["v"].copy_(keep * st["v"] + new * grad_sqr)
             return g * st["v"] ** -0.5
         d1, d0 = dims
-        st["v_row"].copy_(keep * st["v_row"] + new * grad_sqr.mean(dim=d0))
-        st["v_col"].copy_(keep * st["v_col"] + new * grad_sqr.mean(dim=d1))
+        split, group = self.shards.get(name, (None, None))
+
+        def mean(x, dim, split_dim, keepdim=False):
+            """The mean over ``dim``, across ``group`` where ``dim`` is the
+            split one (the slices are equal)."""
+            m = x.mean(dim=dim, keepdim=keepdim)
+            if split_dim != dim:
+                return m
+            from mpmc_tpu_torch.parallel.collectives import (all_reduce_,
+                                                             group_size)
+            return all_reduce_(m / group_size(group), group)
+
+        st["v_row"].copy_(keep * st["v_row"]
+                          + new * mean(grad_sqr, d0, split))
+        st["v_col"].copy_(keep * st["v_col"]
+                          + new * mean(grad_sqr, d1, split))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+        row_split = (None if split in (None, d0)
+                     else split - (1 if split > d0 else 0))
+        row_col_mean = mean(st["v_row"], reduced_d1, row_split, keepdim=True)
         row_factor = (st["v_row"] / row_col_mean) ** -0.5
         col_factor = st["v_col"] ** -0.5
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -456,8 +489,105 @@ class Optimizer:
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum over tensors of sum(g * g))``, as optax."""
+    return torch.sqrt(sum_of_squares(grads))
+
+
+def sum_of_squares(grads: List[torch.Tensor]) -> torch.Tensor:
     sums = torch._foreach_norm(torch._foreach_mul(grads, grads), 1)
-    return torch.sqrt(torch.stack(sums).sum())
+    return torch.stack(sums).sum()
+
+
+class GradSync:
+    """How the ranks of a multi-process ``layout`` (``parallel/mesh.py``)
+    combine a train step, each rank feeding its rows of the global batch
+    (JAX computes the same global step over sharded arrays):
+
+    * the loss is divided by the global batch's valid weight (summed over
+      ``data``);
+    * with a sequence-sharded or pipelined encoder every rank of a ``seq``
+      or ``stage`` group computes the same loss, so each takes
+      ``loss_scale`` (1/extent) of it and the gradients of the replicated
+      weights sum over the whole world; otherwise over ``data`` (under
+      tensor parallelism Megatron's collectives already give every rank
+      of a ``model`` group the whole gradient);
+    * the weights in ``sharded`` live on this rank alone (its pipeline
+      stage's layers, its tensor-parallel slices): their gradients sum
+      over ``data`` only, and their squares over the inner axis enter the
+      global norm once each.
+
+    Each group's gradients (and the loss, with the replicated ones) are
+    summed in one flat buffer."""
+
+    def __init__(self, layout, names: List[str], sharded=()):
+        cfg = layout.cfg
+        self.data_rank, self.data_size = layout.data_rank, layout.data_size
+        self.data_group = layout.data_group
+        inner = layout.inner
+        shared = inner in (cfg.seq_axis, cfg.stage_axis)
+        self.loss_scale = 1.0 / layout.size(inner) if shared else 1.0
+        rep_group = torch.distributed.group.WORLD if shared else \
+            self.data_group
+        rep = [n for n in names if n not in set(sharded)]
+        self.sharded = [n for n in names if n in set(sharded)]
+        self.buckets = [(rep, rep_group)]
+        if self.sharded:
+            self.buckets.append((self.sharded, self.data_group))
+        self.norm_group = layout.group(inner) if self.sharded else None
+
+    def rows(self, n: int) -> slice:
+        per = n // self.data_size
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+    def valid_weight(self, valid: torch.Tensor) -> torch.Tensor:
+        """The global batch's valid weight: 0-dim, or ``[F]`` for
+        ``valid [F, B]`` (one per fold)."""
+        from mpmc_tpu_torch.parallel.collectives import all_reduce_
+        w = valid.to(torch.float32).sum(dim=-1)
+        return all_reduce_(w.reshape(-1), self.data_group).view(w.shape)
+
+    def reduce(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor
+               ) -> torch.Tensor:
+        """Sum ``grads`` (in place) and ``loss`` over their groups; returns
+        the summed loss."""
+        from mpmc_tpu_torch.parallel.collectives import all_reduce_
+        for i, (names, group) in enumerate(self.buckets):
+            parts = [grads[n].reshape(-1) for n in names]
+            if i == 0:
+                parts.append(loss.reshape(-1))
+            flat = all_reduce_(torch.cat(parts), group)
+            views = flat.split([p.numel() for p in parts])
+            torch._foreach_copy_([grads[n] for n in names],
+                                 [v.view_as(grads[n])
+                                  for n, v in zip(names, views)])
+            if i == 0:
+                loss = views[-1].view(loss.shape)
+        return loss
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if not self.sharded:
+            return global_norm(list(grads.values()))
+        from mpmc_tpu_torch.parallel.collectives import all_reduce_
+        rep = sum_of_squares([grads[n] for n in self.buckets[0][0]])
+        own = sum_of_squares([grads[n] for n in self.sharded]).reshape(1)
+        return torch.sqrt(rep + all_reduce_(own, self.norm_group).view(()))
+
+    def eval_step(self, step: EvalStep, dim: int = 0) -> EvalStep:
+        """``step`` on this rank's rows (along ``dim``: 1 for the
+        fold-parallel ``[F, B]`` batches) of a global eval batch; the
+        probabilities and losses of every rank of ``data``, in order."""
+        from mpmc_tpu_torch.parallel.collectives import gather_rows
+
+        def gather(x):
+            return gather_rows(x.movedim(dim, 0).contiguous(),
+                               self.data_group).movedim(0, dim)
+
+        def run(batch: Dict[str, torch.Tensor]):
+            sl = (slice(None),) * dim + (self.rows(
+                next(iter(batch.values())).shape[dim]),)
+            probs, loss = step({k: v[sl] for k, v in batch.items()})
+            return gather(probs), gather(loss)
+
+        return run
 
 
 # ---------------------------------------------------------------------------
@@ -466,10 +596,13 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
                       valid: torch.Tensor, cfg: TrainConfig,
-                      soft: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      soft: Optional[torch.Tensor] = None,
+                      weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``cfg.loss`` (focal, or softmax cross-entropy over integer labels)
     over the valid rows: ``sum(vec * w) / max(sum(w), 1e-9)`` (replicated
     rows of a short last batch and empty packed slots carry zero weight).
+    ``weight`` replaces ``sum(w)``: under data parallelism the global
+    batch's, so that the ranks' losses sum to the global mean.
 
     With ``soft`` (the teacher's per-row P(propaganda),
     ``train/distill.py``) and ``cfg.distill_lambda`` > 0 the per-row loss
@@ -498,7 +631,9 @@ def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
         lam = cfg.distill_lambda
         vec = (1.0 - lam) * vec + lam * vec_soft
     w = valid.to(torch.float32)
-    return torch.sum(vec * w) / torch.clamp(torch.sum(w), min=1e-9)
+    if weight is None:
+        weight = torch.sum(w)
+    return torch.sum(vec * w) / torch.clamp(weight, min=1e-9)
 
 
 def gather_batch(batch: Dict[str, torch.Tensor],
@@ -528,7 +663,15 @@ class TrainStep:
     Under ``bf16`` the model runs on bf16 copies of the f32 masters, kept
     as leaves of their own and refreshed from the masters after every
     update; their bf16 gradients widen to f32 exactly, so the optimizer
-    sees what the JAX package's cast-inside-the-loss gives."""
+    sees what the JAX package's cast-inside-the-loss gives.
+
+    With ``sync`` (:class:`GradSync`: a multi-process layout) the
+    batch is this rank's rows of the global batch; the loss is divided by
+    the global batch's valid weight, the gradients and the loss are summed
+    over the ranks in one flat buffer before the clip, and the random
+    augmentation draws the global batch's numbers and keeps this rank's,
+    so every rank steps alike and as one process would on the global
+    batch."""
 
     model: nn.Module
     cfg: TrainConfig
@@ -536,6 +679,7 @@ class TrainStep:
     store: Dict[str, torch.Tensor]
     generator: torch.Generator
     augment: Augment = train_augment
+    sync: Optional[object] = None
 
     def __post_init__(self):
         set_dropout_generator(self.model, self.generator)
@@ -550,9 +694,17 @@ class TrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         b = gather_batch(batch, self.store)
+        sync = self.sync
         if "image" in self.model.inputs:
-            b["image"] = self.augment(b["image"],
-                                      self.generator).to(self.dtype)
+            if sync is not None and self.augment is train_augment:
+                n = b["image"].shape[0]
+                lo = sync.data_rank * n
+                draws = [d[lo:lo + n] for d in augment_draws(
+                    n * sync.data_size, self.generator)]
+                image = augment_with_draws(b["image"], *draws)
+            else:
+                image = self.augment(b["image"], self.generator)
+            b["image"] = image.to(self.dtype)
         if isinstance(self.model, PackedMultimodalClassifier):
             text, caption = packed_model_inputs(b)
             args = (text, b["image"], caption)
@@ -568,15 +720,22 @@ class TrainStep:
         else:
             leaves = list(self.compute.values())
             outputs = functional_call(self.model, self.compute, args)
+        weight = None if sync is None else sync.valid_weight(b["valid"])
         loss = loss_from_outputs(outputs, b["label"], b["valid"], self.cfg,
-                                 b.get("soft"))
+                                 b.get("soft"), weight)
+        if sync is not None:
+            loss = loss * sync.loss_scale
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, torch.autograd.grad(
                      loss, leaves, allow_unused=True))]
         if self.compute is not None:
             torch._foreach_copy_(self.grads, grads)   # bf16 -> f32, exact
             grads = self.grads
-        grad_norm = Optimizer.global_norm(grads)
+        if sync is None:
+            grad_norm = Optimizer.global_norm(grads)
+        else:
+            loss = sync.reduce(dict(zip(params, grads)), loss.detach())
+            grad_norm = sync.global_norm(dict(zip(params, grads)))
         self.optimizer.step(dict(zip(params, grads)), grad_norm)
         if self.compute is not None:
             with torch.no_grad():
@@ -609,19 +768,23 @@ def build_train_step(model: nn.Module, cfg: TrainConfig,
                      total_steps: int, store: Dict[str, torch.Tensor],
                      generator: torch.Generator,
                      augment: Optional[Augment] = None,
-                     embed_support: Optional[int] = None) -> TrainStep:
+                     embed_support: Optional[int] = None,
+                     sync=None, step_cls=TrainStep) -> TrainStep:
     """The train step over ``model``'s parameters (kept f32 as masters),
     with the optimizer for ``total_steps`` steps.  ``store`` holds the
     device-resident arrays that batches index; ``augment(images_u8,
     generator)`` turns uint8 pixels into the model's f32 input
     (default: :func:`train_augment`); ``embed_support`` is the sparse
     embedding optimizer's exact per-step row bound, when the driver knows
-    it (:func:`sparse_support_rows`)."""
+    it (:func:`sparse_support_rows`); ``sync`` the multi-process
+    layout's gradient sync (:class:`GradSync`); ``step_cls`` a subclass of
+    :class:`TrainStep` to build."""
     for p in model.parameters():
         if p.dtype != torch.float32:
             raise ValueError("training needs f32 master parameters")
     optimizer = Optimizer(cfg, total_steps, dict(model.named_parameters()),
-                          embed_support)
-    return TrainStep(model, cfg, optimizer, store, generator,
-                     augment or train_augment)
+                          embed_support,
+                          shards=getattr(model, "tp_shards", None))
+    return step_cls(model, cfg, optimizer, store, generator,
+                    augment or train_augment, sync)
 

@@ -134,7 +134,10 @@ def test_port_imports_nothing_of_jax():
         "for m in ('models.captioner', 'train.checkpoint', "
         "'train.trainer', 'text.wordpiece_learn', 'train.distill', "
         "'baselines.classic', 'baselines.extract_features', "
-        "'models.hf_convert', 'models.vision_convert'):\n"
+        "'models.hf_convert', 'models.vision_convert', "
+        "'parallel.mesh', 'parallel.distributed', 'parallel.dist_worker', "
+        "'parallel.collectives', 'parallel.sp', 'parallel.pp', "
+        "'parallel.tp'):\n"
         "    assert 'mpmc_tpu_torch.' + m in sys.modules, m\n"
         "host_only = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('sklearn', 'transformers', 'safetensors'))\n"
@@ -188,4 +191,4 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
     assert not (tmp_path / "out").exists()
     # Flags the port does not take are refused, not ignored.
     with pytest.raises(SystemExit):
-        build_parser().parse_args(train + ["--data-shards", "2"])
+        build_parser().parse_args(train + ["--no-such-flag"])
