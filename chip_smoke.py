@@ -190,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1339,30 +1340,43 @@ def tsv_rows(path: str):
 
 @contextlib.contextmanager
 def watch_stage(torch, module, stage: str, trainer_cls, record_splice,
-                record_first=None, profiled: range = range(0)):
+                record_first=None, profiled: range = range(0),
+                profiled_group=None):
     """While active, wrap a pretraining stage (``module.<stage>``), its
-    ``trainer_cls.step`` and ``apply_pretrained`` (the port's own
-    functions, called as a run calls them) and record: each stage run and
-    the launch counts at its end, each step's wall time (synchronized
-    before and after), ``record_first`` of the first step's arguments,
-    ``record_splice(model, kind, spec)`` after each splice (None is not
-    kept), and a device profile of the steps in ``profiled``."""
+    ``trainer_cls.step``, ``GroupedSteps.__call__`` and
+    ``apply_pretrained`` (the port's own functions, called as a run calls
+    them) and record: each stage run and the launch counts at its end,
+    each eagerly run step's wall time (synchronized before and after; a
+    step called while a graph is captured runs untimed), each of the
+    stage's groups of K steps (``groups``: K, synchronized wall ms, and
+    whether it was a graph replay), ``record_first`` of the first step's
+    arguments, ``record_splice(model, kind, spec)`` after each splice
+    (None is not kept), and a device profile of the eager steps in
+    ``profiled`` or of group number ``profiled_group``."""
     from torch.profiler import ProfilerActivity, profile
     from mpmc_tpu_torch.models import pretrained as PT
     from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train import graphs
     seen = dict(runs=[], launches=None, step_ms=[], first=None, spliced=[],
-                profiled=profiled,
+                groups=[], profiled=profiled, in_stage=False,
                 prof=profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]))
-    run, step, splice = (getattr(module, stage), trainer_cls.step,
-                         PT.apply_pretrained)
+    run, step, splice, call = (getattr(module, stage), trainer_cls.step,
+                               PT.apply_pretrained,
+                               graphs.GroupedSteps.__call__)
 
     def ran(*args, **kwargs):
-        seen["runs"].append(run(*args, **kwargs))
+        seen["in_stage"] = True
+        try:
+            seen["runs"].append(run(*args, **kwargs))
+        finally:
+            seen["in_stage"] = False
         seen["launches"] = dict(build.launch_counts)
         return seen["runs"][-1]
 
     def timed(self, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            return step(self, *args, **kwargs)
         i = len(seen["step_ms"])
         if i == 0 and record_first is not None:
             seen["first"] = record_first(*args, **kwargs)
@@ -1377,6 +1391,27 @@ def watch_stage(torch, module, stage: str, trainer_cls, record_splice,
             seen["prof"].stop()
         return out
 
+    def grouped(self, group):
+        if not seen["in_stage"]:
+            return call(self, group)
+        i, replays = len(seen["groups"]), self.replays
+        before = dict(build.launch_counts)
+        if i == profiled_group:
+            seen["prof"].start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, group)
+        torch.cuda.synchronize()
+        seen["groups"].append(dict(
+            k=self.k, ms=(time.perf_counter() - t0) * 1e3,
+            replay=self.replays > replays,
+            launches={n: c - before[n]
+                      for n, c in build.launch_counts.items()}))
+        if i == profiled_group:
+            seen["prof"].stop()
+            seen["profiled_group_ms"] = seen["groups"][-1]["ms"]
+        return out
+
     def spliced(model, kind, spec):
         out = splice(model, kind, spec)
         record = record_splice(model, kind, spec)
@@ -1386,14 +1421,41 @@ def watch_stage(torch, module, stage: str, trainer_cls, record_splice,
 
     setattr(module, stage, ran)
     trainer_cls.step, PT.apply_pretrained = timed, spliced
+    graphs.GroupedSteps.__call__ = grouped
     try:
         yield seen
     finally:
         setattr(module, stage, run)
         trainer_cls.step, PT.apply_pretrained = step, splice
+        graphs.GroupedSteps.__call__ = call
 
 
-def watch_mlm(torch, profiled: range = range(0)):
+def replayed_steps(seen) -> int:
+    """The steps of a ``watch_stage`` run that ran inside graph replays."""
+    return sum(g["k"] for g in seen["groups"] if g["replay"])
+
+
+def replay_step_ms(seen) -> list:
+    """Each replayed group's wall ms a step."""
+    return [g["ms"] / g["k"] for g in seen["groups"] if g["replay"]]
+
+
+def median(xs) -> float:
+    """The upper median of ``xs`` (NaN when empty)."""
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def replay_launches(seen) -> dict:
+    """The kernel launches made inside a ``watch_stage`` run's replays."""
+    out = {}
+    for g in seen["groups"]:
+        for name, n in g["launches"].items():
+            out[name] = out.get(name, 0) + (n if g["replay"] else 0)
+    return out
+
+
+def watch_mlm(torch, profiled: range = range(0), profiled_group=None):
     """``watch_stage`` over corpus MLM: ``first`` is the first step's key
     mask or segment ids, ``spliced`` the text checkpoint of each splice."""
     from mpmc_tpu_torch.train import pretrain as P
@@ -1401,10 +1463,11 @@ def watch_mlm(torch, profiled: range = range(0)):
         torch, P, "pretrain_and_save", P.MLMTrainer,
         lambda model, kind, spec: spec and spec.text,
         lambda ids, mask, sel, inp, segments=None, positions=None: (
-            mask if segments is None else segments).float(), profiled)
+            mask if segments is None else segments).float(), profiled,
+        profiled_group)
 
 
-def watch_simclr(torch, profiled: range = range(0)):
+def watch_simclr(torch, profiled: range = range(0), profiled_group=None):
     """``watch_stage`` over SimCLR: ``spliced`` holds each image checkpoint
     a splice read with the backbone it left (on the CPU)."""
     from mpmc_tpu_torch.models.pretrained import IMAGE_SUBMODULE
@@ -1418,7 +1481,8 @@ def watch_simclr(torch, profiled: range = range(0)):
         return None
 
     return watch_stage(torch, PI, "simclr_pretrain", PI.SimCLRTrainer,
-                       record, profiled=profiled)
+                       record, profiled=profiled,
+                       profiled_group=profiled_group)
 
 
 def profiled_share(torch, seen, what: str):
@@ -1429,7 +1493,8 @@ def profiled_share(torch, seen, what: str):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     ours = {e.key: e.count for e in events
             if "attention_" in e.key or "image_normalize" in e.key}
-    wall_ms = sum(seen["step_ms"][i] for i in seen["profiled"])
+    wall_ms = (seen["profiled_group_ms"] if "profiled_group_ms" in seen
+               else sum(seen["step_ms"][i] for i in seen["profiled"]))
     names = {re.search(r"(?:attention|image)_[a-z0-9_]*kernel(?:<[^>]*>)?",
                        k).group(0): n for k, n in ours.items()}
     print(f"  {what}: {wall_ms:.3f} ms wall, kernels {busy_ms:.3f} ms "
@@ -1479,7 +1544,8 @@ def train_2a_cli(torch, work: str, name: str, flags, checkpoint=True):
     eval_batches = evals * (math.ceil(metrics["n_test"] / BATCH)
                             + math.ceil(metrics["n_val"] / BATCH))
     mlm_steps = sum(r.steps for r in mlm["runs"])
-    check(mlm_steps == len(mlm["step_ms"]), "MLM steps miscounted")
+    check(mlm_steps == len(mlm["step_ms"]) + replayed_steps(mlm),
+          "MLM steps miscounted")
     want = {"attention_fwd": 12 * (mlm_steps + steps + eval_batches),
             "attention_bwd": 12 * (mlm_steps + steps), "image_normalize": 0}
     check(launches == want, f"2A train launches {launches}, expected {want}")
@@ -1628,7 +1694,7 @@ def phase_mlm(torch, argv):
           "the spliced encoder differs from the MLM encoder")
     print(f"  pretrain_and_save, {n} texts ({len(prep.corpus)} and their "
           f"noisy copies) at {seq_len} tokens, batch 64, f32, 1 epoch: "
-          f"{run.steps} steps (whole groups of {P.SCAN_GROUP} of "
+          f"{run.steps} steps (whole groups of {P.MLMConfig().scan_steps} of "
           f"{n // 64} batches) in {wall:.3f} s wall (set-up, tokenization, "
           f"a synchronization around each step and 2 profiled steps "
           f"included); loss {run.epoch_losses[0]:.4f}; launches "
@@ -2129,7 +2195,7 @@ SIMCLR_VIT_ROWS = 128
 # SimCLR steps to profile).  The 2C SimCLR run takes the MCA fusion, so one
 # flagship run covers both.
 TRAIN_VARIANTS = [
-    ("train_2b_simclr", "2b", ["--simclr-epochs", "2"], 0, 1, range(3, 4)),
+    ("train_2b_simclr", "2b", ["--simclr-epochs", "2"], 0, 1, range(1, 2)),
     ("train_2c_simclr_mca", "2c", ["--simclr-epochs", "1", "--fusion",
                                     "mca"], 24, 1, range(0)),
     ("train_2c_simple", "2c", ["--simple"], 6, 0, range(0)),
@@ -2199,7 +2265,8 @@ def train_variant_cli(torch, work: str, name: str, subtask: str, flags,
     eval_batches = evals * (math.ceil(metrics["n_test"] / BATCH)
                             + math.ceil(metrics["n_val"] / BATCH))
     simclr_steps = sum(r.steps for r in sim["runs"])
-    check(simclr_steps == len(sim["step_ms"]), "SimCLR steps miscounted")
+    check(simclr_steps == len(sim["step_ms"]) + replayed_steps(sim),
+          "SimCLR steps miscounted")
     want = {"attention_fwd": layers * (steps + eval_batches),
             "attention_bwd": layers * steps,
             "image_normalize": images_per_step * steps + 2 * simclr_steps}
@@ -2223,15 +2290,21 @@ def train_variant_cli(torch, work: str, name: str, subtask: str, flags,
         check(set(got) == set(in_file)
               and all(torch.equal(got[k], in_file[k]) for k in in_file),
               "the fold's initial backbone differs from the SimCLR npz")
+        # Warm steps: the eager ones after the first (the profiled one
+        # excluded), and each graph replay's ms a step.
         step_ms = sim["step_ms"]
-        warm = sorted(step_ms[1:profiled.start] if profiled else step_ms[1:])
+        warm = sorted((step_ms[1:profiled.start] if profiled
+                       else step_ms[1:]) + replay_step_ms(sim))
         result["simclr"] = dict(steps=simclr_steps, step_ms=step_ms,
+                                replayed_steps=replayed_steps(sim),
                                 loss=sim["runs"][0].epoch_losses,
                                 warm_step_ms_median=(warm[len(warm) // 2]
                                                      if warm else None))
         print(f"  its SimCLR stage: {simclr_steps} steps at batch "
-              f"{min(4 * BATCH, N_TRAIN)} (two views a step, f32), step ms "
-              f"{[round(t, 3) for t in step_ms]}, losses "
+              f"{min(4 * BATCH, N_TRAIN)} (two views a step, f32; "
+              f"{replayed_steps(sim)} of them in graph replays, "
+              f"{[round(t, 3) for t in replay_step_ms(sim)]} ms a step), "
+              f"eager step ms {[round(t, 3) for t in step_ms]}, losses "
               f"{sim['runs'][0].epoch_losses}; the fold's initial backbone "
               f"equals the npz bit for bit ({len(in_file)} tensors)")
         if profiled:
@@ -2601,19 +2674,21 @@ RESUME_PROB_TOL = 1e-2
 CLIP_TRAIN, CLIP_EVAL, CLIP_TEXT_LEN = 16, 16, 128
 
 
-def time_forward_at(torch, what: str, shape, sk: int, mode: str = "none"):
-    """The f32 attention forward kernel at ``shape`` = [B, Sq, H, D] over
-    ``sk`` keys in ``mode`` (none, or padding with ``attention_inputs``'
-    ragged lengths and a fully masked sample): held against the plain
-    version on the same inputs, then timed beside the plain version, SDPA
-    with TF32 off (the padding as an additive bias) and the bound."""
+def time_forward_at(torch, what: str, shape, sk: int, mode: str = "none",
+                    dtype=None):
+    """The attention forward kernel (f32 unless ``dtype``) at ``shape`` =
+    [B, Sq, H, D] over ``sk`` keys in ``mode`` (none, or padding with
+    ``attention_inputs``' ragged lengths and a fully masked sample): held
+    against the plain version on the same inputs, then timed beside the
+    plain version, SDPA (TF32 off; the padding as an additive bias) and
+    the bound."""
     import torch.nn.functional as F
     from mpmc_tpu_torch.ops import attention as A
     from mpmc_tpu_torch.train.pretrain_image import ieee_f32
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(21)
-    q, k, v, mask = attention_inputs(torch, shape, mode, torch.float32, gen,
-                                     sk)
-    tag = f"{what} {mode} {tuple(q.shape)}x{sk} float32"
+    q, k, v, mask = attention_inputs(torch, shape, mode, dtype, gen, sk)
+    tag = f"{what} {mode} {tuple(q.shape)}x{sk} {dtype_name(dtype)}"
     bias = (None if mask is None
             else ((1.0 - mask) * -1e9)[:, None, None, :])
     with ieee_f32():
@@ -2631,7 +2706,7 @@ def time_forward_at(torch, what: str, shape, sk: int, mode: str = "none"):
     print(f"  attention_fwd {tag}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
           f"ms, sdpa (TF32 off) {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
           f"({bound_by})")
-    return dict(shape=list(shape), sk=sk, mode=mode, dtype="torch.float32",
+    return dict(shape=list(shape), sk=sk, mode=mode, dtype=str(dtype),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -2661,6 +2736,9 @@ def phase_caption_generate(torch, work: str):
     corpus = [preprocess_arabic_tweet(t) for t in train.texts]
     gen_fn, tok = make_scratch_caption_fn(corpus, image_size=224, seed=42,
                                           device=dev)
+    # This phase measures the eager loop; phase 16 runs the same batches
+    # through the decode graph beside these numbers.
+    gen_fn.captioner.generate = gen_fn.captioner.generate_eager
     batch_ms = []
 
     def timed(images_u8):
@@ -3872,8 +3950,8 @@ def graph_launches(groups) -> dict:
     out = {}
     for g in groups:
         for entry in g.graphs.values():
-            for name, n in entry["tally"].items():
-                out[name] = out.get(name, 0) + n * entry["replays"]
+            for name, n in entry.tally.items():
+                out[name] = out.get(name, 0) + n * entry.replays
     return out
 
 
@@ -4592,6 +4670,542 @@ def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns):
         encoders=res["encoders"])
 
 
+# Phase 16: BLIP-large with greedy decode as one CUDA graph, the scratch
+# captioner's decode graphed, and K steps a dispatch for the MLM and SimCLR
+# stages.  BLIP's weights are random from this seed in the Hugging Face key
+# layout (no weights are in the repository); the prompt ids after BOS are
+# synthetic.
+BLIP_SEED = 16
+BLIP_BATCH = 64
+BLIP_MAX_LEN = 32
+BLIP_PROMPT = (1037, 3861, 1997)
+# Forward-kernel calls of one BLIP generate: the 24 vision layers once,
+# then the 12 decoder cross-attentions at each of the 31 positions.
+BLIP_FWD = 24 + 12 * (BLIP_MAX_LEN - 1)
+BLIP_CROSS_SHAPE = (BLIP_BATCH, BLIP_MAX_LEN, 12, 64)   # over 577 keys
+BLIP_CUT = dict(v_layers=4, t_layers=2)   # card vs CPU, full width
+BLIP_CPU_IMAGES = 2
+BLIP_LOGIT_TOL = 1e-3               # x max(1, largest CPU |logit|), f32
+# BLIP's image processor's normalization (the OpenAI CLIP statistics).
+BLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+BLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+MLM_GROUP_STEPS = 16                # an MLM epoch of two groups of 8
+SIMCLR_GROUP_IMAGES = 256           # 4 steps of 64 an epoch: one group of 4
+
+
+def random_hf_blip(rng, cfg):
+    """A state dict in ``BlipForConditionalGeneration``'s key layout for
+    ``cfg``: weights and embeddings uniform with standard deviation 0.02
+    (uniform draws are 4x faster than normal ones at 470 M values), unit
+    LayerNorm scales, zero biases (f32 numpy)."""
+    import numpy as np
+    sd = {}
+    half = np.float32(0.02 * math.sqrt(3.0))
+
+    def normal(key, shape):
+        x = rng.random(shape, dtype=np.float32)
+        x -= np.float32(0.5)
+        x *= 2 * half
+        sd[key] = x
+
+    def lin(key, n_in, n_out):
+        normal(key + ".weight", (n_out, n_in))
+        sd[key + ".bias"] = np.zeros(n_out, np.float32)
+
+    def ln(key, n):
+        sd[key + ".weight"] = np.ones(n, np.float32)
+        sd[key + ".bias"] = np.zeros(n, np.float32)
+
+    Hv, Ht, p = cfg.v_hidden, cfg.t_hidden, cfg.patch_size
+    emb = "vision_model.embeddings."
+    normal(emb + "class_embedding", (1, 1, Hv))
+    normal(emb + "position_embedding",
+           (1, (cfg.image_size // p) ** 2 + 1, Hv))
+    normal(emb + "patch_embedding.weight", (Hv, 3, p, p))
+    sd[emb + "patch_embedding.bias"] = np.zeros(Hv, np.float32)
+    for i in range(cfg.v_layers):
+        pre = f"vision_model.encoder.layers.{i}."
+        ln(pre + "layer_norm1", Hv)
+        ln(pre + "layer_norm2", Hv)
+        lin(pre + "self_attn.qkv", Hv, 3 * Hv)
+        lin(pre + "self_attn.projection", Hv, Hv)
+        lin(pre + "mlp.fc1", Hv, cfg.v_mlp)
+        lin(pre + "mlp.fc2", cfg.v_mlp, Hv)
+    ln("vision_model.post_layernorm", Hv)
+    te = "text_decoder.bert.embeddings."
+    normal(te + "word_embeddings.weight", (cfg.vocab_size, Ht))
+    normal(te + "position_embeddings.weight", (cfg.max_positions, Ht))
+    ln(te + "LayerNorm", Ht)
+    for i in range(cfg.t_layers):
+        pre = f"text_decoder.bert.encoder.layer.{i}."
+        for part, n_kv in (("attention", Ht), ("crossattention", Hv)):
+            lin(pre + part + ".self.query", Ht, Ht)
+            lin(pre + part + ".self.key", n_kv, Ht)
+            lin(pre + part + ".self.value", n_kv, Ht)
+            lin(pre + part + ".output.dense", Ht, Ht)
+            ln(pre + part + ".output.LayerNorm", Ht)
+        lin(pre + "intermediate.dense", Ht, cfg.t_mlp)
+        lin(pre + "output.dense", cfg.t_mlp, Ht)
+        ln(pre + "output.LayerNorm", Ht)
+    head = "text_decoder.cls.predictions."
+    lin(head + "transform.dense", Ht, Ht)
+    ln(head + "transform.LayerNorm", Ht)
+    normal(head + "decoder.weight", (cfg.vocab_size, Ht))
+    sd[head + "bias"] = np.zeros(cfg.vocab_size, np.float32)
+    return sd
+
+
+def build_blip(torch, sd, cfg, device, dtype):
+    """The port's ``BlipCaptioner`` for ``cfg`` from an HF-keyed state dict
+    through ``convert_blip_state_dict`` and the weight bridge, on
+    ``device`` in ``dtype``, in eval mode."""
+    from mpmc_tpu_torch.models.blip import (BlipCaptioner,
+                                            convert_blip_state_dict)
+    from mpmc_tpu_torch.models.convert import load_blip_params
+    with torch.device("meta"):
+        model = BlipCaptioner(cfg)
+    load_blip_params(model, convert_blip_state_dict(sd, cfg))
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def blip_pixels(images_u8, dtype):
+    """uint8 ``[B, H, W, 3]`` normalized as BLIP's image processor does."""
+    from mpmc_tpu_torch.image.augment import normalize
+    return normalize(images_u8, BLIP_MEAN, BLIP_STD).to(dtype)
+
+
+def synced(torch, fn):
+    """``(fn(), wall ms)`` with the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profiled_call(torch, fn, what: str):
+    """One synchronized call of ``fn`` under the device profiler (device
+    activity only: an eager BLIP batch makes 13,000 launches, and the host
+    events beside them cost seconds to collect): its wall ms, kernel ms and
+    launches, printed with the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = synced(torch, fn)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    print(f"  {what}: {wall_ms:.3f} ms wall, kernels {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} % of wall) in {launches} "
+          f"launches; top:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:4]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+    return dict(wall_ms=wall_ms, kernel_ms=busy_ms,
+                busy_pct=100 * busy_ms / wall_ms, launches=launches)
+
+
+def caption_paths(work: str):
+    from mpmc_tpu_torch.io.manifest import read_manifest
+    train = read_manifest(os.path.join(work, "train.json"))
+    return train, train.img_paths + read_manifest(
+        os.path.join(work, "dev.json")).img_paths
+
+
+def phase_blip(torch, work: str):
+    """BLIP-large (``BlipConfig()``: ViT-L/16 at 384, a 12-layer decoder,
+    vocab 30,524) at full width from random HF-keyed weights through the
+    port's converter and bridge, in bf16: the new cross-attention shape
+    held and timed; ``generate`` over phase 5's images at 384 through
+    ``precompute_captions`` in batches of 64 (launches, graph captures and
+    replays, launches inside replays); a warm batch eager and graphed
+    (ids bit-equal, images/s, busy share of a profiled one each); and the
+    card against the CPU in f32 at 4 vision and 2 decoder layers on 2
+    images (logits, differing greedy ids)."""
+    import dataclasses
+    import numpy as np
+    from mpmc_tpu_torch.image.decode import decode_batch
+    from mpmc_tpu_torch.models.blip import BlipConfig
+    from mpmc_tpu_torch.models.captioner import precompute_captions
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train.pretrain_image import ieee_f32
+    dev = torch.device("cuda")
+    cfg = BlipConfig()
+    tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    cross = time_forward_at(torch, "BLIP cross-attention", BLIP_CROSS_SHAPE,
+                            tokens, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sd = random_hf_blip(np.random.default_rng(BLIP_SEED), cfg)
+    model = build_blip(torch, sd, cfg, dev, torch.bfloat16)
+    build_s = time.perf_counter() - t0
+    stamp("  BLIP built:")
+    n_params = sum(p.numel() for p in model.parameters())
+    _, paths = caption_paths(work)
+    t0 = time.perf_counter()
+    images = decode_batch(paths, cfg.image_size, False, work)
+    decode_s = time.perf_counter() - t0
+    prompt = torch.tensor([[cfg.bos_token_id, *BLIP_PROMPT]], device=dev)
+    batch_ms = []
+
+    def blip_fn(images_u8):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = blip_pixels(torch.as_tensor(images_u8, device=dev),
+                        torch.bfloat16)
+        ids = model.generate(x, prompt.expand(len(x), -1),
+                             max_len=BLIP_MAX_LEN)
+        rows = ids.cpu().tolist()
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+        return [" ".join(str(t) for t in r) for r in rows]
+
+    blip_fn.cache_tag = f"blip-large-random-{BLIP_SEED}"
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    caps = precompute_captions(paths, images, batch_size=BLIP_BATCH,
+                               generate_fn=blip_fn)
+    launches = dict(build.launch_counts)
+    batches = math.ceil(len(paths) / BLIP_BATCH)
+    full = len(paths) // BLIP_BATCH
+    want = {"attention_fwd": BLIP_FWD * batches, "attention_bwd": 0,
+            "image_normalize": 0}
+    check(launches == want, f"BLIP generate launches {launches}, expected "
+                            f"{want}")
+    graph = model.decode_graph
+    captures, replays = graph.captures, graph.replays
+    tallies = [e.tally for e in graph.graphs.values()]
+    check(graph.captures == 1 and graph.replays == full - 1
+          and [t["attention_fwd"] for t in tallies] == [BLIP_FWD],
+          f"BLIP decode graph: {graph.captures} captures, {graph.replays} "
+          f"replays, tallies {tallies}")
+    head = " ".join(str(t) for t in [cfg.bos_token_id, *BLIP_PROMPT])
+    check(len(caps) == len(paths) and all(
+        c.startswith(head + " ") and len(c.split()) == BLIP_MAX_LEN
+        for c in caps), f"BLIP captions malformed: {caps[:2]}")
+    # Random weights must still give a decode that varies, or the
+    # eager-vs-graphed comparison below would not exercise the writes.
+    tails = [c.split()[1 + len(BLIP_PROMPT):] for c in caps]
+    distinct = len(set(caps))
+    tail_ids = len({t for tail in tails for t in tail})
+    ended = sum(str(cfg.eos_token_id) in tail for tail in tails)
+    check(distinct > 1 and tail_ids > 1,
+          f"BLIP decode degenerate: {distinct} distinct captions, "
+          f"{tail_ids} distinct ids after the prompt")
+    print(f"  BLIP-large ({n_params / 1e6:.1f} M parameters, built from "
+          f"random HF-keyed weights in {build_s:.1f} s) over {len(paths)} "
+          f"images at {cfg.image_size}, bf16, batches of {BLIP_BATCH}, "
+          f"{BLIP_MAX_LEN} tokens: ms {[round(t, 3) for t in batch_ms]}; "
+          f"launches attention_fwd {launches['attention_fwd']} = "
+          f"{BLIP_FWD} x {batches}; decode graph: {captures} capture, "
+          f"{replays} replays ({replays * BLIP_FWD} forward launches "
+          f"inside them); {distinct} distinct captions, {tail_ids} "
+          f"distinct ids after the prompt, {ended} ended by EOS (images "
+          f"decoded at {cfg.image_size} in {decode_s:.1f} s)")
+    stamp("  BLIP warm batches:")
+    x = blip_pixels(torch.as_tensor(images[:BLIP_BATCH], device=dev),
+                    torch.bfloat16)
+    p64 = prompt.expand(BLIP_BATCH, -1)
+    eager_ids, eager_ms = synced(
+        torch, lambda: model.generate_eager(x, p64, BLIP_MAX_LEN))
+    graph_ids, graph_ms_ = synced(
+        torch, lambda: model.generate(x, p64, max_len=BLIP_MAX_LEN))
+    check(torch.equal(eager_ids, graph_ids),
+          "BLIP: graphed ids differ from the eager loop's")
+    eager_prof = profiled_call(
+        torch, lambda: model.generate_eager(x, p64, BLIP_MAX_LEN),
+        "BLIP eager generate batch of 64, profiled")
+    graph_prof = profiled_call(
+        torch, lambda: model.generate(x, p64, max_len=BLIP_MAX_LEN),
+        "BLIP graphed generate batch of 64, profiled")
+    print(f"  warm batch of {BLIP_BATCH}: eager {eager_ms:.3f} ms "
+          f"({1e3 * BLIP_BATCH / eager_ms:.2f} images/s), graphed "
+          f"{graph_ms_:.3f} ms ({1e3 * BLIP_BATCH / graph_ms_:.2f} "
+          f"images/s); ids bit-equal")
+    del model, x, eager_ids, graph_ids
+    gc.collect()                    # the model and its decode graph
+    torch.cuda.empty_cache()
+    stamp("  BLIP card vs CPU:")
+    cut = dataclasses.replace(cfg, **BLIP_CUT)
+    card = build_blip(torch, sd, cut, dev, torch.float32)
+    host = build_blip(torch, sd, cut, torch.device("cpu"), torch.float32)
+    del sd
+    few = torch.from_numpy(images[:BLIP_CPU_IMAGES])
+    pr = prompt.cpu().expand(len(few), -1)
+    with ieee_f32(), torch.inference_mode():
+        xc = blip_pixels(few.to(dev), torch.float32)
+        ids = card.generate(xc, pr.to(dev), max_len=BLIP_MAX_LEN)
+        logits = card(xc, ids).cpu()
+        xh = blip_pixels(few, torch.float32)
+        ids_cpu = host.generate(xh, pr, max_len=BLIP_MAX_LEN)
+        logits_cpu = host(xh, ids.cpu())
+    scale = max(1.0, logits_cpu.abs().max().item())
+    diff = (logits - logits_cpu).abs().max().item()
+    ids_differ = int((ids.cpu() != ids_cpu).sum())
+    check(diff <= BLIP_LOGIT_TOL * scale,
+          f"BLIP logits card vs CPU differ by {diff} (scale {scale})")
+    print(f"  card vs CPU, f32 (TF32 off), {cut.v_layers} vision and "
+          f"{cut.t_layers} decoder layers at full width, {len(few)} images: "
+          f"max |logit diff| {diff:.3g} (tol {BLIP_LOGIT_TOL} x {scale:.3g}) "
+          f"over {tuple(logits.shape)}; greedy ids differing: {ids_differ} "
+          f"of {ids.numel()}")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, batches=batches, batch_ms=batch_ms,
+                captures=captures, replays=replays,
+                launches_in_graphs={"attention_fwd": replays * BLIP_FWD},
+                build_s=build_s, decode_s=decode_s, n_params=n_params,
+                distinct_captions=distinct, distinct_tail_ids=tail_ids,
+                ended_by_eos=ended, eager_ms=eager_ms, graph_ms=graph_ms_,
+                eager_images_s=1e3 * BLIP_BATCH / eager_ms,
+                graph_images_s=1e3 * BLIP_BATCH / graph_ms_,
+                eager_profile=eager_prof, graph_profile=graph_prof,
+                ids_bit_equal=True, card_vs_cpu_logits=diff,
+                card_vs_cpu_scale=scale, ids_differ=ids_differ,
+                ids=ids.numel(), cross=cross)
+
+
+def phase_scratch_graphed(torch, work: str, p11: dict):
+    """Phase 11's ``generate`` over phase 5's images again, through the
+    decode graph: launches (48 a batch) and those inside replays, ms a
+    batch and the busy share of a profiled replayed batch beside phase
+    11's eager numbers, and the graphed ids of a batch equal to the eager
+    loop's."""
+    from mpmc_tpu_torch.image.augment import eval_preprocess
+    from mpmc_tpu_torch.image.decode import decode_batch
+    from mpmc_tpu_torch.models.captioner import (PROMPT,
+                                                 make_scratch_caption_fn,
+                                                 precompute_captions)
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
+    from mpmc_tpu_torch.train.pretrain_image import ieee_f32
+    dev = torch.device("cuda")
+    train, paths = caption_paths(work)
+    images = decode_batch(paths, 224, False, work)
+    corpus = [preprocess_arabic_tweet(t) for t in train.texts]
+    gen_fn, tok = make_scratch_caption_fn(corpus, image_size=224, seed=42,
+                                          device=dev)
+    batch_ms = []
+
+    def timed(images_u8):
+        out, ms = synced(torch, lambda: gen_fn(images_u8))
+        batch_ms.append(ms)
+        return out
+
+    timed.cache_tag = gen_fn.cache_tag
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    caps = precompute_captions(paths, images, generate_fn=timed)
+    launches = dict(build.launch_counts)
+    batches = math.ceil(len(paths) / CAPTION_BATCH)
+    graph = gen_fn.captioner.decode_graph
+    captures, replays = graph.captures, graph.replays
+    want = {"attention_fwd": GENERATE_FWD * batches, "attention_bwd": 0,
+            "image_normalize": 0}
+    check(launches == want and len(caps) == len(paths),
+          f"graphed captioning launches {launches}, expected {want}")
+    check(graph.captures == 1
+          and graph.replays == len(paths) // CAPTION_BATCH - 1,
+          f"scratch decode graph: {graph.captures} captures, "
+          f"{graph.replays} replays")
+    prof = profiled_call(torch, lambda: gen_fn(images[:CAPTION_BATCH]),
+                         "scratch captioner graphed batch of 64, profiled")
+    cap = gen_fn.captioner
+    x = eval_preprocess(torch.from_numpy(images[:CAPTION_BATCH]).to(dev))
+    prompt = torch.tensor([tok.tokenize_to_ids(PROMPT)], device=dev).expand(
+        CAPTION_BATCH, -1)
+    with ieee_f32():
+        eager = cap.generate_eager(x, prompt, eos_id=tok.sep_id)
+        graphed = cap.generate(x, prompt, eos_id=tok.sep_id)
+    check(torch.equal(eager, graphed),
+          "scratch captioner: graphed ids differ from the eager loop's")
+    eager_11 = p11["caption_generate"]
+    print(f"  scratch captioner graphed over {len(paths)} images: ms "
+          f"{[round(t, 3) for t in batch_ms]} (phase 11 eager: "
+          f"{[round(t, 3) for t in eager_11['batch_ms']]}); launches "
+          f"attention_fwd {launches['attention_fwd']} = {GENERATE_FWD} x "
+          f"{batches}, {replays * GENERATE_FWD} inside {replays} replays; "
+          f"busy {prof['busy_pct']:.1f} % (phase 11 "
+          f"eager {100 * eager_11['profiled_kernel_ms'] / eager_11['profiled_wall_ms']:.1f} %); "
+          f"ids of a batch bit-equal to eager")
+    del gen_fn, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, batches=batches, batch_ms=batch_ms,
+                captures=captures, replays=replays,
+                launches_in_graphs={"attention_fwd": replays * GENERATE_FWD},
+                profile=prof, ids_bit_equal=True,
+                phase_11_eager_batch_ms=eager_11["batch_ms"])
+
+
+def same_npz(a: str, b: str) -> bool:
+    import numpy as np
+    with np.load(a) as fa, np.load(b) as fb:
+        return (sorted(fa.files) == sorted(fb.files)
+                and all(np.array_equal(fa[k], fb[k]) for k in fa.files))
+
+
+def grouped_vs_single(torch, what: str, k: int, run_at, npz_of,
+                      profile: bool = True):
+    """A pretraining stage at ``scan_steps`` k and at 1 (``run_at(k,
+    watch)`` runs it under ``watch(profiled=..., profiled_group=...)``):
+    its first group eager and its second a graph replay at k, profiled
+    under ``profile`` (at 1, steps 2 and 3).  Checks the per-step losses
+    and the saved npz (``npz_of(run, k)``) bit for bit; returns each run's
+    launches, those inside replays, warm ms a step and busy share."""
+    from mpmc_tpu_torch.ops import build
+    res = {}
+    for kk in (k, 1):
+        stamp(f"  {what} at K = {kk}:")
+        for key in build.launch_counts:
+            build.launch_counts[key] = 0
+        watch = (dict(profiled=range(2, 4) if kk == 1 else range(0),
+                      profiled_group=1 if kk > 1 else None) if profile
+                 else {})
+        run, seen = run_at(kk, watch)
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        if kk > 1:
+            check(replayed_steps(seen) == run.steps - kk,
+                  f"{what} K = {kk}: {replayed_steps(seen)} of {run.steps} "
+                  f"steps replayed")
+            warm = replay_step_ms(seen)
+        else:
+            warm = seen["step_ms"][1:2] + seen["step_ms"][4:]
+        res[kk] = dict(run=run, npz=npz_of(run, kk), launches=launches,
+                       launches_in_graphs=replay_launches(seen),
+                       warm_step_ms_median=median(warm))
+        if profile:
+            wall_ms, busy_ms, _ = profiled_share(
+                torch, seen, f"{what} at K = {kk}: "
+                + ("group 1 (a replay)" if kk > 1 else "steps 2 and 3")
+                + " profiled")
+            res[kk].update(busy_pct=100 * busy_ms / wall_ms,
+                           profiled_wall_ms=wall_ms,
+                           profiled_kernel_ms=busy_ms)
+    a, b = res[k]["run"], res[1]["run"]
+    differ = [i for i, (x, y) in enumerate(zip(a.step_losses, b.step_losses))
+              if x != y]
+    same_file = same_npz(res[k]["npz"], res[1]["npz"])
+    print(f"  {what}: K = {k} and K = 1 per-step losses "
+          f"{'equal' if not differ else 'differ at steps ' + str(differ)} "
+          f"({len(a.step_losses)} and {len(b.step_losses)}), npz "
+          f"{'bit for bit' if same_file else 'DIFFERENT'}; launches "
+          f"{res[k]['launches']} and {res[1]['launches']}, inside replays "
+          f"{res[k]['launches_in_graphs']}; warm ms a step K = {k} "
+          f"{res[k]['warm_step_ms_median']:.3f}, K = 1 "
+          f"{res[1]['warm_step_ms_median']:.3f}"
+          + (f"; busy K = {k} {res[k]['busy_pct']:.1f} %, K = 1 "
+             f"{res[1]['busy_pct']:.1f} %" if profile else ""))
+    check(not differ and a.steps == b.steps and a.epoch_losses
+          == b.epoch_losses, f"{what}: losses differ between K = {k} and 1: "
+          f"{[(a.step_losses[i], b.step_losses[i]) for i in differ[:4]]}")
+    check(same_file, f"{what}: the npz differs between K = {k} and K = 1")
+    check(res[k]["launches"] == res[1]["launches"],
+          f"{what}: launches differ between K = {k} and 1")
+    return {f"k{kk}": {m: v for m, v in r.items() if m not in ("run", "npz")}
+            | dict(steps=r["run"].steps, loss=r["run"].epoch_losses)
+            for kk, r in res.items()}
+
+
+def phase_mlm_groups(torch, argv):
+    """``pretrain_and_save`` on phase 8's 2A corpus at full width, f32, one
+    epoch of 16 steps (two groups of 8: batch n // 16), at ``scan_steps``
+    8 and 1: per-step losses and the saved npz bit for bit, 12 forward and
+    12 backward calls a step, those inside the replay, warm ms a step and
+    busy share at both K."""
+    import dataclasses
+    from mpmc_tpu_torch.cli.experiments import prepare_2a
+    from mpmc_tpu_torch.cli.main import build_parser, train_config
+    from mpmc_tpu_torch.train import pretrain as P
+    cfg, _ = train_config(build_parser().parse_args(argv))
+    out = tempfile.mkdtemp(dir=os.getcwd())
+    prep = prepare_2a(dataclasses.replace(cfg, checkpoint_dir=None), out)
+    seq_len = prep.data["text_ids"].shape[1]
+    n = (P.MLMConfig().char_noise_copies + 1) * len(prep.corpus)
+    bs = n // MLM_GROUP_STEPS
+
+    def run_at(k, watch):
+        with watch_mlm(torch, **watch) as seen:
+            run = P.pretrain_and_save(
+                prep.cfg.model.text, prep.corpus, prep.tok,
+                os.path.join(out, f"mlm_k{k}.npz"),
+                P.MLMConfig(epochs=1, seed=cfg.seed, batch_size=bs,
+                            scan_steps=k), max_len=seq_len,
+                device=torch.device("cuda"))
+        want = {"attention_fwd": 12 * run.steps,
+                "attention_bwd": 12 * run.steps, "image_normalize": 0}
+        check(run.steps == MLM_GROUP_STEPS and seen["launches"] == want,
+              f"MLM K = {k}: {run.steps} steps, launches "
+              f"{seen['launches']}, expected {want}")
+        return run, seen
+
+    print(f"  MLM over {n} texts at [{bs},{seq_len}] f32, one epoch of "
+          f"{MLM_GROUP_STEPS} steps:")
+    out_ = grouped_vs_single(torch, "MLM", P.MLMConfig().scan_steps, run_at,
+                             lambda run, k: os.path.join(out,
+                                                         f"mlm_k{k}.npz"))
+    for r in out_.values():
+        r["shape"] = [bs, seq_len]
+    return out_
+
+
+def phase_simclr_groups(torch):
+    """``simclr_pretrain`` over ResNet-18 at 224 (phase 10's backbone) on
+    256 seeded images, batch 64, two epochs of one group of 4, at
+    ``scan_steps`` 4 and 1: per-step losses and the backbone npz bit for
+    bit, the image kernel twice a step and inside the replay, warm ms a
+    step (phase 10 profiles the SimCLR step)."""
+    import numpy as np
+    from mpmc_tpu_torch.config import ImageEncoderConfig
+    from mpmc_tpu_torch.train import pretrain_image as PI
+    images = np.random.default_rng(SIMCLR_GROUP_IMAGES).integers(
+        0, 256, (SIMCLR_GROUP_IMAGES, 224, 224, 3), dtype=np.uint8)
+    out = tempfile.mkdtemp(dir=os.getcwd())
+
+    def run_at(k, watch):
+        with watch_simclr(torch, **watch) as seen:
+            run = PI.simclr_pretrain(
+                ImageEncoderConfig(arch="resnet18", image_size=224), images,
+                PI.SimCLRConfig(epochs=2, batch_size=64, scan_steps=k),
+                device=torch.device("cuda"))
+        want = {"attention_fwd": 0, "attention_bwd": 0,
+                "image_normalize": 2 * run.steps}
+        check(run.steps == 8 and seen["launches"] == want,
+              f"SimCLR K = {k}: {run.steps} steps, launches "
+              f"{seen['launches']}, expected {want}")
+        return run, seen
+
+    def npz_of(run, k):
+        path = os.path.join(out, f"simclr_k{k}.npz")
+        PI.save_image_encoder_params(run.backbone, path)
+        return path
+
+    print(f"  SimCLR ResNet-18 at 224, {SIMCLR_GROUP_IMAGES} images, batch "
+          f"64, two epochs of 4 steps:")
+    res = grouped_vs_single(torch, "SimCLR", PI.SimCLRConfig().scan_steps,
+                            run_at, npz_of, profile=False)
+    check(res["k4"]["launches_in_graphs"].get("image_normalize") == 8,
+          f"SimCLR: image kernel inside the replay "
+          f"{res['k4']['launches_in_graphs']}, expected 2 x 4")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_blip_and_groups(torch, work: str, argv_2a, p11: dict):
+    """Phase 16: (a) BLIP-large, (b) the scratch captioner graphed, (c)
+    MLM at K = 8 against 1, (d) SimCLR at K = 4 against 1."""
+    out = {}
+    for name, run in (("blip", lambda: phase_blip(torch, work)),
+                      ("scratch_graphed",
+                       lambda: phase_scratch_graphed(torch, work, p11)),
+                      ("mlm_groups", lambda: phase_mlm_groups(torch, argv_2a)),
+                      ("simclr_groups", lambda: phase_simclr_groups(torch))):
+        stamp(f"  {name}:")
+        out[name] = run()
+    return out
+
+
 def stamp(title: str) -> None:
     """A phase's heading with the seconds since the script started."""
     print(f"{title} (at {time.perf_counter() - T_START:.1f} s)")
@@ -4714,6 +5328,10 @@ def main() -> int:
             stamp("phase 15 the multi-GPU layouts at world size 1:")
             p15 = phase_layouts(torch, work, train_argv, train_launches,
                                 watch_k4, turns)
+            stamp("phase 16 BLIP-large with one decode graph, the scratch "
+                  "captioner graphed, and K steps a dispatch for MLM and "
+                  "SimCLR:")
+            p16 = phase_blip_and_groups(torch, work, argv_2a, p11)
         finally:
             os.chdir(cwd)
 
@@ -4728,6 +5346,11 @@ def main() -> int:
     p15_paths = [("train_2c_world1", p15["dp_world1"]),
                  *((f"text_{k}", v) for k, v in p15["encoders"].items()
                    if k != "plain")]
+    p16_paths = [("blip_generate", p16["blip"]),
+                 ("scratch_generate_graphed", p16["scratch_graphed"]),
+                 *((f"mlm_{k}", v) for k, v in p16["mlm_groups"].items()),
+                 *((f"simclr_{k}", v)
+                   for k, v in p16["simclr_groups"].items())]
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -4759,11 +5382,13 @@ def main() -> int:
             "train_2a_sparse": p13["train_2a_sparse"]["launches"][
                 "attention_fwd"],
             **{k: v["launches"]["attention_fwd"] for k, v in p14_paths},
-            **{k: v["launches"]["attention_fwd"] for k, v in p15_paths}},
+            **{k: v["launches"]["attention_fwd"] for k, v in p15_paths},
+            **{k: v["launches"]["attention_fwd"] for k, v in p16_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
-            "attention_fwd", 0) for k, v in p14_paths},
+            "attention_fwd", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
         "captioner_shapes": p11["shapes"],
+        "blip_cross_shape": p16["blip"]["cross"],
         "extract_features_shape": p12["extract_shape"],
         "packed_train_shapes": {
             k: {"shape": v["shape"], "ms": v["fwd_ms"],
@@ -4814,9 +5439,10 @@ def main() -> int:
             "train_2a_sparse": p13["train_2a_sparse"]["launches"][
                 "attention_bwd"],
             **{k: v["launches"]["attention_bwd"] for k, v in p14_paths},
-            **{k: v["launches"]["attention_bwd"] for k, v in p15_paths}},
+            **{k: v["launches"]["attention_bwd"] for k, v in p15_paths},
+            **{k: v["launches"]["attention_bwd"] for k, v in p16_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
-            "attention_bwd", 0) for k, v in p14_paths},
+            "attention_bwd", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
@@ -4846,9 +5472,10 @@ def main() -> int:
             **{k: v["image_normalize"] for k, v in paths_12.items()},
             **{k: v["launches"]["image_normalize"] for k, v in p14_paths},
             **{k: v["launches"].get("image_normalize", 0)
-               for k, v in p15_paths}},
+               for k, v in p15_paths},
+            **{k: v["launches"]["image_normalize"] for k, v in p16_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
-            "image_normalize", 0) for k, v in p14_paths},
+            "image_normalize", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shape": [FOLDS * BATCH, 224, 224, 3]}]
     print(json.dumps({"predict_kinds": {
         k: {m: v[m] for m in ("launches", "memes_s", "wall_s",
@@ -4876,6 +5503,7 @@ def main() -> int:
     print(json.dumps({"phase_13": p13}))
     print(json.dumps({"phase_14": p14}))
     print(json.dumps({"phase_15": p15}))
+    print(json.dumps({"phase_16": p16}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

@@ -8,7 +8,10 @@
   ``none``, which launches the CUDA kernel on a CUDA tensor or raises.
   ``generate`` decodes greedily on the device, as the JAX ``lax.scan``
   does: every position reruns the decoder over all ``max_len`` tokens (no
-  KV cache) and nothing is read back per token.
+  KV cache) and nothing is read back per token.  On the card the whole
+  decode (encoder and every decoder pass) is one CUDA graph replay per
+  input shape (``train/graphs.GraphedCall``); ``generate_eager`` is the
+  loop itself.
 * :func:`make_scratch_caption_fn` -- the from-scratch captioner over a
   corpus caption vocab, random weights from a seeded generator, as a
   ``generate_fn`` for :func:`precompute_captions`.  It runs in IEEE f32
@@ -36,6 +39,7 @@ from torch import nn
 
 from mpmc_tpu_torch.models.vit import ViT
 from mpmc_tpu_torch.ops.attention import NEG_INF, attention_forward
+from mpmc_tpu_torch.train.graphs import GraphedCall
 
 PROMPT = "a meme of"
 LN_EPS = 1e-6                      # flax LayerNorm's default
@@ -136,6 +140,7 @@ class ImageCaptioner(nn.Module):
         self.proj = nn.Linear(enc_hidden, dec_hidden)
         self.decoder = CaptionDecoder(vocab_size, dec_hidden, dec_layers,
                                       max_len=max_len)
+        self.decode_graph = GraphedCall(self.generate_eager, self)
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """The projected token sequence ``[B, 1 + N, dec_hidden]``."""
@@ -145,9 +150,17 @@ class ImageCaptioner(nn.Module):
                 token_ids: torch.Tensor) -> torch.Tensor:
         return self.decoder(token_ids, self.encode_image(images))
 
-    @torch.inference_mode()
     def generate(self, images: torch.Tensor, prompt_ids: torch.Tensor,
                  eos_id: int, pad_id: int = 0) -> torch.Tensor:
+        """:meth:`generate_eager` as one CUDA graph replay per input shape
+        on the card (the first call of a shape eager, the second captured);
+        the loop itself on the CPU."""
+        return self.decode_graph(images, prompt_ids, eos_id=eos_id,
+                                 pad_id=pad_id)
+
+    @torch.inference_mode()
+    def generate_eager(self, images: torch.Tensor, prompt_ids: torch.Tensor,
+                       eos_id: int, pad_id: int = 0) -> torch.Tensor:
         """Greedy decode of ``[B, max_len]`` token ids after the prompt
         ``prompt_ids [B, P]``: at each position 1 .. max_len-1 the decoder
         reruns over all ``max_len`` tokens, the argmax of the previous

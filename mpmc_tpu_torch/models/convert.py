@@ -19,6 +19,7 @@ the inverse of the JAX package's converters (``models/hf_convert.py``,
   ``var`` -> ``running_mean`` / ``running_var``; ``embedding`` -> ``weight``;
 * parameters the modules declare themselves keep their name and layout:
   a ViT's ``cls_token`` ``[1, 1, H]`` and ``pos_embed`` ``[1, 1+N, H]``,
+  BLIP's ``class_embedding`` and ``position_embedding`` (the same shapes),
   ConvNeXt's layer scale ``gamma`` ``[dim]``.  A depthwise conv kernel
   (HW1C, ``feature_group_count`` = C) is a grouped conv like any other.
 
@@ -43,7 +44,8 @@ _MODULE_RENAME = {f"{cls}_0": "fusion" for cls in (
     "ConcatAttention", "ConcatAttention3", "MCA", "MCA3",
     "CrossModalAttention", "SelfAttentionFusion")}
 _STATS = {"mean": "running_mean", "var": "running_var"}
-_AS_IS = ("cls_token", "pos_embed", "gamma")
+_AS_IS = ("cls_token", "pos_embed", "gamma", "class_embedding",
+          "position_embedding")
 _QKV = ("query", "key", "value", "q", "k", "v")
 # DenseGeneral output projections [heads, hd, H]: the encoders' ``out`` and
 # the caption decoder's ``self_out`` / ``cross_out``.
@@ -198,3 +200,19 @@ def unstack_to_jax_variables(module: nn.Module,
 def to_jax_params(module: nn.Module) -> Dict:
     """The flax parameter tree of :func:`to_jax_variables`."""
     return to_jax_variables(module)[0]
+
+
+def load_blip_params(model: nn.Module, params: Mapping) -> None:
+    """The JAX package's ``BlipCaptioner`` parameter tree (nested dicts of
+    numpy arrays, as ``convert_blip_state_dict`` in either package or
+    ``BlipCaptioner.init`` give it) into the port's ``BlipCaptioner``
+    (``models/blip.py``), every leaf: Dense kernels transposed, the patch
+    convolution HWIO -> OIHW, LayerNorm ``scale`` -> ``weight``,
+    embeddings, and the class token and positions as they are.  The
+    module keeps its device and dtype; a module on the meta device takes
+    the f32 CPU tensors themselves."""
+    sd = from_jax_variables(params)
+    if any(p.is_meta for p in model.parameters()):
+        model.load_state_dict(sd, assign=True)
+    else:
+        model.load_state_dict(sd)

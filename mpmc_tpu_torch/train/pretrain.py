@@ -11,18 +11,28 @@ JAX package runs it.  The encoder is written as the flax-tree npz that
 either package's ``--text-params`` splice reads
 (``models/pretrained.py``).
 
-The JAX loop runs whole groups of ``SCAN_GROUP`` steps per dispatch and
-drops the epoch's remainder, so an epoch runs ``floor(steps_per_epoch / k)
-* k`` steps (``k = min(SCAN_GROUP, steps_per_epoch)``) over consecutive
-``batch_size`` slices of one permutation; this port runs the same steps on
-the same rows, one launch sequence per step.  Masking and dropout draw from
-a ``torch.Generator`` on the device, so they cannot equal the JAX draws;
+The JAX loop runs whole groups of ``MLMConfig.scan_steps`` steps per
+dispatch (one jitted ``lax.scan``) and drops the epoch's remainder, so an
+epoch runs ``floor(steps_per_epoch / k) * k`` steps (``k =
+min(scan_steps, steps_per_epoch)``) over consecutive ``batch_size`` slices
+of one permutation.  This port runs the same steps on the same rows, each
+group of ``k`` as one CUDA graph replay on the card
+(``train/graphs.GroupedSteps``: the first group eager, then the capture),
+the masking drawn inside the graph from the registered device generator;
+``k = 1``, or a run of one group, runs the steps one by one.  The steps
+run under PyTorch's deterministic algorithms
+(:func:`deterministic_algorithms`), so ``k = 8`` equals ``k = 1`` bit for
+bit on the card.  :class:`AdamW` keeps its step count and its per-step
+schedule and bias corrections on the device, so a replay reads nothing
+from the host.  Masking and dropout draw from a
+``torch.Generator`` on the device, so they cannot equal the JAX draws;
 :meth:`MLMTrainer.step` takes the selection and the corrupted ids as
 arguments for the tests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -40,14 +50,11 @@ from mpmc_tpu_torch.models.convert import to_jax_params
 from mpmc_tpu_torch.models.norm import set_dropout_generator
 from mpmc_tpu_torch.models.pretrained import save_encoder_params
 from mpmc_tpu_torch.ops.packing import pack_sequences
+from mpmc_tpu_torch.train.graphs import GroupedSteps
 from mpmc_tpu_torch.train.step import (adam_bias_corrections, adam_updates,
                                        clip_by_global_norm, global_norm)
 
 log = logging.getLogger(__name__)
-
-# The JAX MLM loop's steps per scan dispatch (its default ``scan_steps``):
-# each epoch is truncated to whole groups of this many steps.
-SCAN_GROUP = 8
 
 
 def char_noise(texts: Sequence[str], rng: np.random.Generator,
@@ -108,6 +115,7 @@ class MLMConfig:
     warmup_fraction: float = 0.05
     mask_prob: float = 0.15
     seed: int = 42
+    scan_steps: int = 8              # optimizer steps per device dispatch
     char_noise_copies: int = 3
     char_noise_word_prob: float = 0.15
     # Pack the tokenized corpus once into full rows (segment-masked
@@ -143,44 +151,136 @@ class AdamW:
     """``optax.chain(clip_by_global_norm(clip), adamw(schedule,
     weight_decay))``: Adam, plus ``weight_decay * p`` on every parameter
     (no mask), times ``-schedule(step)``.  Updates the parameters in
-    place."""
+    place.
+
+    The step count lives on the device (``count_t``) beside a host mirror
+    (``count``); the learning rate and Adam's bias corrections are read
+    from f32 tables over the steps (``tables``: ``lr``, ``bc1``, ``bc2``,
+    made on the host with the same rounding and uploaded once) at the
+    device count, as ``train/step.Optimizer`` does, so that a CUDA graph
+    of K steps (``GroupedSteps``, with this optimizer as its ``counter``)
+    replays with each step's own values."""
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  schedule: Callable[[int], float], weight_decay: float,
-                 clip: float = 1.0):
+                 clip: float = 1.0, total_steps: int = 1):
         self.params = params
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.clip = clip
         self.states = [{"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
                        for p in params.values()]
+        self.device = next(iter(params.values())).device
         self.count = 0
+        self.count_t = torch.zeros((), dtype=torch.long, device=self.device)
+        self.tables: Dict[str, torch.Tensor] = {}
+        self.ensure_steps(max(total_steps, 1))
+
+    def ensure_steps(self, n: int) -> None:
+        """Make the per-step tables cover steps ``0 .. n - 1`` (at least
+        twice what they covered, when they grow)."""
+        have = len(self.tables["lr"]) if self.tables else 0
+        if n <= have:
+            return
+        steps = range(max(n, 2 * have))
+        cols = {"lr": [self.schedule(c) for c in steps]}
+        cols["bc1"], cols["bc2"] = zip(*(adam_bias_corrections(c)
+                                         for c in steps))
+        self.tables = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
+                           self.device) for k, v in cols.items()}
+
+    def _at(self, name: str) -> torch.Tensor:
+        """Table ``name`` at the device count, 0-dim."""
+        return self.tables[name].index_select(0, self.count_t.view(1)
+                                              ).view(())
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """One update from f32 ``grads`` (in ``params`` order); returns
-        their pre-clip global norm."""
+        their pre-clip global norm.  Nothing is read back from the
+        device."""
+        self.ensure_steps(self.count + 1)
         norm = global_norm(grads)
         params = list(self.params.values())
         updates = adam_updates(clip_by_global_norm(grads, norm, self.clip),
-                               self.states,
-                               *adam_bias_corrections(self.count))
+                               self.states, self._at("bc1"), self._at("bc2"))
         torch._foreach_add_(updates, torch._foreach_mul(params,
                                                         self.weight_decay))
-        torch._foreach_mul_(updates, -self.schedule(self.count))
+        torch._foreach_mul_(updates, -self._at("lr"))
         torch._foreach_add_(params, updates)
+        self.count_t.add_(1)
         self.count += 1
         return norm
 
 
 def mlm_epoch_rows(perm: np.ndarray, batch_size: int, steps_per_epoch: int,
-                   group: int = SCAN_GROUP) -> List[np.ndarray]:
+                   group: int) -> List[np.ndarray]:
     """The rows of each step of one epoch, as the JAX loop takes them:
     whole groups of ``k = min(group, steps_per_epoch)`` steps, each step
     the next ``batch_size`` slice of ``perm``."""
     k = max(min(group, steps_per_epoch), 1)
     steps = (steps_per_epoch // k) * k
     return [perm[i * batch_size:(i + 1) * batch_size] for i in range(steps)]
+
+
+def epoch_mean(losses: List[torch.Tensor], step_losses: List[float]
+               ) -> float:
+    """The epoch's per-step losses (``[k]`` device tensors, read back once)
+    appended to ``step_losses``; returns their f32 mean on the host, as
+    the JAX loop's ``np.mean`` (NaN for an epoch without steps)."""
+    if not losses:
+        return float("nan")
+    values = torch.cat(losses).cpu().numpy()
+    step_losses.extend(values.tolist())
+    return float(np.mean(values))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms while active (a warning, not an
+    error, where an op has none; new memory left unfilled), the caller's
+    settings restored after.  The pretraining stages run their steps under
+    it, so that K steps in one CUDA graph equal K single steps bit for
+    bit: by default the CUDA embedding backward sums thousands of equal
+    indices (the token-type row of a corpus MLM batch), and cuDNN's
+    weight-gradient algorithms (SimCLR) sum, in an order that changes from
+    run to run."""
+    from torch.utils import deterministic
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        deterministic.fill_uninitialized_memory = saved[2]
+
+
+def run_grouped(step: Callable[[Dict[str, torch.Tensor]],
+                               Dict[str, torch.Tensor]],
+                k: int, groups: int, device: torch.device,
+                generator: torch.Generator, optimizer: AdamW
+                ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
+    """``run(group) -> losses [k]`` for a group of ``k`` steps' host
+    arrays stacked on a leading axis: one ``GroupedSteps`` dispatch of
+    ``step`` (its ``generator`` registered, ``optimizer`` the counter)
+    when the run has ``groups`` >= 2 groups of ``k >= 2`` steps, else the
+    steps one by one on ``device`` (a run of one group has no replay to
+    pay for its capture).  ``step(batch)`` returns ``{"loss": 0-dim}``."""
+    grouped = (GroupedSteps(step, k, device, generators=[generator],
+                            counter=optimizer)
+               if k > 1 and groups > 1 else None)
+
+    def run(group: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if grouped is not None:
+            return grouped(group)["loss"]
+        return torch.stack([step({n: v[j].to(device)
+                                  for n, v in group.items()})["loss"]
+                            for j in range(len(next(iter(group.values()))))])
+
+    return run
 
 
 def draw_masking(ids: torch.Tensor, mask: torch.Tensor,
@@ -214,7 +314,7 @@ class MLMTrainer:
             dict(model.named_parameters()),
             warmup_cosine_decay_schedule(mlm_cfg.learning_rate, warmup,
                                          total_steps),
-            mlm_cfg.weight_decay)
+            mlm_cfg.weight_decay, total_steps=total_steps)
 
     def loss(self, ids, mask, sel, inp, segments=None, positions=None):
         """CE of the original ids at the selected positions, divided by
@@ -243,11 +343,15 @@ class MLMTrainer:
 @dataclasses.dataclass
 class MLMRun:
     """What :func:`mlm_pretrain` trained: the encoder, the per-epoch mean
-    losses and the steps run."""
+    losses and every step's loss."""
 
     encoder: TextEncoder
     epoch_losses: List[float]
-    steps: int
+    step_losses: List[float]
+
+    @property
+    def steps(self) -> int:
+        return len(self.step_losses)
 
 
 def mlm_pretrain(text_cfg: TextEncoderConfig, ids: np.ndarray,
@@ -255,8 +359,9 @@ def mlm_pretrain(text_cfg: TextEncoderConfig, ids: np.ndarray,
                  device: torch.device) -> MLMRun:
     """Pretrain a text encoder on ``device`` over the tokenized corpus
     ``ids`` / ``mask`` ``[N, L]`` (packed into full rows first under
-    ``mlm_cfg.pack``).  Weights come from a generator seeded with
-    ``mlm_cfg.seed``; the epoch permutations from
+    ``mlm_cfg.pack``), each group of ``min(scan_steps, steps_per_epoch)``
+    steps one dispatch (:func:`run_grouped`).  Weights come from a
+    generator seeded with ``mlm_cfg.seed``; the epoch permutations from
     ``np.random.default_rng(mlm_cfg.seed)``."""
     segments = positions = None
     if mlm_cfg.pack:
@@ -270,6 +375,7 @@ def mlm_pretrain(text_cfg: TextEncoderConfig, ids: np.ndarray,
     bs = min(mlm_cfg.batch_size, n)
     steps_per_epoch = max(n // bs, 1)
     total_steps = steps_per_epoch * mlm_cfg.epochs
+    k = max(min(mlm_cfg.scan_steps, steps_per_epoch), 1)
     mask_id = tok.vocab.get("[MASK]")
     if mask_id is None:
         raise ValueError("MLM pretraining needs a [MASK] token in the vocab")
@@ -281,28 +387,33 @@ def mlm_pretrain(text_cfg: TextEncoderConfig, ids: np.ndarray,
     init_weights(model, generator)
     set_dropout_generator(model, generator)
     trainer = MLMTrainer(model, total_steps, mlm_cfg)
-    arrays = {"ids": ids, "mask": mask, "segments": segments,
-              "positions": positions}
+
+    def step(b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        sel, inp = draw_masking(b["ids"], b["mask"], special, mask_id,
+                                text_cfg.vocab_size, mlm_cfg.mask_prob,
+                                generator)
+        return {"loss": trainer.step(b["ids"], b["mask"], sel, inp,
+                                     b.get("segments"), b.get("positions"))}
+
+    run = run_grouped(step, k, mlm_cfg.epochs * (steps_per_epoch // k),
+                      device, generator, trainer.optimizer)
+    arrays = {name: v for name, v in (("ids", ids), ("mask", mask),
+                                      ("segments", segments),
+                                      ("positions", positions))
+              if v is not None}
     rng = np.random.default_rng(mlm_cfg.seed)
-    epoch_losses, steps = [], 0
+    epoch_losses, step_losses = [], []
     for epoch in range(mlm_cfg.epochs):
-        losses = []
-        for rows in mlm_epoch_rows(rng.permutation(n), bs, steps_per_epoch):
-            b = {k: None if v is None else
-                 torch.from_numpy(np.ascontiguousarray(v[rows])).to(device)
-                 for k, v in arrays.items()}
-            sel, inp = draw_masking(b["ids"], b["mask"], special, mask_id,
-                                    text_cfg.vocab_size, mlm_cfg.mask_prob,
-                                    generator)
-            losses.append(trainer.step(b["ids"], b["mask"], sel, inp,
-                                       b["segments"], b["positions"]))
-        steps += len(losses)
-        epoch_losses.append(float(torch.stack(losses).mean())
-                            if losses else float("nan"))
+        rows = mlm_epoch_rows(rng.permutation(n), bs, steps_per_epoch, k)
+        with deterministic_algorithms():
+            losses = [run({name: torch.from_numpy(v[np.stack(rows[g:g + k])])
+                           for name, v in arrays.items()})
+                      for g in range(0, len(rows), k)]
+        epoch_losses.append(epoch_mean(losses, step_losses))
         if epoch % 5 == 0 or epoch == mlm_cfg.epochs - 1:
             log.info("MLM | epoch %d/%d | loss %.4f", epoch, mlm_cfg.epochs,
                      epoch_losses[-1])
-    return MLMRun(model.encoder, epoch_losses, steps)
+    return MLMRun(model.encoder, epoch_losses, step_losses)
 
 
 def pretrain_and_save(text_cfg: TextEncoderConfig, texts: Sequence[str],

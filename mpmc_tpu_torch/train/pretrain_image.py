@@ -16,12 +16,18 @@ with flax's momentum.  The backbone and its running statistics are written
 as the flax-tree npz that either package's ``--image-params`` splice reads
 (``models/pretrained.py``).
 
-The JAX loop runs whole groups of ``SCAN_GROUP`` steps per dispatch and
-drops the epoch's remainder; this port runs the same steps on the same
-rows (``pretrain.mlm_epoch_rows``).  The augmentation draws come from a
-``torch.Generator`` on the device, so they cannot equal the JAX draws;
-:meth:`SimCLRTrainer.step` takes both views' draws as arguments for the
-tests.
+The JAX loop runs whole groups of ``SimCLRConfig.scan_steps`` steps per
+dispatch and drops the epoch's remainder; this port runs the same steps on
+the same rows (``pretrain.mlm_epoch_rows``), each group one CUDA graph
+replay on the card (``pretrain.run_grouped``): a step gathers its rows
+(``[K, bs]`` indices) from the images already on the device, draws both
+views' augmentation from the registered device generator and runs the
+fused image kernel twice; BatchNorm updates its running statistics in
+place.  The steps run under PyTorch's deterministic algorithms
+(``pretrain.deterministic_algorithms``: cuDNN's default weight-gradient
+algorithms sum in an order that changes from run to run).  The
+augmentation draws cannot equal the JAX draws; :meth:`SimCLRTrainer.step`
+takes both views' draws as arguments for the tests.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -41,13 +47,11 @@ from mpmc_tpu_torch.image.augment import augment_draws, augment_with_draws
 from mpmc_tpu_torch.models.classifier import create_image_backbone, init_weights
 from mpmc_tpu_torch.models.convert import to_jax_variables
 from mpmc_tpu_torch.models.pretrained import FLAX_IMAGE_MARKER, flatten_params
-from mpmc_tpu_torch.train.pretrain import (AdamW, mlm_epoch_rows,
-                                           warmup_cosine_decay_schedule)
+from mpmc_tpu_torch.train.pretrain import (
+    AdamW, deterministic_algorithms, epoch_mean, mlm_epoch_rows, run_grouped,
+    warmup_cosine_decay_schedule)
 
 log = logging.getLogger(__name__)
-
-# The JAX SimCLR loop's steps per scan dispatch (``SimCLRConfig.scan_steps``).
-SCAN_GROUP = 4
 
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -63,6 +67,7 @@ class SimCLRConfig:
     proj_dim: int = 128
     max_rotate_deg: float = 15.0
     seed: int = 42
+    scan_steps: int = 4              # optimizer steps per device dispatch
 
 
 class SimCLRModel(nn.Module):
@@ -93,7 +98,8 @@ def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor,
     sim = sim.masked_fill(torch.eye(n, dtype=torch.bool, device=z.device),
                           -1e9)
     b = n // 2
-    targets = torch.cat([torch.arange(b) + b, torch.arange(b)]).to(z.device)
+    # Made on the device: a host-to-device copy cannot be captured.
+    targets = torch.arange(n, device=z.device).roll(b)
     return F.cross_entropy(sim, targets)
 
 
@@ -110,7 +116,7 @@ class SimCLRTrainer:
             dict(model.named_parameters()),
             warmup_cosine_decay_schedule(cfg.learning_rate, warmup,
                                          total_steps),
-            cfg.weight_decay)
+            cfg.weight_decay, total_steps=total_steps)
 
     def views(self, images_u8: torch.Tensor, draws1: Draws,
               draws2: Draws) -> torch.Tensor:
@@ -156,11 +162,16 @@ def ieee_f32():
 @dataclasses.dataclass
 class SimCLRRun:
     """What :func:`simclr_pretrain` trained: the backbone (with its running
-    statistics), the per-epoch mean losses and the steps run."""
+    statistics), the per-epoch mean
+    losses and every step's loss."""
 
     backbone: nn.Module
     epoch_losses: List[float]
-    steps: int
+    step_losses: List[float]
+
+    @property
+    def steps(self) -> int:
+        return len(self.step_losses)
 
 
 def simclr_pretrain(img_cfg: ImageEncoderConfig, images_u8: np.ndarray,
@@ -168,10 +179,11 @@ def simclr_pretrain(img_cfg: ImageEncoderConfig, images_u8: np.ndarray,
                     device: torch.device = torch.device("cuda")
                     ) -> SimCLRRun:
     """Pretrain the backbone of ``img_cfg`` contrastively over uint8 images
-    ``[N, H, W, 3]`` on ``device``.  The images go to the device once and
-    each step gathers its rows there; weights and augmentation draws come
-    from a generator seeded with ``cfg.seed``, the epoch permutations from
-    ``np.random.default_rng(cfg.seed)``."""
+    ``[N, H, W, 3]`` on ``device``, each group of ``min(scan_steps,
+    steps_per_epoch)`` steps one dispatch.  The images go to the device
+    once and each step gathers its rows there; weights and augmentation
+    draws come from a generator seeded with ``cfg.seed``, the epoch
+    permutations from ``np.random.default_rng(cfg.seed)``."""
     if images_u8.ndim != 4 or images_u8.shape[-1] != 3:
         raise ValueError(
             f"SimCLR takes color images [N, H, W, 3] (the augmentation's "
@@ -181,30 +193,34 @@ def simclr_pretrain(img_cfg: ImageEncoderConfig, images_u8: np.ndarray,
     bs = min(cfg.batch_size, n)
     steps_per_epoch = max(n // bs, 1)
     total_steps = steps_per_epoch * cfg.epochs
+    k = max(min(cfg.scan_steps, steps_per_epoch), 1)
     with torch.device(device):
         model = SimCLRModel(img_cfg, cfg.proj_dim)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     init_weights(model, generator)
     trainer = SimCLRTrainer(model, total_steps, cfg)
     images = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+
+    def step(b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = images.index_select(0, b["rows"])
+        draws = [augment_draws(bs, generator, cfg.max_rotate_deg)
+                 for _ in range(2)]
+        return {"loss": trainer.step(batch, *draws)}
+
+    run = run_grouped(step, k, cfg.epochs * (steps_per_epoch // k), device,
+                      generator, trainer.optimizer)
     rng = np.random.default_rng(cfg.seed)
-    epoch_losses, steps = [], 0
+    epoch_losses, step_losses = [], []
     for epoch in range(cfg.epochs):
-        losses = []
-        for rows in mlm_epoch_rows(rng.permutation(n), bs, steps_per_epoch,
-                                   SCAN_GROUP):
-            batch = images.index_select(
-                0, torch.from_numpy(rows).to(device))
-            draws = [augment_draws(bs, generator, cfg.max_rotate_deg)
-                     for _ in range(2)]
-            losses.append(trainer.step(batch, *draws))
-        steps += len(losses)
-        epoch_losses.append(float(torch.stack(losses).mean())
-                            if losses else float("nan"))
+        rows = mlm_epoch_rows(rng.permutation(n), bs, steps_per_epoch, k)
+        with deterministic_algorithms():
+            losses = [run({"rows": torch.from_numpy(np.stack(rows[g:g + k]))})
+                      for g in range(0, len(rows), k)]
+        epoch_losses.append(epoch_mean(losses, step_losses))
         if epoch % 5 == 0 or epoch == cfg.epochs - 1:
             log.info("SimCLR | epoch %d/%d | loss %.4f", epoch, cfg.epochs,
                      epoch_losses[-1])
-    return SimCLRRun(model.backbone, epoch_losses, steps)
+    return SimCLRRun(model.backbone, epoch_losses, step_losses)
 
 
 def save_image_encoder_params(backbone: nn.Module, path: str) -> None:

@@ -37,8 +37,8 @@ from mpmc_tpu_torch.models.pretrained import (PretrainedSpec,
                                               read_text_params)
 from mpmc_tpu_torch.ops.packing import pack_sequences
 from mpmc_tpu_torch.text.wordpiece import WordPieceTokenizer
-from mpmc_tpu_torch.train.pretrain import (SCAN_GROUP, AdamW, MLMConfig,
-                                           MLMModel, MLMTrainer, char_noise,
+from mpmc_tpu_torch.train.pretrain import (AdamW, MLMConfig, MLMModel,
+                                           MLMTrainer, char_noise,
                                            mlm_epoch_rows, mlm_pretrain,
                                            pretrain_and_save,
                                            warmup_cosine_decay_schedule)
@@ -241,8 +241,11 @@ def test_warmup_cosine_schedule_matches_optax(peak, warmup, total):
         warmup_cosine_decay_schedule(peak, 1, 1)
 
 
-@pytest.mark.parametrize("batches,scan_steps,steps", [(14, SCAN_GROUP, 8),
-                                                      (3, SCAN_GROUP, 3)])
+SCAN_STEPS = MLMConfig().scan_steps          # JAX's default, 8
+
+
+@pytest.mark.parametrize("batches,scan_steps,steps", [(14, SCAN_STEPS, 8),
+                                                      (3, SCAN_STEPS, 3)])
 def test_mlm_epoch_steps_match_jax(monkeypatch, batches, scan_steps, steps):
     """The JAX loop runs whole scan groups: an epoch of ``batches`` batches
     runs ``steps`` steps.  The rows of every step the JAX loop dispatched
