@@ -115,7 +115,7 @@ toolkit.  Phases, each of which raises on failure:
    as in phase 5); drive ``extract-features`` over 72 memes (12 forward
    launches a text batch
    of 32), then warm images/s and texts/s, the busy share of a profiled
-   pass and the card against the CPU on 8 memes in f32; drive ``train
+   pass and the card against the CPU on 4 memes in f32; drive ``train
    --subtask 2a --corpus-vocab subword --distill-lambda 0.5`` from a
    synthetic teacher cache (a GPU host usually has no sklearn to fit the
    teacher; the run id ends in ``_distill``); and hold the bf16 pair at
@@ -158,7 +158,17 @@ toolkit.  Phases, each of which raises on failure:
    phase 5's; then, in that world, the 2A text classifier at full width
    (12 layers, ``[16, 128]``, bf16) sequence-parallel (ring, Ulysses) and
    pipelined (S = 1, M = 4) and tensor-parallel (one shard), forward and
-   backward against the plain classifier, with their kernel launches.
+   backward against the plain classifier, with their kernel launches;
+16. BLIP-large with greedy decode as one CUDA graph, the scratch captioner
+   graphed, and K steps a dispatch for the MLM and SimCLR stages;
+17. tensor parallelism inside the fold-parallel step (JAX's ``(fold,
+   data, model)`` composition) in a world of one process over NCCL, whose
+   model group of one still runs every collective and vmap rule: in f32
+   at 4 encoder layers the composed step at 2 folds against each fold's
+   tensor-parallel step alone for 3 steps; in bf16 at full width (the 2A
+   text classifier, 12 layers) the composed step on phase 8's data, its
+   attention launches and shapes (the folds in the batch), warm ms a step
+   and the busy share.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -176,12 +186,18 @@ the forward and backward kernels against their plain versions there.
 Phase 10 also measures every BatchNorm of the attention-fusion flagships
 over ``[B, F]`` features (each modality FC's, the fusion's) card vs CPU,
 input and output, at 12 encoder layers and, for the cross-modal one, at 4
-(printed, not checked).
+(printed, not checked); at 12 layers it holds the two stages apart: each
+modality FC's BatchNorm input card vs CPU at f32 rounding of the encoders
+(``BN_INPUT_TOL``), and each BatchNorm's output on the card against the
+CPU BatchNorm applied to the card's own input, within four times the CPU
+BatchNorm's own f32 rounding.  Phase 12 prints what decides each of
+``smoke``'s eval passes (distinct probabilities, the Youden threshold,
+the predicted-positive share) and the dtypes the sigmoid sees.
 
 Prints the card's name and power limit, each phase's result, the
 ``predict_kinds``, ``train_2a``/``mlm``, ``train_2b``,
-``train_variants``, ``fusion_batchnorms``, ``phase_11``, ``phase_12``,
-``phase_13``, ``phase_14`` and ``phase_15`` JSON lines, a
+``train_variants``, ``fusion_batchnorms`` and ``phase_11`` to
+``phase_17`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -384,6 +400,30 @@ def check_backward(A, q, k, v, mask, mode, out, lse, do, got, tag) -> float:
     print(f"  attention_bwd {tag}: max|dq,dk,dv - plain| {max(errs):.3g} "
           f"(tol {atol} + {rtol}|plain|)")
     return max(errs)
+
+
+def hold_attention_pair(torch, what: str, shape, dtype,
+                        seed: int = 23) -> dict:
+    """The attention forward and backward kernels at a main path's
+    ``shape`` in padding mode, held against the plain versions on the same
+    inputs at phase 2's tolerances (``FWD_TOL``, ``BWD_TOL``), TF32 off.
+    Called before the path's counts are zeroed."""
+    from mpmc_tpu_torch.ops import attention as A
+    from mpmc_tpu_torch.train.pretrain_image import ieee_f32
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, mask = attention_inputs(torch, shape, "padding", dtype, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    tag = f"{what} padding {tuple(q.shape)} {dtype_name(dtype)}"
+    with ieee_f32():
+        out, lse = A.attention_forward_cuda(q, k, v, mask, "padding")
+        got = A.attention_backward_cuda(q, k, v, mask, "padding", out, lse,
+                                        do)
+        torch.cuda.synchronize()
+        fwd = check_forward(A, q, k, v, mask, "padding", out, lse, tag)
+        bwd = check_backward(A, q, k, v, mask, "padding", out, lse, do, got,
+                             tag)
+    return dict(shape=list(shape), dtype=dtype_name(dtype),
+                fwd_max_abs_err=fwd, bwd_max_abs_err=bwd)
 
 
 def phase_kernels(torch):
@@ -636,8 +676,7 @@ def phase_card_vs_cpu(torch, inputs):
     torch.backends.cudnn.allow_tf32 = False
     batch = {k: torch.from_numpy(v[:BATCH]) for k, v in inputs.data.items()}
     gpu = build_model(inputs.variant.model_cfg, torch.device("cuda"), seed=7)
-    cpu = build_model(inputs.variant.model_cfg, torch.device("cpu"))
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu = cpu_twin(torch, gpu, inputs.variant.model_cfg)
 
     # The random head gives logits of order 1e-4 (the softmax gate over
     # 1536 features shrinks them), so the branch outputs, of order 1, are
@@ -674,6 +713,17 @@ def phase_card_vs_cpu(torch, inputs):
               f"non-finite {name} on the card")
         check(err <= 1e-3 and err <= 1e-3 * scale,
               f"card and CPU disagree in f32 on {name}")
+
+
+def cpu_twin(torch, model, cfg, **kwargs):
+    """A CPU copy of ``model`` (a ``build_model`` classifier of ``cfg``
+    and ``kwargs``) with its weights: built on the meta device and given
+    the card's tensors, so no default initialization runs on the CPU."""
+    from mpmc_tpu_torch.models.classifier import build_model
+    twin = build_model(cfg, torch.device("meta"), **kwargs)
+    twin.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()},
+                         assign=True)
+    return twin
 
 
 def within(got, want, atol: float, rtol: float):
@@ -861,7 +911,7 @@ def phase_train(torch, work: str):
                        images=True)
     synthetic_manifest(dev_m, N_DEV, seed=2, labelled=True, first_id=10000,
                        pool=1500, images=True)
-    out_dir, ckpt = os.path.join(work, "train_out"), os.path.join(work, "ck")
+    out_dir, ckpt = os.path.join(work, "train_out"), ck_dir("ck")
     argv = ["train", "--subtask", "2c", "-tr", train_m, "-te", dev_m,
             "--image-root", work, "--fold", "0", "--epochs", "1",
             "--checkpoint-dir", ckpt, "--out-dir", out_dir,
@@ -1155,7 +1205,8 @@ def phase_warm_train(torch, argv):
 def scan_turns(torch, run, batches):
     """Warm steps of phase 5's fold: ``SCAN_K`` single steps (K = 1) and
     one replay of their group (K = ``SCAN_K``) on the same batches, in
-    turns (1, K, K, 1, twice): ms per step; then a device profile of one
+    turns (1, K, K, 1; ``SCAN_TURNS`` times): ms per step; then a device
+    profile of one
     single step and of one group (busy share, kernels by name, one
     ``cudaGraphLaunch`` a group; the single step must launch one backward
     kernel 24 times)."""
@@ -1182,7 +1233,7 @@ def scan_turns(torch, run, batches):
     one_k4()                            # eager group, then the capture
     one_k1()
     times = {1: [], SCAN_K: []}
-    for _ in range(2):
+    for _ in range(SCAN_TURNS):
         for k, fn in ((1, one_k1), (SCAN_K, one_k4), (SCAN_K, one_k4),
                       (1, one_k1)):
             torch.cuda.synchronize()
@@ -1190,7 +1241,8 @@ def scan_turns(torch, run, batches):
             fn()
             torch.cuda.synchronize()
             times[k].append((time.perf_counter() - t0) * 1e3 / SCAN_K)
-    check(run.scan_train_step.replays >= 4, "the group did not replay")
+    check(run.scan_train_step.replays >= 2 * SCAN_TURNS,
+          "the group did not replay")
     shares = {}
     # One single step at K = 1 (a profile of eager steps is costly to
     # read back), one group at K = 4.
@@ -1526,7 +1578,7 @@ def train_2a_cli(torch, work: str, name: str, flags, checkpoint=True):
             "-te", os.path.join(work, "dev.json"), "--fold", "0", "--epochs",
             "1", "--out-dir", out_dir, "--device", "cuda"] + flags
     if checkpoint:
-        argv += ["--checkpoint-dir", os.path.join(work, f"{name}_ck")]
+        argv += ["--checkpoint-dir", ck_dir(f"{name}_ck")]
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
@@ -1616,7 +1668,7 @@ def phase_train_2a(torch, work: str):
     pred_out, pred_probs = (os.path.join(work, n) for n in ("p2a.tsv",
                                                             "pp2a.tsv"))
     check(cli_main(["predict", "--subtask", "2a", "--manifest", val_m,
-                    "--checkpoint", os.path.join(work, "train_2a_ck",
+                    "--checkpoint", os.path.join(ck_dir("train_2a_ck"),
                                                  "fold_0"),
                     "--out", pred_out, "--probs-out", pred_probs, "--device",
                     "cuda"]) == 0, "predict --subtask 2a failed")
@@ -1868,9 +1920,8 @@ def phase_kinds_card_vs_cpu(torch, work: str):
         v = inputs.variant
         gpu = build_model(v.model_cfg, torch.device("cuda"), seed=7,
                           kind=v.kind, binary_head=v.binary_head)
-        cpu = build_model(v.model_cfg, torch.device("cpu"), kind=v.kind,
-                          binary_head=v.binary_head)
-        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+        cpu = cpu_twin(torch, gpu, v.model_cfg, kind=v.kind,
+                       binary_head=v.binary_head)
         batch = {k: torch.from_numpy(a[:KIND_MEMES])
                  for k, a in inputs.data.items()}
 
@@ -2040,7 +2091,7 @@ def train_2b_cli(torch, work: str, name: str, flags, layers: int):
             "-tr", os.path.join(work, "train.json"),
             "-te", os.path.join(work, "dev.json"), "--image-root", work,
             "--fold", "0", "--epochs", "1",
-            "--checkpoint-dir", os.path.join(work, f"{name}_ck"),
+            "--checkpoint-dir", ck_dir(f"{name}_ck"),
             "--out-dir", out_dir, "--device", "cuda"] + flags
     for key in build.launch_counts:
         build.launch_counts[key] = 0
@@ -2099,7 +2150,7 @@ def phase_train_2b(torch, work: str):
                                     for n in ("p2b.tsv", "pp2b.tsv"))
             check(cli_main(["predict", "--subtask", "2b", "--manifest",
                             os.path.join(work, "dev.json"), "--checkpoint",
-                            os.path.join(work, f"{name}_ck", "fold_0"),
+                            os.path.join(ck_dir(f"{name}_ck"), "fold_0"),
                             "--image-root", work, "--out", pred_out,
                             "--probs-out", pred_probs, "--device",
                             "cuda"]) == 0, "predict --subtask 2b failed")
@@ -2144,8 +2195,7 @@ def phase_backbones_card_vs_cpu(torch):
         cfg = ModelConfig(num_classes=2, image=ImageEncoderConfig(
             arch=arch, image_size=size))
         gpu = build_model(cfg, torch.device("cuda"), seed=7, kind="image")
-        cpu = build_model(cfg, torch.device("cpu"), kind="image")
-        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+        cpu = cpu_twin(torch, gpu, cfg, kind="image")
         u8 = torch.randint(0, 256, (n, size, size, 3), generator=gen,
                            dtype=torch.uint8)
 
@@ -2205,6 +2255,10 @@ FUSION_CHECKS = ["cross_modal", "self_attention"]
 # Train mode normalizes over the batch: 8 memes keep the statistics well
 # conditioned.
 FUSION_MEMES = 8
+# The modality FCs' BatchNorm inputs card vs CPU: f32 rounding of the
+# 12-layer encoders, x max(1, the largest CPU |input|) (measured: text_fc.bn
+# 3.68e-06 at max |input| 2.197, caption_text_fc.bn 3.04e-06; runs AK, AL).
+BN_INPUT_TOL = 1e-5
 SIMCLR_CARD_VS_CPU_IMAGES = 4
 
 
@@ -2239,7 +2293,7 @@ def train_variant_cli(torch, work: str, name: str, subtask: str, flags,
     from mpmc_tpu_torch.models.pretrained import read_image_params
     from mpmc_tpu_torch.ops import build
     out_dir = os.path.join(work, f"{name}_out")
-    ckpt = os.path.join(work, f"{name}_ck")
+    ckpt = ck_dir(f"{name}_ck")
     dev_m = os.path.join(work, "dev.json")
     argv = ["train", "--subtask", subtask,
             "-tr", os.path.join(work, "train.json"), "-te", dev_m,
@@ -2529,27 +2583,62 @@ def phase_fusions_card_vs_cpu(torch, work: str):
             hook.remove()
         return (seen["x"] if train else logits).float().cpu(), bns
 
-    def bn_chain(card, cpu):
+    def bn_chain(card, cpu, cpu_model):
         """Each BatchNorm's input and output difference, card vs CPU, beside
         the input's scale and its smallest batch standard deviation over
-        the memes (the division that amplifies an input difference)."""
+        the memes (the division that amplifies an input difference); and
+        the two stages apart: the input's limit (``input_tol``: f32
+        rounding of the encoders, for the modality FCs' BatchNorms, whose
+        input comes from an encoder; None for those downstream of another
+        BatchNorm), and the card's output against the CPU BatchNorm applied
+        to the card's own input (``own``) with its limit (``own_tol``:
+        four times that CPU BatchNorm's own f32 rounding, measured against
+        the same formula in f64, plus 8 units of roundoff of the output's
+        scale)."""
+        import copy
+        mods = dict(cpu_model.named_modules())
         out = {}
         for name, (x_cpu, y_cpu) in cpu.items():
             x_card, y_card = card[name]
+            bn = copy.deepcopy(mods[name]).train()
+            with torch.no_grad():
+                y32 = bn(x_card)
+                x = x_card.double()
+                mean = x.mean(0)
+                var = ((x * x).mean(0) - mean * mean).clamp(min=0.0)
+                y64 = ((x - mean) * (torch.rsqrt(var + bn.eps)
+                                     * bn.weight.double()) + bn.bias.double())
+            rounding = (y32.double() - y64).abs().max().item()
+            scale = max(1.0, y64.abs().max().item())
             out[name] = dict(
                 input=(x_card - x_cpu).abs().max().item(),
                 input_scale=x_cpu.abs().max().item(),
+                input_tol=(BN_INPUT_TOL * max(1.0, x_cpu.abs().max().item())
+                           if name.endswith("_fc.bn") else None),
                 min_batch_std=x_cpu.double().std(0, unbiased=False)
                 .min().item(),
                 output=(y_card - y_cpu).abs().max().item(),
-                output_scale=y_cpu.abs().max().item())
+                output_scale=y_cpu.abs().max().item(),
+                own=(y_card - y32).abs().max().item(),
+                f32_rounding=rounding,
+                own_tol=4 * rounding + 8 * 2.0 ** -24 * scale)
         return out
+
+    def check_stages(chain, what):
+        for name, d in chain.items():
+            if d["input_tol"] is not None:
+                check(d["input"] <= d["input_tol"],
+                      f"{what} {name}: the BatchNorm's input differs card "
+                      f"vs CPU by {d['input']:.3g}, beyond f32 rounding of "
+                      f"the encoders ({d['input_tol']:.3g})")
+            check(d["own"] <= d["own_tol"],
+                  f"{what} {name}: the card's BatchNorm differs from the "
+                  f"CPU's on the same input by {d['own']:.3g}, beyond "
+                  f"{d['own_tol']:.3g}")
 
     def pair(cfg):
         gpu = build_model(cfg, torch.device("cuda"), seed=7)
-        cpu = build_model(cfg, torch.device("cpu"))
-        cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
-        return gpu, cpu
+        return gpu, cpu_twin(torch, gpu, cfg)
 
     chains = {}
     for fusion in FUSION_CHECKS:
@@ -2568,7 +2657,8 @@ def phase_fusions_card_vs_cpu(torch, work: str):
                         f" {tuple(on_cpu.shape)} {err:.3g} (tol 1e-4 x "
                         f"{scale:.4g})")
             if train:
-                chains[f"{fusion}_12_layers"] = bn_chain(bn_card, bn_cpu)
+                chains[f"{fusion}_12_layers"] = bn_chain(bn_card, bn_cpu,
+                                                         cpu)
         print(f"  f32 MultimodalClassifier with {fusion} fusion, card vs CPU "
               f"max abs diff: {'; '.join(errs)}; 24 attention_fwd launches a "
               f"forward")
@@ -2581,6 +2671,7 @@ def phase_fusions_card_vs_cpu(torch, work: str):
                   f"{fusion}: non-finite output on the card")
             check(err <= 1e-4 * scale,
                   f"{fusion}: card and CPU disagree in f32 (train={train})")
+        check_stages(chains[f"{fusion}_12_layers"], fusion)
         del gpu, cpu
         torch.cuda.empty_cache()
     # The cross-modal flagship also with the encoders cut to 4 layers, where
@@ -2594,7 +2685,7 @@ def phase_fusions_card_vs_cpu(torch, work: str):
     gpu, cpu = pair(m4)
     chains["cross_modal_4_layers"] = bn_chain(
         run(gpu, torch.device("cuda"), True)[1],
-        run(cpu, torch.device("cpu"), True)[1])
+        run(cpu, torch.device("cpu"), True)[1], cpu)
     print_bn_chain("cross_modal_4_layers", chains["cross_modal_4_layers"])
     del gpu, cpu
     torch.cuda.empty_cache()
@@ -2605,10 +2696,15 @@ def print_bn_chain(name, chain):
     print(f"  {name}, train mode, card vs CPU in f32 on {FUSION_MEMES} "
           f"memes, each BatchNorm's max abs diff (input, then output):")
     for bn, d in chain.items():
+        tol = ("" if d["input_tol"] is None
+               else f", limit {d['input_tol']:.3g}")
         print(f"    {bn}: input {d['input']:.3g} (max |input| "
               f"{d['input_scale']:.4g}, smallest batch std "
-              f"{d['min_batch_std']:.3g}), output {d['output']:.3g} (max "
-              f"|output| {d['output_scale']:.4g})")
+              f"{d['min_batch_std']:.3g}{tol}), output {d['output']:.3g} "
+              f"(max |output| {d['output_scale']:.4g}); on the card's own "
+              f"input, card vs CPU BatchNorm {d['own']:.3g} (limit "
+              f"{d['own_tol']:.3g}; the CPU's own f32 rounding "
+              f"{d['f32_rounding']:.3g})")
 
 
 def phase_small_attention(torch, argv):
@@ -2839,8 +2935,7 @@ def phase_train_scratch_captioner(torch, work: str):
     from mpmc_tpu_torch.io.tsv import check_format
     from mpmc_tpu_torch.ops import build
     from mpmc_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
-    out_dir, ckpt = (os.path.join(work, n) for n in ("scratch_out",
-                                                     "scratch_ck"))
+    out_dir, ckpt = os.path.join(work, "scratch_out"), ck_dir("scratch_ck")
     argv = ["train", "--subtask", "2c",
             "-tr", os.path.join(work, "train.json"),
             "-te", os.path.join(work, "dev.json"), "--image-root", work,
@@ -2927,7 +3022,7 @@ def phase_resume_2a(torch, work: str):
     out_dir = os.path.join(work, "resume_2a_out")
     argv = ["train", "--subtask", "2a", "-tr", os.path.join(work, "train.json"),
             "-te", os.path.join(work, "dev.json"), "--fold", "0", "--epochs",
-            "1", "--checkpoint-dir", os.path.join(work, "resume_2a_ck"),
+            "1", "--checkpoint-dir", ck_dir("resume_2a_ck"),
             "--out-dir", out_dir, "--scan-steps", str(SCAN_K),
             "--device", "cuda"]
 
@@ -3026,7 +3121,7 @@ def phase_trainer_clip(torch, work: str):
     train_d, eval_d = split(train, CLIP_TRAIN), split(test, CLIP_EVAL)
     cfg = TrainConfig(model=mcfg, data=DataConfig(batch_size=BATCH), epochs=1,
                       eval_per_epoch=1, bf16=True,
-                      checkpoint_dir=os.path.join(work, "clip_ck"))
+                      checkpoint_dir=ck_dir("clip_ck"))
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
@@ -3559,32 +3654,89 @@ def phase_smoke(torch):
     the plain versions, then ``smoke`` on the card: exit 0, its F1 and
     launches."""
     from mpmc_tpu_torch.cli.main import main as cli_main
-    from mpmc_tpu_torch.ops import attention as A
     from mpmc_tpu_torch.ops import build
-    gen = torch.Generator(device="cuda").manual_seed(31)
-    q, k, v, mask = attention_inputs(torch, SMOKE_SHAPE, "padding",
-                                     torch.bfloat16, gen)
-    tag = f"smoke padding {SMOKE_SHAPE} bfloat16"
-    out, lse = A.attention_forward_cuda(q, k, v, mask, "padding")
-    fwd_err = check_forward(A, q, k, v, mask, "padding", out, lse, tag)
-    do = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
-    got = A.attention_backward_cuda(q, k, v, mask, "padding", out, lse, do)
-    bwd_err = check_backward(A, q, k, v, mask, "padding", out, lse, do, got,
-                             tag)
+    held = hold_attention_pair(torch, "smoke", SMOKE_SHAPE, torch.bfloat16,
+                               seed=31)
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
-    rc, text = _capture(cli_main, ["smoke"])
+    with smoke_evals(torch) as evals:
+        rc, text = _capture(cli_main, ["smoke"])
     wall = time.perf_counter() - t0
     launches = dict(build.launch_counts)
+    for e in evals["passes"]:
+        print(f"  smoke eval {e['eval']}: {e['distinct_probs']} distinct "
+              f"probabilities of {e['memes']} (logits from "
+              f"{e['logit_span'][0]:.6g} to {e['logit_span'][1]:.6g}), "
+              f"Youden threshold "
+              f"{e['threshold']:.6g} ({e['at_threshold']} memes exactly at "
+              f"it, predicted negative by prob > threshold), predicted "
+              f"positive {e['positive_share']:.3f} (labels "
+              f"{e['label_share']:.3f}), macro-F1 {e['macro_f1']:.4f} "
+              f"(all negative: {e['all_negative_f1']:.4f})")
+    check(evals["dtypes"] == {"torch.float32"},
+          f"smoke: the sigmoid of the logits sees "
+          f"{sorted(evals['dtypes'])}, not f32 alone: the JAX package's "
+          f"steps cast the model's bf16 logits to f32 first")
+    print(f"  smoke: the sigmoid of the logits (eval probabilities, focal "
+          f"loss) sees {sorted(evals['dtypes'])}: the steps cast the "
+          f"model's bf16 logits to f32 first, as the JAX package's do")
     check(rc == 0, f"smoke returned {rc}")
     f1 = json.loads(text.strip().splitlines()[-1])["smoke_best_macro_f1"]
     check(all(launches[k] > 0 for k in launches), f"smoke launches {launches}")
     print(f"  smoke on the card: rc 0, best macro-F1 {f1}, {wall:.3f} s "
           f"wall; launches {launches}")
     return dict(launches=launches, wall_s=wall, best_macro_f1=f1,
-                shape=list(SMOKE_SHAPE), fwd_max_abs_err=fwd_err,
-                bwd_max_abs_err=bwd_err)
+                shape=list(SMOKE_SHAPE),
+                fwd_max_abs_err=held["fwd_max_abs_err"],
+                bwd_max_abs_err=held["bwd_max_abs_err"], evals=evals["passes"],
+                sigmoid_dtypes=sorted(evals["dtypes"]))
+
+
+@contextlib.contextmanager
+def smoke_evals(torch):
+    """What decides each of ``smoke``'s eval passes (``train.loop.
+    run_eval``): the number of distinct probabilities, the logits' span
+    (recovered from the probabilities), the Youden threshold and the memes
+    exactly at it, the predicted-positive share (``prob > threshold``),
+    the macro-F1 and an all-negative prediction's; and the dtypes of the
+    logits that ``torch.sigmoid`` turns into probabilities and losses
+    meanwhile (its ``[B]`` inputs: one logit a meme)."""
+    import numpy as np
+    from mpmc_tpu_torch.io.scorer import macro_f1
+    from mpmc_tpu_torch.train import loop
+    seen = {"passes": [], "dtypes": set()}
+    youden, sigmoid = loop.optimal_threshold_youden, torch.sigmoid
+
+    def threshold(labels, probs):
+        thr = youden(labels, probs)
+        labels, probs = np.asarray(labels), np.asarray(probs)
+        p = probs.astype(np.float64)
+        logits = np.log(p) - np.log1p(-p)
+        seen["passes"].append(dict(
+            eval=len(seen["passes"]), memes=int(probs.size),
+            distinct_probs=int(np.unique(probs).size),
+            logit_span=[float(logits.min()), float(logits.max())],
+            threshold=float(thr),
+            at_threshold=int(np.sum(probs == thr)),
+            positive_share=float(np.mean(probs > thr)),
+            label_share=float(np.mean(labels)),
+            macro_f1=float(macro_f1(labels, (probs > thr).astype(int))),
+            all_negative_f1=float(macro_f1(labels, np.zeros_like(labels)))))
+        return thr
+
+    def recording(x, *args, **kwargs):
+        if x.dim() == 1:
+            seen["dtypes"].add(str(x.dtype))
+        return sigmoid(x, *args, **kwargs)
+
+    loop.optimal_threshold_youden = threshold
+    torch.sigmoid = recording
+    try:
+        yield seen
+    finally:
+        loop.optimal_threshold_youden = youden
+        torch.sigmoid = sigmoid
 
 
 def phase_offline_classic(torch, work: str):
@@ -3628,7 +3780,7 @@ PIPELINE_THREADS = 16
 TOKENIZER_REPEAT = 20               # phase 5's corpus repeated for texts/s
 SPARSE_VOCAB = 64000                # AraBERT's vocab rows (a shape only)
 SPARSE_FLAGS = ["--recipe", "reference", "--embedding-optimizer", "sparse"]
-OPTIMIZER_STEPS = 4                 # timed steps a turn (after 1 untimed)
+OPTIMIZER_STEPS = 2                 # timed steps a turn (after 1 untimed)
 
 
 def native_build_report(status):
@@ -3911,6 +4063,7 @@ def phase_host_runtime(torch, work: str, build_routes):
 
 
 SCAN_K = 4                          # phase 5's --scan-steps: 2 groups
+SCAN_TURNS = 1                      # phase 5's (1, K, K, 1) timed turns
 PREDICT_SCAN_K = 8                  # phase 3's 8 batches: one group
 # Folds of phase 14's fold-parallel run: 4, so that the whole script keeps
 # its time with phase 15's second process; fewer would leave each fold
@@ -4156,22 +4309,25 @@ def phase_scan_2a_sparse(torch, work: str, k1_launches, k1_watch):
 
 
 @contextlib.contextmanager
-def attention_shapes(torch):
-    """The ``[B, S, H, D]`` shapes the attention kernels were launched at
-    while active."""
+def attention_calls(torch):
+    """The ``[B, S, H, D]`` shapes of the forward and backward kernels'
+    calls while active (name -> set)."""
     from mpmc_tpu_torch.ops import attention as A
-    seen = set()
-    fwd = A.attention_forward_cuda
+    seen = {"attention_fwd": set(), "attention_bwd": set()}
+    fwd, bwd = A.attention_forward_cuda, A.attention_backward_cuda
 
-    def recording(q, *args, **kwargs):
-        seen.add(tuple(q.shape))
-        return fwd(q, *args, **kwargs)
+    def record(name, fn):
+        def call(q, *args, **kwargs):
+            seen[name].add(tuple(q.shape))
+            return fn(q, *args, **kwargs)
+        return call
 
-    A.attention_forward_cuda = recording
+    A.attention_forward_cuda = record("attention_fwd", fwd)
+    A.attention_backward_cuda = record("attention_bwd", bwd)
     try:
         yield seen
     finally:
-        A.attention_forward_cuda = fwd
+        A.attention_forward_cuda, A.attention_backward_cuda = fwd, bwd
 
 
 def phase_fold_parallel(torch, work: str):
@@ -4207,8 +4363,9 @@ def _fold_parallel_run(torch, work: str, ckpt: str):
     for key in build.launch_counts:
         build.launch_counts[key] = 0
     t0 = time.perf_counter()
-    with watch_fit(torch) as w, attention_shapes(torch) as shapes:
+    with watch_fit(torch) as w, attention_calls(torch) as calls:
         rc = cli_main(argv)
+    shapes = calls["attention_fwd"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.launch_counts)
@@ -4555,11 +4712,12 @@ def layout_encoders(torch):
     return res
 
 
-def layouts_worker(argv, final_path: str):
+def layouts_worker(argv, final_path: str, argv_2a=None):
     """Phase 15 on the one rank of a launched world: phase 5's command line
     through the data-parallel path (its launches and collectives, its
     final weights saved to ``final_path``, its train group replays timed),
-    then :func:`layout_encoders`."""
+    then :func:`layout_encoders`; then, given phase 8's ``argv_2a``, phase
+    17 in the same world (:func:`tp_fold_worker`)."""
     import torch
     from mpmc_tpu_torch.cli.main import main as cli_main
     from mpmc_tpu_torch.ops import build
@@ -4590,15 +4748,20 @@ def layouts_worker(argv, final_path: str):
     graphs_run = replays_by_kind(seen["groups"])
     del seen
     torch.cuda.empty_cache()
-    return dict(rc=rc, launches=launches, collectives=collectives,
-                replay_ms=replays, graphs=graphs_run,
-                encoders=layout_encoders(torch))
+    out = dict(rc=rc, launches=launches, collectives=collectives,
+               replay_ms=replays, graphs=graphs_run,
+               encoders=layout_encoders(torch))
+    if argv_2a is not None:
+        out["tp_fold"] = tp_fold_worker(argv_2a)
+    return out
 
 
-def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns):
+def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns,
+                  argv_2a):
     """Phase 15: phase 5's run through the data-parallel path in a world of
     one process over NCCL, against phase 5's own run; the sharded 2A
-    encoders against the plain one (:func:`layouts_worker`)."""
+    encoders against the plain one (:func:`layouts_worker`); phase 17's
+    results from the same world, under ``tp_fold``."""
     from mpmc_tpu_torch.parallel.dist_worker import launch_processes
     dp = list(argv)
     dp[dp.index("--out-dir") + 1] = os.path.join(work, "train_out_dp")
@@ -4609,7 +4772,8 @@ def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns):
     t0 = time.perf_counter()
     [line] = launch_processes(
         1, device="cuda", target="chip_smoke:layouts_worker",
-        kwargs={"argv": dp, "final_path": final}, timeout=600)
+        kwargs={"argv": dp, "final_path": final, "argv_2a": argv_2a},
+        timeout=600)
     wall = time.perf_counter() - t0
     res = line["result"]
     check(res["rc"] == 0, f"train in a world of one returned {res['rc']}")
@@ -4635,8 +4799,8 @@ def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns):
                 if k == "all_reduce"}
     warm = sorted(res["replay_ms"])
     print(f"  train --subtask 2c in a world of one over NCCL: {wall:.3f} s "
-          f"wall (process start included); launches {res['launches']} equal "
-          f"phase 5's; collectives {res['collectives']} ({per_step} a step; "
+          f"wall (process start and phase 17 included); launches "
+          f"{res['launches']} equal phase 5's; collectives {res['collectives']} ({per_step} a step; "
           f"the all-gathers are the evals'); bit for bit: {bitwise} (TSVs "
           f"{cmp['tsvs_identical']}, per-step losses {cmp['steps_identical']}"
           f", final weights max |diff| {params:.3g}, probabilities max "
@@ -4667,7 +4831,7 @@ def phase_layouts(torch, work: str, argv, launches_k4, watch_k4, turns):
         max_step_loss_diff=cmp["max_step_loss_diff"],
         replay_ms_per_step=warm, graphs=res["graphs"], wall_s=wall,
         phase5_warm_k4_ms=turns["warm_step_ms"][str(SCAN_K)]),
-        encoders=res["encoders"])
+        encoders=res["encoders"], tp_fold=res["tp_fold"])
 
 
 # Phase 16: BLIP-large with greedy decode as one CUDA graph, the scratch
@@ -4820,8 +4984,8 @@ def phase_blip(torch, work: str):
     ``precompute_captions`` in batches of 64 (launches, graph captures and
     replays, launches inside replays); a warm batch eager and graphed
     (ids bit-equal, images/s, busy share of a profiled one each); and the
-    card against the CPU in f32 at 4 vision and 2 decoder layers on 2
-    images (logits, differing greedy ids)."""
+    card against the CPU in f32 at 4 vision and 2 decoder layers on
+    ``BLIP_CPU_IMAGES`` images (logits, differing greedy ids)."""
     import dataclasses
     import numpy as np
     from mpmc_tpu_torch.image.decode import decode_batch
@@ -5206,12 +5370,306 @@ def phase_blip_and_groups(torch, work: str, argv_2a, p11: dict):
     return out
 
 
+# Phase 17: tensor parallelism inside the fold-parallel step, JAX's 3-D
+# ``(fold, data, model)`` composition (``parallel/mesh.
+# fold_data_model_layout``), in phase 15's world of one process over NCCL
+# (one process start for both): the model group has one rank, which still
+# runs every collective and every vmap rule.  (a) f32, TF32 off, dropout
+# 0, the 2A text classifier cut to CARD_VS_CPU_LAYERS layers at full
+# width: the composed step at TP_FOLDS folds against each fold's
+# ``TensorParallelTrainStep`` alone for TP_FOLD_STEPS steps, at phase 14's
+# limits for fold parallelism (loss 1e-4 and grad norm 1e-3 relative,
+# every weight within Adam's bound over the steps, at most 1 % of the
+# entries beyond 0.1 lr); (b) bf16 at full width (12 layers, 768 wide, 12
+# heads, dropout on): warm ms a step of the composed step at TP_FOLDS folds
+# on phase 8's data, the busy share of a profiled run, and the attention
+# launches inside it with their shapes, the folds in the batch on the
+# local heads.
+TP_FOLDS = 2
+TP_FOLD_STEPS = 3
+TP_FOLD_WARM = 6                    # warm bf16 steps timed, after 2 untimed
+
+
+def _tp_fold_data(argv):
+    """Phase 8's 2A config and data prepared from its command line,
+    unpacked (the fold-parallel step's rows index the resident store)."""
+    from mpmc_tpu_torch.cli.experiments import prepare_2a
+    from mpmc_tpu_torch.cli.main import build_parser, train_config
+    cfg, _ = train_config(build_parser().parse_args(argv))
+    prep = prepare_2a(dataclasses.replace(cfg, checkpoint_dir=None),
+                      tempfile.mkdtemp(dir=os.getcwd()))
+    return dataclasses.replace(prep.cfg, data=dataclasses.replace(
+        prep.cfg.data, pack_rows=0)), prep.data
+
+
+def _tp_model(torch, cfg, group, dev, k: int):
+    """Fold ``k``'s text classifier at ``cfg`` (from its fold's seed),
+    split over ``group``."""
+    from mpmc_tpu_torch.models.classifier import build_model
+    from mpmc_tpu_torch.parallel.tp import tensor_parallel
+    return tensor_parallel(
+        build_model(cfg.model, dev, seed=cfg.seed + k, kind="text"), group,
+        lambda: build_model(cfg.model, torch.device("meta"), kind="text"))
+
+
+def _composed(torch, cfg, layout, store, dev, total):
+    """The fold-parallel step over ``TP_FOLDS`` split replicas, with its
+    model group; and the replicas' initial (local) weights."""
+    from mpmc_tpu_torch.parallel.fold_parallel import (
+        build_fold_parallel_steps)
+    from mpmc_tpu_torch.train.step import GradSync
+    models = [_tp_model(torch, cfg, layout.group("model"), dev, k)
+              for k in range(TP_FOLDS)]
+    init = [{k: v.clone() for k, v in m.state_dict().items()}
+            for m in models]
+    sync = GradSync(layout, [n for n, _ in models[0].named_parameters()],
+                    models[0].sharded_params)
+    step, _ = build_fold_parallel_steps(
+        models, cfg, total, store, store, torch.Generator(device=dev),
+        sync=sync, model_group=layout.group("model"))
+    return step, init
+
+
+def _fold_batches(torch, data, steps: int, dev):
+    import numpy as np
+    rng = np.random.default_rng(17)
+    n = len(data["label"])
+    return [torch.from_numpy(np.stack([rng.permutation(n)[:BATCH]
+                                       for _ in range(TP_FOLDS)])).to(dev)
+            for _ in range(steps)]
+
+
+def _tp_fold_shape(cfg, store, layout) -> tuple:
+    """The attention shape of the composed step: the folds' rows in the
+    batch, the model group's local heads."""
+    text = cfg.model.text
+    return (TP_FOLDS * BATCH, store["text_ids"].shape[1],
+            text.num_heads // layout.size("model"),
+            text.hidden_size // text.num_heads)
+
+
+def _tp_fold_f32(torch, cfg, data, layout, dev):
+    """(a): the composed f32 step against each fold's TP step alone."""
+    from mpmc_tpu_torch.cli.experiments import resident_store
+    from mpmc_tpu_torch.models.norm import set_data_shard
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.parallel.tp import TensorParallelTrainStep
+    from mpmc_tpu_torch.train.step import GradSync, build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cut_cfg(cfg, bf16=False, dropout_zero=True,
+                   layers=CARD_VS_CPU_LAYERS)
+    store = resident_store(cfg, data, dev)
+    idx = _fold_batches(torch, data, TP_FOLD_STEPS, dev)
+    valid = torch.ones(TP_FOLDS, BATCH, device=dev)
+    held = hold_attention_pair(torch, "tp_fold f32",
+                               _tp_fold_shape(cfg, store, layout),
+                               torch.float32)
+    total = 8
+    composed, init = _composed(torch, cfg, layout, store, dev, total)
+    for counts in (build.launch_counts, build.collective_calls):
+        for key in counts:
+            counts[key] = 0
+    with attention_calls(torch) as shapes:
+        ms = [composed({"idx": i, "valid": valid}) for i in idx]
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    collectives = dict(build.collective_calls)
+    lr = composed.optimizer.schedules["head"](0)
+    worst = dict(loss=0.0, grad_norm=0.0, params=0.0)
+    off = count = 0
+    for k in range(TP_FOLDS):
+        model = _tp_model(torch, cfg, layout.group("model"), dev, k)
+        model.load_state_dict(init[k])
+        set_data_shard(model, layout.data_group)
+        sync = GradSync(layout, [n for n, _ in model.named_parameters()],
+                        model.sharded_params)
+        step = build_train_step(model.train(), cfg, total, store,
+                                torch.Generator(device=dev), sync=sync,
+                                step_cls=TensorParallelTrainStep)
+        for s, i in enumerate(idx):
+            m = step({"idx": i[k], "valid": valid[k]})
+            worst["loss"] = max(worst["loss"], abs(
+                float(ms[s]["loss"][k]) - float(m["loss"]))
+                / abs(float(m["loss"])))
+            worst["grad_norm"] = max(worst["grad_norm"], abs(
+                float(ms[s]["grad_norm"][k]) - float(m["grad_norm"]))
+                / float(m["grad_norm"]))
+        got = composed.fold_state(k)["model"]
+        for name, w in step.state_dict()["model"].items():
+            d = (got[name] - w).abs()
+            worst["params"] = max(worst["params"], d.max().item())
+            off += int((d > 0.1 * lr).sum())
+            count += d.numel()
+        del model, step
+    bound = 2 * 3.17 * lr * TP_FOLD_STEPS
+    check(worst["loss"] <= 1e-4 and worst["grad_norm"] <= 1e-3
+          and worst["params"] <= bound and off <= 0.01 * count,
+          f"the composed TP fold-parallel step and each fold's TP step "
+          f"disagree: {worst}, {off} of {count} beyond 0.1 lr")
+    want = CARD_VS_CPU_LAYERS * TP_FOLD_STEPS
+    check(launches.get("attention_fwd") == want
+          and launches.get("attention_bwd") == want,
+          f"f32 composed step launches {launches}, expected {want} of each")
+    del composed
+    torch.cuda.empty_cache()
+    return dict(worst, params_bound=bound, params_beyond_tenth_lr=off,
+                params_count=count, launches=launches, held=held,
+                collectives=collectives,
+                losses=[m["loss"].tolist() for m in ms],
+                shapes={k: sorted(v) for k, v in shapes.items()})
+
+
+def _tp_fold_bf16(torch, cfg, data, layout, dev):
+    """(b): the composed bf16 step at full width, warm and profiled."""
+    from mpmc_tpu_torch.cli.experiments import resident_store
+    from mpmc_tpu_torch.ops import build
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = dataclasses.replace(cfg, bf16=True)
+    store = resident_store(cfg, data, dev)
+    steps = 2 + TP_FOLD_WARM + 3
+    idx = _fold_batches(torch, data, steps, dev)
+    valid = torch.ones(TP_FOLDS, BATCH, device=dev)
+    want = _tp_fold_shape(cfg, store, layout)
+    held = hold_attention_pair(torch, "tp_fold bf16", want, torch.bfloat16)
+    step, _ = _composed(torch, cfg, layout, store, dev, steps)
+    for key in build.launch_counts:
+        build.launch_counts[key] = 0
+    with attention_calls(torch) as shapes:
+        first = step({"idx": idx[0], "valid": valid})
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    times, losses = [], [first["loss"]]
+    for i in idx[1:2 + TP_FOLD_WARM]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step({"idx": i, "valid": valid})["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    warm = sorted(times[1:])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in idx[2 + TP_FOLD_WARM:]:
+            losses.append(step({"idx": i, "valid": valid})["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours = {re.search(r"attention_[a-z0-9_]*kernel", e.key).group(0):
+            e.count for e in events if "attention_" in e.key}
+    losses = torch.stack(losses).tolist()
+    text = cfg.model.text
+    check(all(math.isfinite(x) for row in losses for x in row),
+          f"non-finite composed bf16 losses {losses}")
+    check(launches.get("attention_fwd") == text.num_layers
+          and launches.get("attention_bwd") == text.num_layers,
+          f"composed bf16 step launches {launches}, expected "
+          f"{text.num_layers} of each")
+    check(shapes["attention_fwd"] == shapes["attention_bwd"] == {want},
+          f"composed attention shapes {shapes}, expected {want}")
+    del step
+    torch.cuda.empty_cache()
+    return dict(layers=text.num_layers, width=text.hidden_size,
+                heads=text.num_heads, launches=launches, held=held,
+                shapes={k: sorted(v) for k, v in shapes.items()},
+                warm_step_ms=warm, warm_step_ms_median=warm[len(warm) // 2],
+                profiled_steps=3, profiled_wall_ms=wall_ms,
+                profiled_kernel_ms=busy_ms, busy_share=busy_ms / wall_ms,
+                profiled_launches=sum(e.count for e in events),
+                attention_kernels=ours, losses=losses)
+
+
+def tp_fold_worker(argv, device: str = "cuda"):
+    """Phase 17 in a launched world of one process: (a), then (b), each
+    with its seconds."""
+    import torch
+    from mpmc_tpu_torch.parallel.mesh import fold_data_model_layout
+    t0 = time.perf_counter()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device(device))
+    layout = fold_data_model_layout(1, 1, dev)
+    cfg, data = _tp_fold_data(argv)
+    out = {"prepare_s": time.perf_counter() - t0}
+    for name, part in (("f32", _tp_fold_f32), ("bf16", _tp_fold_bf16)):
+        t0 = time.perf_counter()
+        out[name] = part(torch, cfg, data, layout, dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tp_fold(res):
+    """Phase 17's results from phase 15's world (:func:`tp_fold_worker`),
+    printed with the card's name and power limit."""
+    a, b = res["f32"], res["bf16"]
+    for h in (a["held"], b["held"]):
+        print(f"  attention pair at the composed step's shape "
+              f"{tuple(h['shape'])} {h['dtype']}, padding, vs the plain "
+              f"versions: forward max |diff| {h['fwd_max_abs_err']:.3g}, "
+              f"backward {h['bwd_max_abs_err']:.3g} (phase 2's tolerances)")
+    shapes = {k: [tuple(x) for x in v] for k, v in a["shapes"].items()}
+    print(f"  f32 composed step ({TP_FOLDS} folds, {CARD_VS_CPU_LAYERS} "
+          f"layers at full width, model group of one) vs each fold's "
+          f"TensorParallelTrainStep alone, {TP_FOLD_STEPS} steps: loss max "
+          f"rel diff {a['loss']:.3g} (tol 1e-4), grad norm "
+          f"{a['grad_norm']:.3g} (tol 1e-3), parameters max |diff| "
+          f"{a['params']:.3g} (bound {a['params_bound']:.3g}), "
+          f"{a['params_beyond_tenth_lr']} of {a['params_count']} beyond 0.1 "
+          f"lr (tol 1 %); launches {a['launches']} at {shapes}; collectives "
+          f"{a['collectives']}; {a['seconds']:.1f} s")
+    shapes = {k: [tuple(x) for x in v] for k, v in b["shapes"].items()}
+    print(f"  bf16 composed step at full width ({b['layers']} layers, "
+          f"{b['width']} wide, {b['heads']} heads, {TP_FOLDS} folds of "
+          f"{BATCH}, model group of one): launches a step {b['launches']} at "
+          f"{shapes}; warm {b['warm_step_ms_median']:.3f} ms/step (median "
+          f"of {len(b['warm_step_ms'])}, "
+          f"{[round(x, 3) for x in b['warm_step_ms']]}); profiled "
+          f"{b['profiled_steps']} steps {b['profiled_wall_ms']:.3f} ms wall, "
+          f"kernels {b['profiled_kernel_ms']:.3f} ms "
+          f"({100 * b['busy_share']:.1f} % busy) in "
+          f"{b['profiled_launches']} launches, attention kernels "
+          f"{b['attention_kernels']}; losses finite; {b['seconds']:.1f} s "
+          f"(data prepared once for both in {res['prepare_s']:.1f} s)")
+    print(f"  {card_line()}")
+    return res
+
+
+# The train runs' checkpoint directories, under the work directory's
+# ``ck``, each emptied when the next phase starts (``next_phase``; no phase
+# reads another's checkpoints): a full-width run's training state is GBs
+# at each new best.
+CK_ROOT = None                          # set by main
+
+
+def ck_dir(name: str) -> str:
+    return os.path.join(CK_ROOT, name)
+
+
+def next_phase(title: str) -> None:
+    """Empty the checkpoint directories of the phase that ended, then
+    print the next phase's heading (``stamp``)."""
+    if CK_ROOT is not None:
+        for entry in os.listdir(CK_ROOT):
+            shutil.rmtree(os.path.join(CK_ROOT, entry), ignore_errors=True)
+    stamp(title)
+
+
+def dir_gib(path: str) -> float:
+    """The size of the files under ``path`` in GiB."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files) / 2 ** 30
+
+
 def stamp(title: str) -> None:
     """A phase's heading with the seconds since the script started."""
     print(f"{title} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def main() -> int:
+    global CK_ROOT
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5241,12 +5699,18 @@ def main() -> int:
                 kernel = kernel_name(line)
             if "Used" in line or "spill" in line and " 0 bytes spill" not in line:
                 print(f"  {kernel}: {line.strip()}")
+    # The SASS counts (two cuobjdump processes) run beside phase 2.
+    pool = ThreadPoolExecutor(2)
+    sass_jobs = {n: pool.submit(tensor_core_instructions, build._lib_path(n))
+                 for n in ("attention_fwd", "attention_bwd")}
+
+    next_phase("phase 2 kernels vs plain versions on the card:")
+    timings, err_main = phase_kernels(torch)
+    bwd_timings, bwd_err = phase_kernels_bwd(torch)
+    image = phase_image_kernel(torch)
     tensor_core = {}
-    with ThreadPoolExecutor(2) as pool:     # two cuobjdump processes at once
-        sass = dict(zip(("attention_fwd", "attention_bwd"), pool.map(
-            lambda n: tensor_core_instructions(build._lib_path(n)),
-            ("attention_fwd", "attention_bwd"))))
-    for name, counts in sass.items():
+    for name, job in sass_jobs.items():
+        counts = job.result()
         if counts is None:
             tensor_core[name] = None
             print(f"  {name}: tensor-core instructions not measured "
@@ -5258,29 +5722,28 @@ def main() -> int:
               f"instructions: " + ", ".join(
                   f"{k} {mma}/{n}" for k, (mma, n) in sorted(counts.items())))
         check(tensor_core[name] > 0, f"{name}: no tensor-core instruction")
-
-    stamp("phase 2 kernels vs plain versions on the card:")
-    timings, err_main = phase_kernels(torch)
-    bwd_timings, bwd_err = phase_kernels_bwd(torch)
-    image = phase_image_kernel(torch)
+    pool.shutdown()
 
     with tempfile.TemporaryDirectory() as work:
+        CK_ROOT = os.path.join(work, "ck")
+        os.mkdir(CK_ROOT)
         cwd = os.getcwd()
         os.chdir(work)                  # the caption cache goes to ./.cache
         try:
-            stamp("phase 3 full-width 2C predict:")
+            next_phase("phase 3 full-width 2C predict:")
             argv, launches = phase_predict(torch, work)
             inputs = phase_warm_eval(torch, argv)
-            stamp("phase 4 card vs CPU:")
+            next_phase("phase 4 card vs CPU:")
             phase_card_vs_cpu(torch, inputs)
-            stamp("phase 5 full-width 2C train:")
+            next_phase("phase 5 full-width 2C train:")
             with watch_fit(torch) as watch_k4:
                 train_argv, train_launches, _ = phase_train(torch, work)
             packed_shapes, warm_ms, turns = phase_warm_train(torch,
                                                              train_argv)
-            stamp("phase 6 packed train step, card vs CPU in f32:")
+            next_phase("phase 6 packed train step, card vs CPU in f32:")
             phase_train_card_vs_cpu(torch, train_argv)
-            stamp("phase 7 full-width predict for 2A, 2B and simple 2C:")
+            next_phase("phase 7 full-width predict for 2A, 2B and simple "
+                       "2C:")
             kinds = phase_other_kinds(torch, work)
             stamp("  each new model class card vs CPU, then the tools:")
             phase_kinds_card_vs_cpu(torch, work)
@@ -5289,7 +5752,7 @@ def main() -> int:
                 + [r["probs"] for r in kinds.values()],
                 [os.path.join(work, "pred.tsv")]
                 + [r["labels"] for r in kinds.values()])
-            stamp("phase 8 full-width 2A train and corpus MLM:")
+            next_phase("phase 8 full-width 2A train and corpus MLM:")
             argv_2a, launches_2a = phase_train_2a(torch, work)
             warm_2a = phase_warm_train_2a(torch, argv_2a)
             stamp("  packed 2A train step, card vs CPU in f32:")
@@ -5298,42 +5761,51 @@ def main() -> int:
             mlm = phase_mlm(torch, argv_2a)
             stamp("  the reference recipe with packed MLM, and --text-params:")
             more_2a = phase_train_2a_more(torch, work, mlm["npz"])
-            stamp("phase 9 full-width 2B train and the image zoo:")
+            next_phase("phase 9 full-width 2B train and the image zoo:")
             vit_shapes, vit_f32, image_384 = phase_vit_kernels(torch)
             stamp("  the 2B train runs:")
             train_2b = phase_train_2b(torch, work)
             stamp("  the new backbones card vs CPU:")
             phase_backbones_card_vs_cpu(torch)
-            stamp("phase 10 SimCLR pretraining and the 2C training variants:")
+            next_phase("phase 10 SimCLR pretraining and the 2C training "
+                       "variants:")
             image_simclr, image_small, simclr_vit = phase_simclr_kernels(torch)
             variants, small_2c, bn_chains = phase_train_variants(torch,
                                                                  work)
-            stamp("phase 11 the scratch captioner, crash and --resume, and "
-                  "the Trainer over clip_style_2c:")
+            next_phase("phase 11 the scratch captioner, crash and --resume, "
+                       "and the Trainer over clip_style_2c:")
             p11 = phase_captioner_resume_trainer(torch, work)
-            stamp("phase 12 converted checkpoints, extract-features, "
-                  "distillation and smoke:")
+            next_phase("phase 12 converted checkpoints, extract-features, "
+                       "distillation and smoke:")
             p12 = phase_offline_classic(torch, work)
-            stamp("phase 13 the host runtime: native decode and tokenizer, "
-                  "the image pipeline, --embedding-optimizer sparse and "
-                  "--profile-dir:")
+            next_phase("phase 13 the host runtime: native decode and "
+                       "tokenizer, the image pipeline, --embedding-optimizer "
+                       "sparse and --profile-dir:")
             with watch_fit(torch) as p13_watch:
                 p13 = phase_host_runtime(torch, work, build_routes)
-            stamp("phase 14 one dispatch for K steps (CUDA graphs) and "
-                  "fold-parallel training:")
+            next_phase("phase 14 one dispatch for K steps (CUDA graphs) and "
+                       "fold-parallel training:")
             p14 = phase_scan_and_folds(torch, work, argv, train_argv,
                                        train_launches, watch_k4, p13,
                                        p13_watch)
             p14["train_2c"].update(turns)
-            stamp("phase 15 the multi-GPU layouts at world size 1:")
+            next_phase("phase 15 the multi-GPU layouts at world size 1, and "
+                       "in its world phase 17:")
             p15 = phase_layouts(torch, work, train_argv, train_launches,
-                                watch_k4, turns)
-            stamp("phase 16 BLIP-large with one decode graph, the scratch "
-                  "captioner graphed, and K steps a dispatch for MLM and "
-                  "SimCLR:")
+                                watch_k4, turns, argv_2a)
+            next_phase("phase 17 tensor parallelism inside the "
+                       "fold-parallel step at world size 1 (run in phase "
+                       "15's world):")
+            p17 = phase_tp_fold(p15.pop("tp_fold"))
+            next_phase("phase 16 BLIP-large with one decode graph, the "
+                       "scratch captioner graphed, and K steps a dispatch "
+                       "for MLM and SimCLR:")
             p16 = phase_blip_and_groups(torch, work, argv_2a, p11)
+            stamp(f"  the work directory holds {dir_gib(work):.1f} GiB; "
+                  f"removing it:")
         finally:
             os.chdir(cwd)
+    stamp("  removed:")
 
     text, bwd = timings["text"], bwd_timings["text"]
     paths_11 = {k: v["launches"] for k, v in p11.items() if k != "shapes"}
@@ -5351,6 +5823,7 @@ def main() -> int:
                  *((f"mlm_{k}", v) for k, v in p16["mlm_groups"].items()),
                  *((f"simclr_{k}", v)
                    for k, v in p16["simclr_groups"].items())]
+    p17_paths = [("tp_fold_f32", p17["f32"]), ("tp_fold_bf16", p17["bf16"])]
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -5383,10 +5856,13 @@ def main() -> int:
                 "attention_fwd"],
             **{k: v["launches"]["attention_fwd"] for k, v in p14_paths},
             **{k: v["launches"]["attention_fwd"] for k, v in p15_paths},
-            **{k: v["launches"]["attention_fwd"] for k, v in p16_paths}},
+            **{k: v["launches"]["attention_fwd"] for k, v in p16_paths},
+            **{k: v["launches"]["attention_fwd"] for k, v in p17_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "attention_fwd", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
+        "tp_fold_shapes": {k: v["shapes"]["attention_fwd"]
+                           for k, v in p17_paths},
         "captioner_shapes": p11["shapes"],
         "blip_cross_shape": p16["blip"]["cross"],
         "extract_features_shape": p12["extract_shape"],
@@ -5440,10 +5916,13 @@ def main() -> int:
                 "attention_bwd"],
             **{k: v["launches"]["attention_bwd"] for k, v in p14_paths},
             **{k: v["launches"]["attention_bwd"] for k, v in p15_paths},
-            **{k: v["launches"]["attention_bwd"] for k, v in p16_paths}},
+            **{k: v["launches"]["attention_bwd"] for k, v in p16_paths},
+            **{k: v["launches"]["attention_bwd"] for k, v in p17_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "attention_bwd", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
+        "tp_fold_shapes": {k: v["shapes"]["attention_bwd"]
+                           for k, v in p17_paths},
         "packed_train_shapes": packed_shapes,
         "train_2a_shape": warm_2a["shape"], "mlm_shape": mlm["shape"],
         "mlm_pack_shape": more_2a["mlm_pack"]["shape"],
@@ -5473,7 +5952,9 @@ def main() -> int:
             **{k: v["launches"]["image_normalize"] for k, v in p14_paths},
             **{k: v["launches"].get("image_normalize", 0)
                for k, v in p15_paths},
-            **{k: v["launches"]["image_normalize"] for k, v in p16_paths}},
+            **{k: v["launches"]["image_normalize"] for k, v in p16_paths},
+            **{k: v["launches"].get("image_normalize", 0)
+               for k, v in p17_paths}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "image_normalize", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shape": [FOLDS * BATCH, 224, 224, 3]}]
@@ -5504,6 +5985,7 @@ def main() -> int:
     print(json.dumps({"phase_14": p14}))
     print(json.dumps({"phase_15": p15}))
     print(json.dumps({"phase_16": p16}))
+    print(json.dumps({"phase_17": p17}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

@@ -317,6 +317,12 @@ class TrainConfig:
     seed: int = 42
     eval_per_epoch: int = 2           # mid-epoch evals per epoch
     bf16: bool = True
+    # The cross-entropy weighs each row by its class's weight and divides
+    # by the batch's summed weight (torch's weighted mean), given the
+    # weights (``io.manifest.class_weights``); the focal loss ignores
+    # them.  The reference computes "balanced" weights and never uses
+    # them.
+    use_class_weights: bool = False
     run_id: str = "mpmc_tpu"
     team_name: str = "kevinmathew"
     # TSV emission: None labels at the eval's Youden threshold (2C), 0.5

@@ -70,3 +70,14 @@ def read_manifest(path: str, is_test: bool = False) -> Manifest:
         img_paths=img_paths,
         labels=np.asarray(labels, dtype=np.int32) if labelled else None,
     )
+
+
+def class_weights(labels: np.ndarray) -> np.ndarray:
+    """'balanced' class weights, ``n / (n_classes * bincount)`` over the
+    two classes (an empty class counts as one), f32: what
+    ``TrainConfig.use_class_weights`` weighs the cross-entropy's rows by.
+    The reference computes these and never uses them."""
+    labels = np.asarray(labels)
+    counts = np.bincount(labels, minlength=2).astype(np.float64)
+    counts = np.maximum(counts, 1.0)
+    return (labels.shape[0] / (len(counts) * counts)).astype(np.float32)

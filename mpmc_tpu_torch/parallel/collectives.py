@@ -18,6 +18,12 @@ Megatron's pair for replicated losses is :func:`copy_to_group` (identity
 forward, all-reduce backward; "f") and :func:`reduce_from_group`
 (all-reduce forward, identity backward; "g").
 
+:func:`all_reduce`, :func:`copy_to_group`, :func:`reduce_from_group` and
+:func:`all_gather` have a ``vmap`` rule for the fold-parallel step
+(``torch.func.vmap`` over stacked folds): the collective runs once on the
+unwrapped tensor, which holds every fold, and the fold dim rides along
+(the all-gather's ``dim`` moves past it).
+
 Every call counts itself in ``ops.build.collective_calls``.  A group of one
 process still makes its call, so a world of one runs the same program.
 """
@@ -79,37 +85,58 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, group):
         # Elementwise over the ranks: the vmapped dim rides along (the
-        # fold-parallel step's BatchNorm statistics, one row a fold).
+        # fold-parallel step's BatchNorm statistics, one row a fold; the
+        # tensor-parallel partial sums of every fold at once).  The rules
+        # below are the same: a collective runs once on the unwrapped
+        # tensor, which holds every fold.
         return _AllReduce.apply(x, group), in_dims[0]
 
 
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         return _reduce(g, ctx.group), None
 
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _CopyToGroup.apply(x, group), in_dims[0]
+
 
 class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(x, group):
         return _reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _ReduceFromGroup.apply(x, group), in_dims[0]
+
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(x, group, dim):
         moved = x.movedim(dim, 0)
         return gather_rows(moved, group).movedim(0, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.dim = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, g):
@@ -119,6 +146,17 @@ class _AllGather(torch.autograd.Function):
                                *moved.shape[1:]))
         dist.reduce_scatter_tensor(out, moved, group=ctx.group)
         return out.movedim(0, ctx.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, dim):
+        # The vmapped dim goes in front; the gathered dim is then one
+        # further right (counted from the left; a negative dim is the
+        # same dim either way).
+        bdim = in_dims[0]
+        if bdim is None:
+            return _AllGather.apply(x, group, dim), None
+        x = x.movedim(bdim, 0)
+        return _AllGather.apply(x, group, dim + 1 if dim >= 0 else dim), 0
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:

@@ -29,6 +29,20 @@ draw the numbers of every fold and keep its own
 with all folds on one device, and every group's generator advances
 alike.
 
+Under tensor parallelism inside the step (JAX's 3-D ``(fold, data,
+model)`` composition, ``parallel/mesh.fold_data_model_layout``; the
+command line refuses it, as JAX's does) each replica comes split over the
+``model`` group (``model_group``, ``parallel/tp.tensor_parallel``) and is
+stacked, so every split leaf is ``[F, ...]`` with the fold dim in front
+of the split one, and the skeleton is split alike: the Megatron
+collectives run once for all folds under ``vmap`` (their vmap rules), the
+vocabulary-parallel lookup masks and all-reduces every fold at once, and
+the attention kernels see the local heads.  The ``GradSync`` names the
+split leaves: each fold's norm sums their squares over ``model`` per fold,
+factored RMS takes its means across the split per fold, and the state is
+gathered whole (``state_dict``, ``fold_state``: the plain model's, which
+``predict`` reads).
+
 Batches are device-resident, as the JAX package's gather steps: a train
 batch carries ``idx [F, B]`` rows of the resident store and ``valid [F,
 B]``; an eval batch ``idx [F, B]`` rows of the eval store, each fold its
@@ -51,8 +65,9 @@ from mpmc_tpu_torch.models.classifier import build_model
 from mpmc_tpu_torch.models.norm import (set_data_shard, set_dropout_generator,
                                        set_fold_slice)
 from mpmc_tpu_torch.ops.losses import sigmoid_focal_loss, softmax_cross_entropy
+from mpmc_tpu_torch.parallel.tp import gather_state, shard_model
 from mpmc_tpu_torch.train.step import (Augment, Optimizer, _compute_dtype,
-                                       loss_from_outputs)
+                                       loss_from_outputs, row_weights)
 
 
 def stack_states(states: Sequence[Dict]) -> Dict:
@@ -108,12 +123,14 @@ class _Stacked:
     """The stacked weights of F replicas of one model and a storage-free
     skeleton to run them through."""
 
-    def __init__(self, models: Sequence[nn.Module]):
+    def __init__(self, models: Sequence[nn.Module], group=None):
         model = models[0]
         self.inputs = model.inputs
         self.skeleton = build_model(
             model.cfg, torch.device("meta"), kind=model.kind,
             binary_head=getattr(model, "binary_head", None) is not None)
+        if group is not None:
+            shard_model(self.skeleton, group)
         self.state_keys = list(model.state_dict())
         params = [dict(m.named_parameters()) for m in models]
         buffers = [dict(m.named_buffers()) for m in models]
@@ -159,14 +176,32 @@ class FoldParallelTrainStep:
                  generator: torch.Generator,
                  augment: Optional[Augment] = None,
                  embed_support: Optional[int] = None, sync=None,
-                 fold_slice: Optional[Tuple[int, int]] = None):
+                 fold_slice: Optional[Tuple[int, int]] = None,
+                 model_group=None,
+                 class_weights: Optional[torch.Tensor] = None):
         for m in models:
             for p in m.parameters():
                 if p.dtype != torch.float32:
                     raise ValueError("training needs f32 master parameters")
         self.cfg, self.store, self.generator = cfg, store, generator
         self.augment = augment or train_augment
-        self.model = _Stacked(models)
+        self.class_weights = (None if class_weights is None else
+                              torch.as_tensor(
+                                  class_weights, dtype=torch.float32,
+                                  device=next(models[0].parameters()).device))
+        self.model_group = model_group
+        shards = {}
+        if model_group is not None:
+            # The fold dim goes in front of each split dim.
+            shards = {n: (d + 1, g) for n, (d, g) in
+                      getattr(models[0], "tp_shards", {}).items()}
+            if sync is None or set(sync.sharded) != set(shards):
+                raise ValueError(
+                    "tensor parallelism inside the fold-parallel step takes "
+                    "replicas split over the model group "
+                    "(parallel/tp.tensor_parallel) and a GradSync that "
+                    f"names their split parameters: {sorted(shards)}")
+        self.model = _Stacked(models, model_group)
         self.folds = self.model.folds
         self.sync = sync
         self.fold_slice = fold_slice or (0, self.folds)
@@ -178,7 +213,8 @@ class FoldParallelTrainStep:
         for p in self.model.params.values():
             p.requires_grad_()
         self.optimizer = Optimizer(cfg, total_steps, self.model.params,
-                                   embed_support, folds=self.folds)
+                                   embed_support, folds=self.folds,
+                                   shards=shards)
         self.compute = None
         if self.dtype != torch.float32:
             self.compute = {n: p.detach().to(self.dtype).requires_grad_()
@@ -207,6 +243,8 @@ class FoldParallelTrainStep:
                 augment = lambda x: augment_with_draws(  # noqa: E731
                     x, *draws)
             b["image"] = _image_flat(augment, b["image"]).to(self.dtype)
+        cw = self.class_weights
+        b["valid"] = row_weights(b["label"], b["valid"], self.cfg, cw)
         if sync is not None:
             b["weight"] = sync.valid_weight(b["valid"])
         cfg = self.cfg
@@ -227,19 +265,19 @@ class FoldParallelTrainStep:
             torch._foreach_copy_(self.grads, grads)   # bf16 -> f32, exact
             grads = self.grads
         losses = losses.detach()
-        if sync is not None:
+        if sync is None:
+            grad_norm = Optimizer.global_norm(grads, self.folds)
+        else:
             losses = sync.reduce(dict(zip(params, grads)), losses)
-        grad_norm = Optimizer.global_norm(grads, self.folds)
+            grad_norm = sync.global_norm(dict(zip(params, grads)),
+                                         self.folds)
         self.optimizer.step(dict(zip(params, grads)), grad_norm)
         if self.compute is not None:
             with torch.no_grad():
                 torch._foreach_copy_(leaves, list(params.values()))
         return {"loss": losses, "grad_norm": grad_norm}
 
-    def state_dict(self) -> Dict:
-        """The stacked training state: weights and BatchNorm statistics,
-        the optimizer's slots and count, the generator
-        (:func:`unstack_state` gives one fold's)."""
+    def _local_state(self) -> Dict:
         return {"model": {k: v.detach() for k, v in
                           {**self.model.params,
                            **self.model.buffers}.items()
@@ -247,10 +285,25 @@ class FoldParallelTrainStep:
                 "optimizer": self.optimizer.state_dict(),
                 "generator": self.generator.get_state()}
 
+    def state_dict(self) -> Dict:
+        """The stacked training state: weights and BatchNorm statistics,
+        the optimizer's slots and count, the generator
+        (:func:`unstack_state` gives one fold's); under tensor
+        parallelism gathered whole (a collective of the model group)."""
+        sd = self._local_state()
+        if self.model_group is None:
+            return sd
+        return gather_state(sd, self.optimizer, self.model_group)
+
     def fold_state(self, fold: int) -> Dict:
         """Fold ``fold``'s training state, as a single-fold ``TrainStep``
-        would save it."""
-        return unstack_state(self.state_dict(), fold)
+        would save it; under tensor parallelism the plain model's, whose
+        ``model`` is what ``predict`` reads (each split leaf gathered for
+        this fold alone)."""
+        sd = unstack_state(self._local_state(), fold)
+        if self.model_group is None:
+            return sd
+        return gather_state(sd, self.optimizer, self.model_group, lead=1)
 
 
 class FoldParallelEvalStep:
@@ -302,14 +355,21 @@ def build_fold_parallel_steps(models: List[nn.Module], cfg: TrainConfig,
                               grayscale: bool = False,
                               embed_support: Optional[int] = None,
                               sync=None,
-                              fold_slice: Optional[Tuple[int, int]] = None):
+                              fold_slice: Optional[Tuple[int, int]] = None,
+                              model_group=None,
+                              class_weights: Optional[torch.Tensor] = None):
     """The fold-parallel train and eval steps over the replicas
     ``models`` (one per fold, f32), for ``total_steps`` optimizer steps;
     with ``sync`` the eval step takes the global ``[F, B]`` batch and
     gathers every rank's rows; ``fold_slice`` ``(lo, total)``: the
-    replicas are folds ``lo ..`` of ``total``."""
+    replicas are folds ``lo ..`` of ``total``; ``model_group``: the
+    replicas are split over it (tensor parallelism,
+    ``parallel/tp.tensor_parallel``);
+    ``class_weights``: the cross-entropy's per-class weights
+    (``cfg.use_class_weights``)."""
     train = FoldParallelTrainStep(models, cfg, total_steps, store, generator,
-                                  augment, embed_support, sync, fold_slice)
+                                  augment, embed_support, sync, fold_slice,
+                                  model_group, class_weights)
     evaluate = FoldParallelEvalStep(train, eval_store, grayscale)
     if sync is not None:
         evaluate = sync.eval_step(evaluate, dim=1)

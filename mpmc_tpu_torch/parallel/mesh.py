@@ -155,6 +155,29 @@ class Layout:
         return inner[0] if inner else None
 
 
+def fold_data_model_layout(fold: int, model: int,
+                           device: torch.device) -> Layout:
+    """The rank's :class:`Layout` in JAX's 3-D ``(fold, data, model)``
+    composition (``tests/test_tensor_parallel.py``'s
+    ``test_tp_composes_with_fold_parallel_3d_mesh``): fold groups, each
+    fold's batch over ``data`` (what ``fold`` x ``model`` leaves of the
+    world) and each fold's transformer weights over ``model``.  Reached
+    through the library (``parallel/fold_parallel.py``, ``model_group=``)
+    only: :func:`make_mesh` refuses fold parallelism with model shards,
+    as JAX's ``make_mesh`` does."""
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = MeshConfig(fold_parallel=True)
+    world = dist.get_world_size()
+    if world % (fold * model):
+        raise ValueError(f"a world of {world} processes does not split into "
+                         f"fold {fold} x model {model}")
+    names = (cfg.fold_axis, cfg.data_axis, cfg.model_axis)
+    mesh = init_device_mesh(torch.device(device).type,
+                            (fold, world // (fold * model), model),
+                            mesh_dim_names=names)
+    return Layout(cfg, mesh)
+
+
 def make_layout(cfg: MeshConfig, device: torch.device) -> Optional[Layout]:
     """The rank's :class:`Layout` in a launched world, None outside one
     when ``cfg`` needs a single process (raises when it needs more)."""

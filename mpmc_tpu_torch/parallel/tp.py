@@ -36,14 +36,21 @@ norm counts each split weight's squares once, summed over the group
 (``train.step.Optimizer``).  The attention kernels run unchanged on the
 local heads (JAX forces its XLA attention under TP only because its
 partitioner cannot split a custom call).  Checkpoints gather the slices:
-``model.pt`` and the training state are the plain model's.
+``model.pt`` and the training state are the plain model's
+(:func:`gather_state`).
+
+Inside the fold-parallel step (``parallel/fold_parallel.py``,
+``model_group``) each fold's replica is split by these rules and the
+slices are stacked behind a fold dim; the collectives' vmap rules carry
+the fold dim, so :class:`VocabParallelEmbedding` and the row-parallel
+layers run every fold at once.
 """
 
 from __future__ import annotations
 
 import logging
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,7 +92,9 @@ def spec_for_name(name: str) -> Optional[int]:
 class VocabParallelEmbedding(nn.Module):
     """Rows ``[start, start + n)`` of a word-embedding table: ids outside
     look up zeros, and the all-reduce over ``group`` gives every rank the
-    whole lookup."""
+    whole lookup.  Under the fold-parallel step's ``vmap`` the weight is
+    one fold's rows of the stacked table; the masked lookup runs per fold
+    and one all-reduce carries every fold."""
 
     def __init__(self, weight: torch.Tensor, start: int, group):
         super().__init__()
@@ -206,58 +215,75 @@ def full_state_dict(model: nn.Module, group) -> Dict[str, torch.Tensor]:
     return gather_full(model.state_dict(), dims, group)
 
 
+def _state_dims(optimizer, lead: int = 0
+                ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The split dim of each split parameter (``{name: dim}``) and of each
+    of its optimizer slots (``{"name/slot": dim}``: split where the
+    parameter is, the factored statistics where they keep the split dim),
+    counted in tensors with ``lead`` fewer leading dims than the
+    optimizer's (1: one fold of a fold-stacked state)."""
+    params, slots = {}, {}
+    for name, (dim, _) in optimizer.shards.items():
+        params[name] = dim - lead
+        st = optimizer.state[name]
+        if "v_row" in st:
+            d1, d0 = optimizer._fold_factored_dims(
+                optimizer.params[name].shape, name)
+            for k, d in (("v_row", d0), ("v_col", d1)):
+                if dim != d:
+                    slots[f"{name}/{k}"] = dim - (dim > d) - lead
+        else:
+            slots.update({f"{name}/{k}": dim - lead for k in st
+                          if k != "mu_f32"})
+    return params, slots
+
+
+def _map_state(sd: Dict, optimizer, group, lead: int, fn) -> Dict:
+    """``sd`` (a train step's ``state_dict``: the model, the optimizer's
+    slots and count, the generator) with ``fn(tensors, dims, group)``
+    applied to the model's tensors and to the optimizer's slots."""
+    dims, slot_dims = _state_dims(optimizer, lead)
+    flat = {f"{n}/{k}": v for n, st in sd["optimizer"]["state"].items()
+            for k, v in st.items()}
+    slots: Dict[str, Dict] = {}
+    for key, v in fn(flat, slot_dims, group).items():
+        n, k = key.rsplit("/", 1)
+        slots.setdefault(n, {})[k] = v
+    return {"model": fn(sd["model"], dims, group),
+            "optimizer": {"count": sd["optimizer"]["count"],
+                          "state": slots},
+            "generator": sd["generator"]}
+
+
+def gather_state(sd: Dict, optimizer, group, lead: int = 0) -> Dict:
+    """The plain model's whole training state from this rank's ``sd`` of
+    ``optimizer``'s split parameters (a collective of ``group``).
+    ``lead``: as :func:`_state_dims`."""
+    return _map_state(sd, optimizer, group, lead, gather_full)
+
+
+def slice_state(sd: Dict, optimizer, group) -> Dict:
+    """This rank's slices of a whole training state (the inverse of
+    :func:`gather_state`)."""
+    return _map_state(sd, optimizer, group, 0, local_slice)
+
+
 class TensorParallelTrainStep(TrainStep):
     """The train step of a tensor-parallel model; its state is the plain
-    model's whole training state, gathered from the slices (optimizer
-    slots too: each one split where its parameter is, the factored
-    statistics where they keep the split dim), and a restore takes this
-    rank's slices of it."""
-
-    def _slot_dims(self) -> Dict[str, Dict[str, int]]:
-        opt = self.optimizer
-        out = {}
-        for name, (dim, _) in opt.shards.items():
-            slots = opt.state[name]
-            if "v_row" in slots:
-                d1, d0 = opt._fold_factored_dims(opt.params[name].shape, name)
-                out[name] = {k: dim - (dim > d) for k, d in (("v_row", d0),
-                                                            ("v_col", d1))
-                             if dim != d}
-            else:
-                out[name] = {k: dim for k in slots if k != "mu_f32"}
-        return out
+    model's whole training state, gathered from the slices
+    (:func:`gather_state`), and a restore takes this rank's slices of
+    it."""
 
     def _group(self):
         return next(iter(self.optimizer.shards.values()))[1]
 
     def state_dict(self) -> Dict:
-        sd = super().state_dict()
-        group = self._group()
-        dims = {n: d for n, (d, _) in self.optimizer.shards.items()}
-        slots = sd["optimizer"]["state"]
-        flat = {f"{n}/{k}": v for n, st in slots.items()
-                for k, v in st.items()}
-        slot_dims = {f"{n}/{k}": d for n, ds in self._slot_dims().items()
-                     for k, d in ds.items()}
-        flat = gather_full(flat, slot_dims, group)
-        full_slots: Dict[str, Dict] = {}
-        for key, v in flat.items():
-            n, k = key.rsplit("/", 1)
-            full_slots.setdefault(n, {})[k] = v
-        return {"model": gather_full(sd["model"], dims, group),
-                "optimizer": {"count": sd["optimizer"]["count"],
-                              "state": full_slots},
-                "generator": sd["generator"]}
+        return gather_state(super().state_dict(), self.optimizer,
+                            self._group())
 
     def load_state_dict(self, sd: Dict) -> None:
-        group = self._group()
-        dims = {n: d for n, (d, _) in self.optimizer.shards.items()}
-        slots = {n: local_slice(st, self._slot_dims().get(n, {}), group)
-                 for n, st in sd["optimizer"]["state"].items()}
-        super().load_state_dict({
-            "model": local_slice(sd["model"], dims, group),
-            "optimizer": {"count": sd["optimizer"]["count"], "state": slots},
-            "generator": sd["generator"]})
+        super().load_state_dict(slice_state(sd, self.optimizer,
+                                            self._group()))
 
 
 def tensor_parallel(model: nn.Module, group, rebuild) -> nn.Module:

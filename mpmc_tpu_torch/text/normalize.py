@@ -1,8 +1,18 @@
-"""Arabic text normalization (copy of the Arabic half of
-``mpmc_tpu/text/normalize.py``): demojize, strip hashtags and URLs,
-normalize hamza and lam-alef, strip tashkeel and diacritics, drop
-non-Arabic tokens.  Dependency-free; the BERTweet English normalizer is not
-on the serving path and is not copied.
+"""Text normalization (copy of ``mpmc_tpu/text/normalize.py``), two
+pipelines:
+
+* ``normalize_tweet``: BERTweet-style English tweet normalization
+  (reference ``baselines/TweetNormalizer.py:11-54``): @user -> ``@USER``,
+  http/www -> ``HTTPURL``, single-char emoji demojized, ``’``/``…``
+  re-spelled, contraction re-spacing, a.m./p.m. fix-ups.
+* ``preprocess_arabic_tweet``: the competitor's Arabic cleanup
+  (reference ``example_scripts/textmodel_example_task2A.py:101-123``):
+  demojize, strip hashtags and URLs, normalize hamza and lam-alef, strip
+  tashkeel and diacritics, drop non-Arabic tokens.
+
+Dependency-free: the Unicode transforms are the tables below.  When
+``nltk`` is importable its ``TweetTokenizer`` tokenizes tweets (BERTweet's
+tokenization), else a regex does.
 """
 
 from __future__ import annotations
@@ -10,6 +20,7 @@ from __future__ import annotations
 import re
 import unicodedata
 from functools import lru_cache
+from typing import List
 
 # --------------------------------------------------------------------------
 # Emoji handling
@@ -26,9 +37,12 @@ _EMOJI_RANGES = (
 )
 
 
+_EMOJI_RE = re.compile(
+    "[" + "".join(f"{chr(lo)}-{chr(hi)}" for lo, hi in _EMOJI_RANGES) + "]")
+
+
 def _is_emoji_char(ch: str) -> bool:
-    cp = ord(ch)
-    return any(lo <= cp <= hi for lo, hi in _EMOJI_RANGES)
+    return _EMOJI_RE.match(ch) is not None
 
 
 @lru_cache(maxsize=4096)
@@ -51,9 +65,57 @@ def demojize(text: str) -> str:
     2A pipeline because ``remove_non_arabic_words`` drops the Latin-script
     emoji tokens either way.
     """
-    if not any(_is_emoji_char(c) for c in text):
-        return text
-    return "".join(_demojize_char(c) if _is_emoji_char(c) else c for c in text)
+    return _EMOJI_RE.sub(lambda m: _demojize_char(m.group()), text)
+
+
+# --------------------------------------------------------------------------
+# BERTweet-style tweet normalization (C2)
+# --------------------------------------------------------------------------
+
+_FALLBACK_TOKEN_RE = re.compile(
+    r"https?://\S+|www\.\S+|@\w+|#\w+|[\w'؀-ۿ]+|[^\s\w]", re.UNICODE)
+
+
+def _tweet_tokenize(text: str) -> List[str]:
+    try:
+        from nltk.tokenize import TweetTokenizer
+        return TweetTokenizer().tokenize(text)
+    except Exception:
+        return _FALLBACK_TOKEN_RE.findall(text)
+
+
+def _normalize_token(token: str) -> str:
+    lower = token.lower()
+    if token.startswith("@"):
+        return "@USER"
+    if lower.startswith("http") or lower.startswith("www"):
+        return "HTTPURL"
+    if len(token) == 1:
+        return _demojize_char(token) if _is_emoji_char(token) else (
+            "'" if token == "’" else "..." if token == "…" else token)
+    return token
+
+
+def normalize_tweet(tweet: str) -> str:
+    """BERTweet tweet normalization (reference TweetNormalizer.py:28-54)."""
+    tokens = _tweet_tokenize(tweet.replace("’", "'").replace("…", "..."))
+    norm = " ".join(_normalize_token(t) for t in tokens)
+    norm = (norm.replace("cannot ", "can not ")
+                .replace("n't ", " n't ")
+                .replace("n 't ", " n't ")
+                .replace("ca n't", "can't")
+                .replace("ai n't", "ain't"))
+    norm = (norm.replace("'m ", " 'm ")
+                .replace("'re ", " 're ")
+                .replace("'s ", " 's ")
+                .replace("'ll ", " 'll ")
+                .replace("'d ", " 'd ")
+                .replace("'ve ", " 've "))
+    norm = (norm.replace(" p . m .", "  p.m.")
+                .replace(" p . m ", " p.m ")
+                .replace(" a . m .", " a.m.")
+                .replace(" a . m ", " a.m "))
+    return " ".join(norm.split())
 
 
 # --------------------------------------------------------------------------
@@ -97,9 +159,12 @@ def strip_diacritics(text: str) -> str:
     return _DIACRITICS_RE.sub("", text)
 
 
+_ARABIC_WORD_RE = re.compile(
+    "[" + "".join(f"{chr(lo)}-{chr(hi)}" for lo, hi in _ARABIC_RANGES) + "]+")
+
+
 def _is_arabic_word(word: str) -> bool:
-    return bool(word) and all(
-        any(lo <= ord(c) <= hi for lo, hi in _ARABIC_RANGES) for c in word)
+    return _ARABIC_WORD_RE.fullmatch(word) is not None
 
 
 def remove_non_arabic_words(text: str) -> str:

@@ -1,10 +1,10 @@
 """Train and eval steps (port of ``mpmc_tpu/train/step.py``): the eval step
 of every model kind; the train step of the 2A text model and the 2C model,
 packed or not, with the bf16 policy, the valid-weighted focal (one logit)
-or cross-entropy (two) loss, the global-norm clip, grouped Adam with the
-fast recipe's bf16 first moment and factored-RMS word embeddings (or lazy
-row-Adam ones, ``train/sparse_opt.py``), and the linear-warmup or constant
-schedule.
+or cross-entropy (two; class-weighted under ``use_class_weights``) loss,
+the global-norm clip, grouped Adam with the fast recipe's bf16 first
+moment and factored-RMS word embeddings (or lazy row-Adam ones,
+``train/sparse_opt.py``), and the linear-warmup or constant schedule.
 
 Precision policy under ``bf16``: the master parameters stay f32; every step
 runs the model on bf16 copies (``torch.func.functional_call``), so the
@@ -563,13 +563,25 @@ class GradSync:
                 loss = views[-1].view(loss.shape)
         return loss
 
-    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def global_norm(self, grads: Dict[str, torch.Tensor],
+                    folds: Optional[int] = None) -> torch.Tensor:
+        """The global norm of the summed gradients: 0-dim, or ``[F]`` for
+        gradients stacked over ``folds`` (each fold's own, the split
+        weights' squares summed over the inner group per fold)."""
         if not self.sharded:
-            return global_norm(list(grads.values()))
+            return Optimizer.global_norm(list(grads.values()), folds)
         from mpmc_tpu_torch.parallel.collectives import all_reduce_
-        rep = sum_of_squares([grads[n] for n in self.buckets[0][0]])
-        own = sum_of_squares([grads[n] for n in self.sharded]).reshape(1)
-        return torch.sqrt(rep + all_reduce_(own, self.norm_group).view(()))
+        rep = [grads[n] for n in self.buckets[0][0]]
+        own = [grads[n] for n in self.sharded]
+        if not folds:
+            squares = (sum_of_squares(rep),
+                       sum_of_squares(own).reshape(1))
+        else:
+            squares = tuple(torch.stack([sum_of_squares([g[f] for g in gs])
+                                         for f in range(folds)])
+                            for gs in (rep, own))
+        own_sum = all_reduce_(squares[1], self.norm_group)
+        return torch.sqrt(squares[0] + own_sum.view(squares[0].shape))
 
     def eval_step(self, step: EvalStep, dim: int = 0) -> EvalStep:
         """``step`` on this rank's rows (along ``dim``: 1 for the
@@ -594,13 +606,28 @@ class GradSync:
 # Train step
 # ---------------------------------------------------------------------------
 
+def row_weights(labels: torch.Tensor, valid: torch.Tensor, cfg: TrainConfig,
+                class_weights: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Each row's weight in the loss: ``valid``, times its class's weight
+    under ``cfg.use_class_weights`` with the cross-entropy (``cw[label] *
+    valid``, as the JAX step weighs them; the focal loss ignores class
+    weights, as there)."""
+    w = valid.to(torch.float32)
+    if (class_weights is None or not cfg.use_class_weights
+            or cfg.loss == LossType.FOCAL):
+        return w
+    return class_weights[labels.long()] * w
+
+
 def loss_from_outputs(outputs: torch.Tensor, labels: torch.Tensor,
                       valid: torch.Tensor, cfg: TrainConfig,
                       soft: Optional[torch.Tensor] = None,
                       weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``cfg.loss`` (focal, or softmax cross-entropy over integer labels)
     over the valid rows: ``sum(vec * w) / max(sum(w), 1e-9)`` (replicated
-    rows of a short last batch and empty packed slots carry zero weight).
+    rows of a short last batch and empty packed slots carry zero weight;
+    ``valid`` may be :func:`row_weights`' class-weighted rows).
     ``weight`` replaces ``sum(w)``: under data parallelism the global
     batch's, so that the ranks' losses sum to the global mean.
 
@@ -680,10 +707,15 @@ class TrainStep:
     generator: torch.Generator
     augment: Augment = train_augment
     sync: Optional[object] = None
+    class_weights: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         set_dropout_generator(self.model, self.generator)
         self.dtype = _compute_dtype(self.cfg)
+        if self.class_weights is not None:
+            self.class_weights = torch.as_tensor(
+                self.class_weights, dtype=torch.float32,
+                device=self.optimizer.device)
         masters = list(self.optimizer.params.values())
         self.compute = None
         if self.dtype != torch.float32:
@@ -720,8 +752,10 @@ class TrainStep:
         else:
             leaves = list(self.compute.values())
             outputs = functional_call(self.model, self.compute, args)
-        weight = None if sync is None else sync.valid_weight(b["valid"])
-        loss = loss_from_outputs(outputs, b["label"], b["valid"], self.cfg,
+        valid = row_weights(b["label"], b["valid"], self.cfg,
+                            self.class_weights)
+        weight = None if sync is None else sync.valid_weight(valid)
+        loss = loss_from_outputs(outputs, b["label"], valid, self.cfg,
                                  b.get("soft"), weight)
         if sync is not None:
             loss = loss * sync.loss_scale
@@ -769,7 +803,8 @@ def build_train_step(model: nn.Module, cfg: TrainConfig,
                      generator: torch.Generator,
                      augment: Optional[Augment] = None,
                      embed_support: Optional[int] = None,
-                     sync=None, step_cls=TrainStep) -> TrainStep:
+                     sync=None, step_cls=TrainStep,
+                     class_weights=None) -> TrainStep:
     """The train step over ``model``'s parameters (kept f32 as masters),
     with the optimizer for ``total_steps`` steps.  ``store`` holds the
     device-resident arrays that batches index; ``augment(images_u8,
@@ -778,7 +813,9 @@ def build_train_step(model: nn.Module, cfg: TrainConfig,
     embedding optimizer's exact per-step row bound, when the driver knows
     it (:func:`sparse_support_rows`); ``sync`` the multi-process
     layout's gradient sync (:class:`GradSync`); ``step_cls`` a subclass of
-    :class:`TrainStep` to build."""
+    :class:`TrainStep` to build; ``class_weights`` ``[C]`` (numpy or a
+    tensor, e.g. ``io.manifest.class_weights`` of the train labels) the
+    cross-entropy's per-class weights under ``cfg.use_class_weights``."""
     for p in model.parameters():
         if p.dtype != torch.float32:
             raise ValueError("training needs f32 master parameters")
@@ -786,5 +823,5 @@ def build_train_step(model: nn.Module, cfg: TrainConfig,
                           embed_support,
                           shards=getattr(model, "tp_shards", None))
     return step_cls(model, cfg, optimizer, store, generator,
-                    augment or train_augment, sync)
+                    augment or train_augment, sync, class_weights)
 

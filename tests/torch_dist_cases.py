@@ -354,3 +354,77 @@ def cli(argvs) -> list:
     torch.set_num_threads(1)
     from mpmc_tpu_torch.cli.main import main
     return [main(argv) for argv in argvs]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism inside the fold-parallel step
+# ---------------------------------------------------------------------------
+
+def tp_fold_cases(case: str, out: str) -> str:
+    """On a world of 8, JAX's 3-D ``(fold 2, data 2, model 2)`` layout:
+    each fold group holds two of the case's four folds (``fold_slice``),
+    splits each fold's transformer weights over its ``model`` group and
+    each fold's batch over ``data``, and runs three fold-parallel steps of
+    every run of the case (each replica loads its fold's JAX tree through
+    ``from_jax_variables`` before it is split), then one eval batch.  Saves per run the
+    losses, grad norms, the stacked leaves' local shapes, the gathered
+    stacked state, each of its folds' gathered state and the eval
+    probabilities; and whether the command line's mesh still refuses
+    fold parallelism with model shards inside the world."""
+    torch.set_num_threads(1)
+    from mpmc_tpu_torch.models.convert import from_jax_variables
+    from mpmc_tpu_torch.parallel.fold_parallel import (
+        build_fold_parallel_steps)
+    from mpmc_tpu_torch.parallel.mesh import fold_data_model_layout
+    from mpmc_tpu_torch.parallel.tp import tensor_parallel
+    c = torch.load(case, weights_only=False)
+    layout = fold_data_model_layout(2, 2, CPU)
+    group = layout.group("model")
+    total = len(c["idx"][0])
+    per = total // layout.size("fold")
+    lo = layout.coord("fold") * per
+    mine = list(range(lo, lo + per))
+    store = {k: torch.from_numpy(v) for k, v in c["store"].items()}
+    res: Dict = {"coords": {ax: layout.coord(ax)
+                            for ax in ("fold", "data", "model")},
+                 "folds": mine}
+    for name, run in c["runs"].items():
+        mcfg, cfg = run["cfg"].model, run["cfg"]
+        models = []
+        for k in mine:
+            model = build_model(mcfg, CPU, seed=k, kind="text")
+            model.load_state_dict(from_jax_variables(run["trees"][k]))
+            models.append(tensor_parallel(
+                model, group,
+                lambda: build_model(mcfg, torch.device("meta"), kind="text")))
+        sync = GradSync(layout, [n for n, _ in models[0].named_parameters()],
+                        models[0].sharded_params)
+        dims = {n: d for n, (d, _) in models[0].tp_shards.items()}
+        step, evaluate = build_fold_parallel_steps(
+            models, cfg, len(c["idx"]), store, store,
+            torch.Generator().manual_seed(0), sync=sync,
+            fold_slice=(lo, total), model_group=group)
+        del models
+        rows = sync.rows(cfg.data.batch_size)
+        losses, norms = [], []
+        for idx in c["idx"]:
+            m = step({"idx": torch.from_numpy(np.ascontiguousarray(
+                idx[mine][:, rows])),
+                      "valid": torch.ones(per, rows.stop - rows.start)})
+            losses.append(m["loss"].tolist())
+            norms.append(m["grad_norm"].tolist())
+        probs, _ = evaluate({"idx": torch.from_numpy(c["eval_idx"][mine])})
+        res[name] = {
+            "loss": losses, "grad_norm": norms, "probs": probs.numpy(),
+            "split": dims,
+            "local_shapes": {n: tuple(p.shape)
+                             for n, p in step.model.params.items()},
+            "state": step.state_dict()["model"],
+            "fold_states": [step.fold_state(j)["model"]
+                            for j in range(per)]}
+    try:
+        make_layout(MeshConfig(fold_parallel=True, num_model_shards=2), CPU)
+        res["refused"] = None
+    except ValueError as e:
+        res["refused"] = str(e)
+    return _save(out, res)
