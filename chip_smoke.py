@@ -168,7 +168,19 @@ toolkit.  Phases, each of which raises on failure:
    tensor-parallel step alone for 3 steps; in bf16 at full width (the 2A
    text classifier, 12 layers) the composed step on phase 8's data, its
    attention launches and shapes (the folds in the batch), warm ms a step
-   and the busy share.
+   and the busy share;
+18. the host-fed path (``DataConfig.device_resident=False``) against the
+   resident one, each under deterministic algorithms: ``prepare_2c``
+   under ``strict_images`` raises on phase 5's train manifest with one
+   PNG removed, and without it logs the count and prepares the data the
+   rest trains on; phase 5's full-width packed 2C (K = 4, fold 0 of 6:
+   groups of 4 and 4 and a single step), unpacked 2B ResNet-18 at 224 and
+   the fold-parallel 2C in f32 at 4 layers (2 folds, K = 2), each
+   resident and host-fed: per-step losses and grad norms, every eval's
+   probabilities (resident evals gather on the card), the TSVs and the
+   final weights bit for bit, the three kernels' launches equal; for the
+   2C run in each mode the warm ms a step and busy share of its profiled
+   group replay and the bytes copied to the card a step.
 
 Phase 1 also counts the tensor-core instructions (HMMA/HGMMA) of each
 attention library with ``cuobjdump -sass``.  Phase 2 also holds the
@@ -197,7 +209,7 @@ the predicted-positive share) and the dtypes the sigmoid sees.
 Prints the card's name and power limit, each phase's result, the
 ``predict_kinds``, ``train_2a``/``mlm``, ``train_2b``,
 ``train_variants``, ``fusion_batchnorms`` and ``phase_11`` to
-``phase_17`` JSON lines, a
+``phase_18`` JSON lines, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or outside the repository.
 """
@@ -1009,7 +1021,7 @@ def _fold0(torch, argv, bf16: bool, dropout_zero: bool, device, augment=None,
     cfg = _cut_cfg(prep.cfg, bf16, dropout_zero, layers, vocab)
     tr_idx = stratified_kfold(prep.data["label"], cfg.data.num_folds,
                               cfg.data.fold_seed)[0][0]
-    store = resident_store(cfg, prep.data, device)
+    store = resident_store(cfg, prep.data, device, kind)
     run = build_fold(cfg, _select(prep.data, tr_idx), tr_idx, store, device,
                      0, augment, kind)
     rng = np.random.default_rng(cfg.seed)
@@ -4065,6 +4077,7 @@ def phase_host_runtime(torch, work: str, build_routes):
 SCAN_K = 4                          # phase 5's --scan-steps: 2 groups
 SCAN_TURNS = 1                      # phase 5's (1, K, K, 1) timed turns
 PREDICT_SCAN_K = 8                  # phase 3's 8 batches: one group
+PREDICT_TURNS = 1                   # (1, K, K, 1) timed predict passes
 # Folds of phase 14's fold-parallel run: 4, so that the whole script keeps
 # its time with phase 15's second process; fewer would leave each fold
 # fewer than 8 steps of 16, hence no full group of SCAN_K between evals
@@ -4247,7 +4260,7 @@ def phase_scan_predict(torch, work: str, argv):
     first = run_eval(step, inputs.data, BATCH, dev, scan).probs
     times = {1: [], PREDICT_SCAN_K: []}
     same = bool(np.array_equal(first, ref))
-    for _ in range(3):
+    for _ in range(PREDICT_TURNS):
         for k in (1, PREDICT_SCAN_K, PREDICT_SCAN_K, 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4256,13 +4269,14 @@ def phase_scan_predict(torch, work: str, argv):
             torch.cuda.synchronize()
             times[k].append(time.perf_counter() - t0)
             same &= bool(np.array_equal(p, ref))
-    check(scan.replays == 6 and same, f"K = 8 replays {scan.replays}, "
+    check(scan.replays == 2 * PREDICT_TURNS and same,
+          f"K = 8 replays {scan.replays}, "
                                       f"probabilities equal to K = 1: {same}")
     rate = {k: N_MEMES / sorted(v)[len(v) // 2] for k, v in times.items()}
     print(f"  predict --scan-steps {PREDICT_SCAN_K} vs 1 on {N_MEMES} memes: "
           f"probabilities and launches {got[1][1]} equal; warm, in turns: "
           f"K = 1 {rate[1]:.2f} memes/s, K = {PREDICT_SCAN_K} "
-          f"{rate[PREDICT_SCAN_K]:.2f} memes/s (median of 6 passes each; "
+          f"{rate[PREDICT_SCAN_K]:.2f} memes/s (median of {2 * PREDICT_TURNS} passes each; "
           f"{scan.replays} replays, probabilities bit-equal to K = 1)")
     in_graphs = graph_launches([scan])
     del model, step, scan
@@ -5387,7 +5401,7 @@ def phase_blip_and_groups(torch, work: str, argv_2a, p11: dict):
 # local heads.
 TP_FOLDS = 2
 TP_FOLD_STEPS = 3
-TP_FOLD_WARM = 6                    # warm bf16 steps timed, after 2 untimed
+TP_FOLD_WARM = 4                    # warm bf16 steps timed, after 2 untimed
 
 
 def _tp_fold_data(argv):
@@ -5637,6 +5651,319 @@ def phase_tp_fold(res):
     return res
 
 
+# Phase 18: the host-fed path (``DataConfig.device_resident=False``, which
+# no command line sets: the library's ``run_subtask_*`` and ``_run_folds``
+# take it) against the resident one, and ``strict_images``.
+HOST_FED_FOLDS = 6          # fold 0 of phase 5's manifests: 134 train memes,
+                            # 9 steps of 16: groups of 4, 4 and a single step
+HOST_FED_EPOCHS = 1         # 2C: the second group, a replay, profiled
+FP_FOLDS = 2                # (c): 80 memes a fold, 5 steps at K = 2: an
+FP_SCAN_K = 2               # eager group, a replay and a single step, and
+FP_TEST_MEMES = BATCH       # one eval batch of the first 16 dev memes
+
+
+@contextlib.contextmanager
+def watch_data_mode(torch, profile_group: bool = False):
+    """While active, record what a training run feeds the card and what it
+    computes: the bytes of every train batch or group made for the card
+    (``loop._host_tensors``, on the prefetch thread; the fold-parallel
+    driver's too), every eval's probabilities (``loop.run_eval``), each
+    train group's synchronized wall ms (``GroupedSteps`` with an
+    optimizer), under ``profile_group`` the second (the first replay)
+    under the profiler, whose wall a graph replay hardly moves (phase 5),
+    and after each ``fit`` or
+    ``fit_folds_parallel`` a copy of its model's final state (on the card,
+    where two runs' states compare fast) and the fold-parallel results."""
+    from mpmc_tpu_torch.cv import fold_driver
+    from mpmc_tpu_torch.train import graphs, loop
+    from torch.profiler import ProfilerActivity, profile
+    seen = dict(h2d_bytes=0, probs=[], group_ms=[], prof=None, final=[],
+                fold_results=None)
+    host_tensors, run_eval = loop._host_tensors, loop.run_eval
+    call, fit, fit_folds = (graphs.GroupedSteps.__call__, loop.fit,
+                            fold_driver.fit_folds_parallel)
+
+    def counted(batch, pin):
+        out = host_tensors(batch, pin)
+        seen["h2d_bytes"] += sum(v.numel() * v.element_size()
+                                 for v in out.values())
+        return out
+
+    def evaluated(*args, **kwargs):
+        res = run_eval(*args, **kwargs)
+        seen["probs"].append(res.probs)
+        return res
+
+    def timed(self, group):
+        if self.counter is None:        # an eval group
+            return call(self, group)
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            if profile_group and len(seen["group_ms"]) == 1:
+                seen["prof"] = stack.enter_context(profile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]))
+            t0 = time.perf_counter()
+            out = call(self, group)
+            torch.cuda.synchronize()
+            seen["group_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def state(model):
+        return {k: v.detach().clone() for k, v in model.items()}
+
+    def fitted(train_step, *args, **kwargs):
+        res = fit(train_step, *args, **kwargs)
+        seen["final"].append(state(train_step.model.state_dict()))
+        return res
+
+    def folds_fitted(cfg, train_step, *args, **kwargs):
+        res = fit_folds(cfg, train_step, *args, **kwargs)
+        seen["final"].append(state(train_step.state_dict()["model"]))
+        seen["fold_results"] = res
+        return res
+
+    loop._host_tensors, loop.run_eval = counted, evaluated
+    graphs.GroupedSteps.__call__, loop.fit = timed, fitted
+    fold_driver.fit_folds_parallel = folds_fitted
+    try:
+        yield seen
+    finally:
+        loop._host_tensors, loop.run_eval = host_tensors, run_eval
+        graphs.GroupedSteps.__call__, loop.fit = call, fit
+        fold_driver.fit_folds_parallel = fit_folds
+
+
+def host_fed_pair(torch, what: str, cfg, data, ids, test, test_ids,
+                  out: str, name: str, kind: str, profile: bool = False):
+    """Fold 0 of ``cfg`` through ``_run_folds`` resident, then host-fed,
+    under deterministic algorithms, each run watched
+    (:func:`watch_data_mode`; under ``profile`` its first train group
+    replay profiled, :func:`group_timing`); every check that the two are
+    equal bit for bit: per-step losses and grad norms, every eval's
+    probabilities, the TSVs, the final weights (per-fold results too when
+    fold-parallel), and the three kernels' launches."""
+    import numpy as np
+    from mpmc_tpu_torch.cli.experiments import _run_folds
+    from mpmc_tpu_torch.ops import build
+    from mpmc_tpu_torch.train.pretrain import deterministic_algorithms
+    dev = torch.device("cuda")
+    runs = {}
+    for resident in (True, False):
+        mode = "resident" if resident else "host_fed"
+        run_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, device_resident=resident))
+        for key in build.launch_counts:
+            build.launch_counts[key] = 0
+        out_dir = os.path.join(out, mode)
+        t0 = time.perf_counter()
+        with deterministic_algorithms(), \
+                watch_data_mode(torch, profile) as seen:
+            _run_folds(run_cfg, data, ids, test, test_ids, out_dir, name,
+                       dev, folds=[0], kind=kind)
+        torch.cuda.synchronize()
+        seen.update(wall_s=time.perf_counter() - t0,
+                    launches=dict(build.launch_counts), out_dir=out_dir)
+        if profile:
+            seen["timing"] = group_timing(torch, seen, cfg.scan_steps)
+            del seen["prof"]
+        runs[mode] = seen
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a, b = runs["resident"], runs["host_fed"]
+    cmp = compare_runs(a["out_dir"], b["out_dir"], name, what)
+    # The fold-parallel driver evaluates inside ``fit_folds_parallel``: its
+    # per-fold results carry the best eval's probabilities.
+    probs_equal = (len(a["probs"]) == len(b["probs"])
+                   and (len(a["probs"]) > 0 or a["fold_results"] is not None)
+                   and all(np.array_equal(x, y)
+                           for x, y in zip(a["probs"], b["probs"])))
+    weights = max_state_diff(a["final"][0], b["final"][0])
+    folds_equal = None
+    if a["fold_results"] is not None:
+        folds_equal = all(
+            np.array_equal(x["probs"], y["probs"]) and x["steps"] == y["steps"]
+            and x["history"] == y["history"]
+            for x, y in zip(a["fold_results"], b["fold_results"]))
+    out = dict(bitwise=bool(cmp["tsvs_identical"] and cmp["steps_identical"]
+                            and probs_equal and weights == 0
+                            and folds_equal in (None, True)),
+               tsvs_identical=cmp["tsvs_identical"],
+               steps_identical=cmp["steps_identical"],
+               eval_probs_identical=probs_equal, evals=len(a["probs"]),
+               final_weights_max_abs_diff=weights,
+               fold_results_identical=folds_equal, steps=cmp["steps"],
+               launches={m: r["launches"] for m, r in runs.items()},
+               h2d_bytes_per_step={m: r["h2d_bytes"] / cmp["steps"]
+                                   for m, r in runs.items()},
+               wall_s={m: r["wall_s"] for m, r in runs.items()},
+               compare_s=time.perf_counter() - t0)
+    if profile:
+        out["timing"] = {m: r["timing"] for m, r in runs.items()}
+    return out
+
+
+def group_timing(torch, seen, k: int) -> dict:
+    """Warm ms a step of a run's profiled train group (its first replay)
+    and that replay's busy share."""
+    averages = seen["prof"].key_averages()
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    wall_ms = seen["group_ms"][1]
+    return dict(warm_step_ms=wall_ms / k, profiled_wall_ms=wall_ms, profiled_kernel_ms=busy_ms,
+                busy_share=busy_ms / wall_ms,
+                profiled_launches=sum(e.count for e in events))
+
+
+def strict_images_check(work: str, cfg, card: str):
+    """(d): phase 5's train manifest with one meme's PNG removed (a copy of
+    it, named in a copy of the manifest): ``prepare_2c`` raises under
+    ``strict_images``; without, it logs the missing count and prepares the
+    data, which (a) to (c) train on."""
+    import logging
+    from mpmc_tpu_torch.cli.experiments import prepare_2c
+    with open(os.path.join(work, "train.json"), encoding="utf-8") as f:
+        rows = json.load(f)
+    gone = "memes/strict_missing.png"
+    shutil.copy(os.path.join(work, rows[3]["img_path"]),
+                os.path.join(work, gone))
+    os.remove(os.path.join(work, gone))
+    rows[3] = dict(rows[3], img_path=gone)
+    manifest = os.path.join(work, "train_strict.json")
+    with open(manifest, "w", encoding="utf-8") as f:
+        json.dump(rows, f, ensure_ascii=False)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, train_manifest=manifest, strict_images=True))
+    out = tempfile.mkdtemp(dir=work)
+    try:
+        prepare_2c(cfg, out)
+        raised = None
+    except FileNotFoundError as e:
+        raised = str(e)
+    check(raised is not None and f"1/{len(rows)} images" in raised,
+          f"prepare_2c with strict_images did not raise ({raised})")
+    logged = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: logged.append(record.getMessage())
+    log = logging.getLogger("mpmc_tpu_torch.image.decode")
+    log.addHandler(handler)
+    try:
+        prep = prepare_2c(dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, strict_images=False)), out)
+    finally:
+        log.removeHandler(handler)
+    check(logged == [raised], f"prepare_2c without strict_images logged "
+                              f"{logged}, expected [{raised!r}]")
+    print(f"  (d) strict_images: prepare_2c raises FileNotFoundError "
+          f"({raised!r}); without it the same manifest logs that count and "
+          f"is prepared ({len(prep.data['label'])} memes), and (a) to (c) "
+          f"train on it; {card}")
+    return prep, dict(raised=raised, logged=logged)
+
+
+def phase_host_fed(torch, work: str, argv):
+    """Phase 18: the host-fed path and resident eval.  (d) first, whose
+    prepared data (phase 5's manifests, one image missing) the rest train
+    on: (a) phase 5's full-width packed 2C (bf16, K = 4, fold 0 of
+    ``HOST_FED_FOLDS``, ``HOST_FED_EPOCHS`` epochs, one eval an epoch)
+    resident and host-fed, bit for bit, with warm ms a step, busy share,
+    H2D bytes a step and launches in each mode; (b) unpacked 2B ResNet-18
+    at 224 on the same images, one epoch of a group of 4, a group of 4 and
+    a single step, evals resident against host-fed; (c) fold-parallel 2C
+    in f32 at ``CARD_VS_CPU_LAYERS`` layers, ``FP_FOLDS`` folds at K =
+    ``FP_SCAN_K``, evaluated on the first ``FP_TEST_MEMES`` dev memes,
+    resident against host-fed (weights and per-fold results)."""
+    from mpmc_tpu_torch.cli.main import build_parser, train_config
+    from mpmc_tpu_torch.config import LossType, MeshConfig, Subtask
+    card = card_line()
+    cfg, _ = train_config(build_parser().parse_args(argv))
+    cfg = dataclasses.replace(cfg, checkpoint_dir=None, eval_per_epoch=1,
+                              epochs=HOST_FED_EPOCHS,
+                              data=dataclasses.replace(
+                                  cfg.data, num_folds=HOST_FED_FOLDS))
+    t0 = time.perf_counter()
+    prep, strict = strict_images_check(work, cfg, card)
+    prepare_s = time.perf_counter() - t0
+    out = dict(strict_images=strict, prepare_s=prepare_s)
+    k = cfg.scan_steps
+    ids, test_ids = prep.train_ids, prep.dev_ids
+
+    stamp("  (a) packed 2C, resident vs host-fed:")
+    a = host_fed_pair(torch, "2C resident vs host-fed", prep.cfg, prep.data,
+                      ids, prep.test, test_ids, os.path.join(work, "hf_2c"),
+                      "task2C", "multimodal", profile=True)
+    for m in ("resident", "host_fed"):
+        t = a["timing"][m]
+        print(f"  (a) {m}: {a['wall_s'][m]:.3f} s wall ({a['steps']} steps, "
+              f"{a['evals']} eval passes, first group and capture "
+              f"included); warm K = {k} replay (profiled) "
+              f"{t['warm_step_ms']:.3f} ms/step: "
+              f"{t['profiled_wall_ms']:.3f} ms wall, kernels "
+              f"{t['profiled_kernel_ms']:.3f} ms ({100 * t['busy_share']:.1f}"
+              f" % busy) in {t['profiled_launches']} kernels; host to "
+              f"device {a['h2d_bytes_per_step'][m]:.0f} bytes/step (train "
+              f"batches); launches {a['launches'][m]}; {card}")
+    b_cfg = dataclasses.replace(
+        prep.cfg, loss=LossType.CROSS_ENTROPY, epochs=1,
+        model=dataclasses.replace(type(prep.cfg.model)(),
+                                  subtask=Subtask.B, num_classes=2),
+        data=dataclasses.replace(prep.cfg.data, pack_rows=0))
+    stamp("  (b) unpacked 2B ResNet-18 at 224, resident vs host-fed:")
+    b = host_fed_pair(torch, "2B resident vs host-fed", b_cfg,
+                      {"image": prep.data["image"],
+                       "label": prep.data["label"]}, ids,
+                      {"image": prep.test["image"],
+                       "label": prep.test["label"]}, test_ids,
+                      os.path.join(work, "hf_2b"), "task2B", "image")
+    c_cfg = _cut_cfg(dataclasses.replace(
+        prep.cfg, epochs=1, mesh=MeshConfig(fold_parallel=True),
+        scan_steps=FP_SCAN_K,
+        data=dataclasses.replace(prep.cfg.data, num_folds=FP_FOLDS,
+                                 pack_rows=0)),
+        bf16=False, dropout_zero=False, layers=CARD_VS_CPU_LAYERS)
+    stamp("  (c) fold-parallel f32, resident vs host-fed:")
+    c = host_fed_pair(torch, "fold-parallel resident vs host-fed", c_cfg,
+                      prep.data, ids,
+                      {k: v[:FP_TEST_MEMES] for k, v in prep.test.items()},
+                      test_ids[:FP_TEST_MEMES], os.path.join(work, "hf_fp"),
+                      "task2C", "multimodal")
+    for tag, r in (("(a)", a), ("(b)", b), ("(c)", c)):
+        print(f"  {tag} bit for bit: {r['bitwise']} (TSVs "
+              f"{r['tsvs_identical']}, {r['steps']} steps' losses and grad "
+              f"norms {r['steps_identical']}, {r['evals']} evals' "
+              f"probabilities {r['eval_probs_identical']}, final weights max "
+              f"|diff| {r['final_weights_max_abs_diff']:.3g}"
+              + (f", per-fold results {r['fold_results_identical']}"
+                 if r["fold_results_identical"] is not None else "")
+              + f"); launches equal "
+              f"{r['launches']['resident'] == r['launches']['host_fed']} "
+              f"{r['launches']['host_fed']}; H2D bytes/step resident "
+              f"{r['h2d_bytes_per_step']['resident']:.0f}, host-fed "
+              f"{r['h2d_bytes_per_step']['host_fed']:.0f}; wall s "
+              f"{ {m: round(s, 3) for m, s in r['wall_s'].items()} }, "
+              f"comparing {r['compare_s']:.3f} s; {card}")
+    for tag, r in (("(a)", a), ("(b)", b), ("(c)", c)):
+        check(r["bitwise"], f"{tag}: resident and host-fed differ: "
+              f"{ {k: v for k, v in r.items() if k != 'runs'} }")
+        check(r["launches"]["resident"] == r["launches"]["host_fed"],
+              f"{tag}: launches differ: {r['launches']}")
+    for tag, r in (("(a)", a), ("(b)", b), ("(c)", c)):
+        check(r["launches"]["host_fed"]["image_normalize"] == r["steps"],
+              f"{tag}: the image kernel should launch once a step: "
+              f"{r['launches']}, {r['steps']} steps")
+    for tag, r, layers in (("(a)", a, 12), ("(c)", c, CARD_VS_CPU_LAYERS)):
+        check(r["launches"]["host_fed"]["attention_bwd"]
+              == 2 * layers * r["steps"],
+              f"{tag}: the backward should launch {2 * layers} times a step "
+              f"(text and caption layers): {r['launches']}, {r['steps']} "
+              f"steps")
+    for name, r in (("2c", a), ("2b", b), ("fold_parallel", c)):
+        out[name] = r
+    torch.cuda.empty_cache()
+    return out
+
+
 # The train runs' checkpoint directories, under the work directory's
 # ``ck``, each emptied when the next phase starts (``next_phase``; no phase
 # reads another's checkpoints): a full-width run's training state is GBs
@@ -5801,6 +6128,10 @@ def main() -> int:
                        "scratch captioner graphed, and K steps a dispatch "
                        "for MLM and SimCLR:")
             p16 = phase_blip_and_groups(torch, work, argv_2a, p11)
+            next_phase("phase 18 the host-fed path (device_resident=False) "
+                       "against the resident one, resident eval, and "
+                       "strict_images:")
+            p18 = phase_host_fed(torch, work, train_argv)
             stamp(f"  the work directory holds {dir_gib(work):.1f} GiB; "
                   f"removing it:")
         finally:
@@ -5824,6 +6155,9 @@ def main() -> int:
                  *((f"simclr_{k}", v)
                    for k, v in p16["simclr_groups"].items())]
     p17_paths = [("tp_fold_f32", p17["f32"]), ("tp_fold_bf16", p17["bf16"])]
+    p18_paths = {f"{name}_{mode}": p18[name]["launches"][mode]
+                 for name in ("2c", "2b", "fold_parallel")
+                 for mode in ("resident", "host_fed")}
     kernels = [{
         "name": "attention_fwd", "route": "cuda",
         "source": "mpmc_tpu_torch/csrc/attention_fwd.cu",
@@ -5857,7 +6191,9 @@ def main() -> int:
             **{k: v["launches"]["attention_fwd"] for k, v in p14_paths},
             **{k: v["launches"]["attention_fwd"] for k, v in p15_paths},
             **{k: v["launches"]["attention_fwd"] for k, v in p16_paths},
-            **{k: v["launches"]["attention_fwd"] for k, v in p17_paths}},
+            **{k: v["launches"]["attention_fwd"] for k, v in p17_paths},
+            **{f"host_fed_{k}": v["attention_fwd"]
+               for k, v in p18_paths.items()}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "attention_fwd", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
@@ -5917,7 +6253,9 @@ def main() -> int:
             **{k: v["launches"]["attention_bwd"] for k, v in p14_paths},
             **{k: v["launches"]["attention_bwd"] for k, v in p15_paths},
             **{k: v["launches"]["attention_bwd"] for k, v in p16_paths},
-            **{k: v["launches"]["attention_bwd"] for k, v in p17_paths}},
+            **{k: v["launches"]["attention_bwd"] for k, v in p17_paths},
+            **{f"host_fed_{k}": v["attention_bwd"]
+               for k, v in p18_paths.items()}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "attention_bwd", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shapes": p14["fold_parallel"]["shapes"],
@@ -5954,7 +6292,9 @@ def main() -> int:
                for k, v in p15_paths},
             **{k: v["launches"]["image_normalize"] for k, v in p16_paths},
             **{k: v["launches"].get("image_normalize", 0)
-               for k, v in p17_paths}},
+               for k, v in p17_paths},
+            **{f"host_fed_{k}": v["image_normalize"]
+               for k, v in p18_paths.items()}},
         "launches_in_graphs": {k: v["launches_in_graphs"].get(
             "image_normalize", 0) for k, v in p14_paths + p16_paths},
         "fold_parallel_shape": [FOLDS * BATCH, 224, 224, 3]}]
@@ -5986,6 +6326,7 @@ def main() -> int:
     print(json.dumps({"phase_15": p15}))
     print(json.dumps({"phase_16": p16}))
     print(json.dumps({"phase_17": p17}))
+    print(json.dumps({"phase_18": p18}))
     print(f"warm train step {warm_ms[len(warm_ms) // 2]:.3f} ms (median), 2A "
           f"{w2a[len(w2a) // 2]:.3f} ms, 2B ResNet-18 "
           f"{train_2b['train_2b_resnet18']['warm_step_ms_median']:.3f} ms, 2B "

@@ -5,9 +5,12 @@ and SimCLR image stage (``_maybe_simclr_pretrain``), and the training
 entry points ``run_subtask_2a`` (text), ``run_subtask_2b`` (image) and
 ``run_subtask_2c`` (multimodal, or the simple baseline) over
 ``_run_folds``.  Packed (``pack_rows > 0``) 2A is fed from the host by a
-``PackedTrainPlan``; packed 2C keeps its images on the device; unpacked
-(2B and the simple 2C always), every array stays on the device and
-batches carry row indices.
+``PackedTrainPlan``.  Otherwise, under ``DataConfig.device_resident`` (the
+default), every array stays on the device: unpacked batches (2B and the
+simple 2C always) carry row indices, packed 2C batches their token rows
+and image row indices, and the evals gather their batches there too.
+With ``device_resident=False`` every batch comes from the host, pixels
+included.
 
 In a launched world (``parallel/distributed.py``) the folds train under
 the mesh of ``cfg.mesh`` (``parallel/mesh.py``): each rank holds the whole
@@ -320,7 +323,8 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
     under ``grayscale``.
     Packing gives 2A a ``PackedTrainPlan`` of ``pack_rows`` rows a step
     over the host arrays, and 2C a ``PackedMultimodalPlan`` that indexes
-    the resident images.
+    the resident images (``cfg.data.device_resident``) or ships the
+    pixels.
 
     Under a multi-process ``layout`` (``parallel/mesh.py``) the plan yields
     this rank's part of each batch, BatchNorm and dropout work on the
@@ -344,8 +348,10 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
                                rows_per_batch=cfg.data.pack_rows,
                                shard=shard)
     elif packing:
-        plan = PackedMultimodalPlan(train_d, batch_size=bs, abs_idx=tr_idx,
-                                    resident_images=True, shard=shard)
+        resident = cfg.data.device_resident
+        plan = PackedMultimodalPlan(train_d, batch_size=bs,
+                                    abs_idx=tr_idx if resident else None,
+                                    resident_images=resident, shard=shard)
     steps_per_epoch = (plan.steps_per_epoch if plan is not None
                        else (len(tr_idx) + bs - 1) // bs)
     model = apply_pretrained(build_model(cfg.model, device, seed=cfg.seed,
@@ -397,13 +403,19 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
 
 
 def resident_store(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
-                   device: torch.device) -> Dict[str, torch.Tensor]:
-    """The arrays that stay on the device for the whole run: the images,
-    and unpacked every array (batches then carry only row indices).  Packed
-    2A has no image, so its store is empty and the plan feeds it."""
-    packing = cfg.data.pack_rows > 0
+                   device: torch.device, kind: str = "multimodal"
+                   ) -> Dict[str, torch.Tensor]:
+    """The arrays that stay on the device for the whole run under
+    ``cfg.data.device_resident``: every array of ``full_data``, which the
+    train batches (``idx``, or packed 2C's ``img_idx``) and the eval
+    batches (``idx``) index.  Empty when host-fed, and for packed 2A
+    (``kind`` "text"), which its plan feeds from the host in both modes,
+    evals included, as in the JAX driver."""
+    if not cfg.data.device_resident or (cfg.data.pack_rows > 0
+                                        and kind == "text"):
+        return {}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in full_data.items() if k == "image" or not packing}
+            for k, v in full_data.items()}
 
 
 def _check_layout(cfg: TrainConfig, layout, kind: str) -> TrainConfig:
@@ -446,11 +458,17 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     per-step losses and evals go to
     ``<out_dir>/<name>_train_metrics_fold_<k>.json``.
 
+    Under ``cfg.data.device_resident`` the train manifest's arrays (and
+    the test split's) go to the device once for every fold
+    (:func:`resident_store`): train batches index them, and the test and
+    val evals gather from them (``train.loop.DeviceData``).  Host-fed,
+    every batch is copied from the host.
+
     ``soft_targets`` ``[F, N]`` (``train/distill.py``): fold k trains on
     ``soft_targets[k]`` of its train rows, beside their labels."""
     from mpmc_tpu_torch.parallel.mesh import make_layout
     from mpmc_tpu_torch.train.checkpoint import Checkpointer
-    from mpmc_tpu_torch.train.loop import fit
+    from mpmc_tpu_torch.train.loop import DeviceData, fit
 
     os.makedirs(out_dir, exist_ok=True)
     layout = make_layout(cfg.mesh, device)
@@ -467,7 +485,9 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         cfg = _check_layout(cfg, layout, kind)
     splits = stratified_kfold(full_data["label"], cfg.data.num_folds,
                               cfg.data.fold_seed)
-    store = resident_store(cfg, full_data, device)
+    store = resident_store(cfg, full_data, device, kind)
+    test_store = (resident_store(cfg, test_data, device, kind)
+                  if store and test_data is not None else None)
     results = []
     for k, (tr_idx, va_idx) in enumerate(splits):
         if folds is not None and k not in folds:
@@ -477,12 +497,19 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
         val_d = _select(full_data, va_idx)
         fold_store = store
         if soft_targets is not None:
+            # Host-fed and packed batches carry the fold's soft targets
+            # from ``train_d``; resident unpacked ones index the store.
             soft = soft_targets[k].astype(np.float32)
             train_d["soft"] = soft[tr_idx]
-            if "label" in store:        # unpacked: batches index the store
+            if store and cfg.data.pack_rows <= 0:
                 fold_store = dict(store, soft=torch.from_numpy(soft).to(device))
         t_data = test_data if test_data is not None else val_d
         t_ids = test_ids if test_ids is not None else [ids[i] for i in va_idx]
+        dev_val = dev_test = None
+        if store:
+            dev_val = DeviceData(store, va_idx)
+            dev_test = (DeviceData(test_store, np.arange(len(t_ids)))
+                        if test_store is not None else dev_val)
         run = build_fold(cfg, train_d, tr_idx, fold_store, device, k, augment,
                          kind, pretrained, grayscale, binary_head, layout)
         on_best, checkpointer = None, None
@@ -508,7 +535,8 @@ def _run_folds(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
                   tsv_prefix=prefix, packed_plan=run.plan, train_rows=tr_idx,
                   on_best=on_best, checkpointer=checkpointer,
                   scan_train_step=run.scan_train_step,
-                  scan_eval_step=run.scan_eval_step)
+                  scan_eval_step=run.scan_eval_step, dev_test=dev_test,
+                  dev_val=dev_val)
         if checkpointer is not None:
             checkpointer.wait()
         if is_writer():
@@ -539,7 +567,9 @@ def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
     ``device`` (``cv/fold_driver.fit_folds_parallel``), unpacked, each
     fold's weights from ``cfg.seed + fold``, the LR schedule over
     ``ceil(N / batch) * epochs`` steps of the full data as the JAX
-    package sets it.  Writes per-fold TSVs, checkpoints under
+    package sets it.  Under ``cfg.data.device_resident`` the batches
+    index arrays on the device, else they come from the host.  Writes
+    per-fold TSVs, checkpoints under
     ``<checkpoint_dir>/fold_<k>`` and ``<name>_train_metrics_fold_<k>.json``;
     returns one ``FitResult`` per fold.
 
@@ -577,9 +607,9 @@ def _run_folds_parallel(cfg: TrainConfig, full_data: Dict[str, np.ndarray],
             cfg.data, pack_rows=0))
     n, bs = len(full_data["label"]), cfg.data.batch_size
     total_steps = ((n + bs - 1) // bs) * cfg.epochs
-    store = resident_store(cfg, full_data, device)
+    store = resident_store(cfg, full_data, device, kind)
     eval_store = (store if test_data is None
-                  else resident_store(cfg, test_data, device))
+                  else resident_store(cfg, test_data, device, kind))
     models = [apply_pretrained(build_model(cfg.model, device,
                                            seed=cfg.seed + k, kind=kind,
                                            binary_head=binary_head),
@@ -753,17 +783,27 @@ class Prepared2B:
 
 def prepare_2b(cfg: TrainConfig) -> Prepared2B:
     """Manifests and their images decoded at ``image.image_size`` (one
-    channel for the grayscale variant); 2 classes, cross-entropy, and no
-    packing (an image batch has no tokens to pack)."""
+    channel for the grayscale variant; a missing image raises under
+    ``strict_images``); 2 classes, cross-entropy, and no packing (an image
+    batch has no tokens to pack: ``pack_rows`` > 0 warns, as the JAX
+    driver does)."""
     train = read_manifest(cfg.data.train_manifest)
     dev = read_manifest(cfg.data.dev_manifest)
+    if cfg.data.pack_rows > 0:
+        log.warning(
+            "--pack-rows is not supported for the %s driver (packing is "
+            "wired for 2A text and 2C multimodal training) — training "
+            "proceeds UNPACKED", "image")
     mcfg = dataclasses.replace(cfg.model, subtask=Subtask.B, num_classes=2)
     cfg = dataclasses.replace(cfg, model=mcfg, loss=LossType.CROSS_ENTROPY,
                               data=dataclasses.replace(cfg.data, pack_rows=0))
     size, gray = mcfg.image.image_size, mcfg.image.grayscale
-    data = {"image": prepare_images(train, cfg.data.image_root, size, gray),
+    strict = cfg.data.strict_images
+    data = {"image": prepare_images(train, cfg.data.image_root, size, gray,
+                                    strict=strict),
             "label": train.labels}
-    test = {"image": prepare_images(dev, cfg.data.image_root, size, gray),
+    test = {"image": prepare_images(dev, cfg.data.image_root, size, gray,
+                                    strict=strict),
             "label": dev.labels}
     return Prepared2B(cfg, data, test, train.ids, dev.ids)
 
@@ -854,8 +894,9 @@ def prepare_2c(cfg: TrainConfig, out_dir: str,
         text=dataclasses.replace(cfg.model.text,
                                  vocab_size=max(tok.vocab.values()) + 1))
     size = mcfg.image.image_size
-    imgs = {"train": prepare_images(train, cfg.data.image_root, size),
-            "dev": prepare_images(dev, cfg.data.image_root, size)}
+    imgs = {key: prepare_images(split, cfg.data.image_root, size,
+                                strict=cfg.data.strict_images)
+            for key, split in (("train", train), ("dev", dev))}
     cap_tok, caps = None, {}
     if (scratch_captioner and caption_generate_fn is None
             and mcfg.caption is not None):

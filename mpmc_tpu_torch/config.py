@@ -221,13 +221,29 @@ class DataConfig:
 
     train_manifest: str = "data/arabic_memes_propaganda_araieval_24_train.json"
     dev_manifest: str = "data/arabic_memes_propaganda_araieval_24_dev.json"
+    # Declared and never read, as in the JAX package (the dev manifest is
+    # the test split).
+    test_manifest: Optional[str] = None
     image_root: str = "."
     batch_size: int = 16
     eval_batch_size: int = 16         # the Trainer wrapper's eval batches
     num_folds: int = 5                # 2C: 5 folds over train
     fold_seed: int = 42
     fold_over_train_plus_dev: bool = False  # 2A: folds over train+dev
+    # Declared and never read, as in the JAX package: the drivers always
+    # normalize Arabic text (``text/normalize.preprocess_arabic_tweet``).
+    normalize_arabic: bool = True
     cache_dir: str = ".cache"         # caption cache
+    # The corpus vocab of a run without a vocab file: "words" (whole words
+    # by frequency plus character pieces, at most ``corpus_vocab_size``
+    # words) or "subword" (BPE-learned WordPiece pieces,
+    # ``text/wordpiece_learn.py``, ``corpus_vocab_size`` pieces in all).
+    corpus_vocab_mode: str = "words"
+    corpus_vocab_size: int = 30000
+    # Raise on a manifest image missing under ``image_root`` (2B and 2C
+    # training) instead of logging the count and training on synthetic
+    # pixels: for real training and scoring runs.
+    strict_images: bool = False
     # Trim token arrays to the shortest multiple of this covering every real
     # token (``max_*_len`` stays the truncation cap).
     seq_bucket_multiple: int = 64
@@ -235,12 +251,13 @@ class DataConfig:
     # (``train/packed.py``): 2A trains on batches of this many packed rows,
     # 2C packs each batch's text and caption tokens; eval stays unpacked.
     pack_rows: int = 0
-    # The corpus vocab of a run without a vocab file: "words" (whole words
-    # by frequency plus character pieces, at most ``corpus_vocab_size``
-    # words) or "subword" (BPE-learned WordPiece pieces,
-    # ``text/wordpiece_learn.py``, ``corpus_vocab_size`` pieces in all).
-    corpus_vocab_mode: str = "words"
-    corpus_vocab_size: int = 30000
+    # True: the arrays go to the device once and every batch is gathered
+    # there by row index (a train batch ships ``idx`` and ``valid``, packed
+    # 2C its token rows and ``img_idx``; an eval batch ``idx``).  False,
+    # for data that does not fit device memory: every train and eval
+    # batch is copied from the host, pixels included.  Packed 2A is
+    # host-fed either way.  Both modes give the same batches.
+    device_resident: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

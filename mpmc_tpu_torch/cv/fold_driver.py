@@ -4,7 +4,10 @@ of ``mpmc_tpu/cv/fold_driver.py`` on one device).
 The k replicas are stacked on a leading fold axis and every step advances
 all folds (``parallel/fold_parallel.py``); each fold samples batches from
 its own train rows, so a batch is ``[F, B]`` row indices into the
-device-resident data.  The semantics are the JAX driver's:
+device-resident data (``DataConfig.device_resident``) or, host-fed, those
+rows of every array, ``[F, B, ...]``, copied from the host (the JAX
+driver's ``host_batch``); the rows are the same in both modes.  The
+semantics are the JAX driver's:
 
 * mid-epoch evals at the ``check_interval`` cadence, with groups of
   ``cfg.scan_steps`` steps planned so that none straddles an eval
@@ -42,6 +45,7 @@ from mpmc_tpu_torch.config import TrainConfig
 from mpmc_tpu_torch.cv.kfold import stratified_kfold
 from mpmc_tpu_torch.io.scorer import macro_f1
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
+from mpmc_tpu_torch.train import loop
 from mpmc_tpu_torch.train.loop import _scan_group_plan
 from mpmc_tpu_torch.train.metrics import optimal_threshold_youden
 
@@ -62,7 +66,10 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
     ``FoldParallelTrainStep`` over the resident ``full_data``) and
     ``eval_step`` (a ``FoldParallelEvalStep`` over the resident test
     split, or ``full_data`` when ``test_data`` is None), with K steps a
-    dispatch through ``scan_train_step`` when given.
+    dispatch through ``scan_train_step`` when given.  Without
+    ``cfg.data.device_resident`` the steps' stores are empty and every
+    batch carries its rows of ``full_data`` (train) or of the eval split,
+    copied from the host (page-locked on a CUDA ``device``).
 
     ``test_data=None`` selects per-fold held-out eval (the 2A pattern;
     needs ``ids``): fold k is scored on rows ``val_idx[k]`` of
@@ -95,8 +102,17 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
         eval_rows = [rows] * F
         eval_ids = [list(test_ids)] * F
         eval_labels = [test_data.get("label")] * F
+    eval_host = full_data if per_fold_eval else test_data
     scan_k = scan_train_step.k if scan_train_step is not None else 1
     sync = getattr(train_step, "sync", None)
+    resident = cfg.data.device_resident
+    pin = torch.device(device).type == "cuda"
+
+    def rows_of(arrays, idx) -> Dict[str, np.ndarray]:
+        """The batch of rows ``idx``: resident, the indices; host-fed,
+        those rows of every array."""
+        return ({"idx": idx} if resident
+                else {name: arr[idx] for name, arr in arrays.items()})
 
     check_interval = max(steps_per_epoch // max(cfg.eval_per_epoch, 1), 1)
     rngs = [np.random.default_rng(cfg.seed + k) for k in folds]
@@ -122,7 +138,8 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
             pos = np.arange(b * bs, b * bs + bs)
             idx = np.stack([r[np.minimum(pos, len(r) - 1)]
                             for r in eval_rows])
-            p, _ = eval_step({"idx": torch.from_numpy(idx).to(device)})
+            p, _ = eval_step({k: torch.from_numpy(v).to(device)
+                              for k, v in rows_of(eval_host, idx).items()})
             for k in range(F):
                 parts[k].append(p[k])
         return [torch.cat(ps).cpu().numpy()[:V[k]]
@@ -208,16 +225,16 @@ def fit_folds_parallel(cfg: TrainConfig, train_step, eval_step,
             idx = np.stack([fold_rows(perms, step + j) for j in range(g)])
             if sync is not None:        # this rank's rows of every fold's
                 idx = np.ascontiguousarray(idx[..., sync.rows(bs)])
-            valid = np.ones(idx.shape, np.float32)
+            batch = loop._host_tensors(
+                dict(rows_of(full_data, idx),
+                     valid=np.ones(idx.shape, np.float32)),
+                pin and not resident)
             if g == scan_k > 1:
-                pending.append(scan_train_step({
-                    "idx": torch.from_numpy(idx),
-                    "valid": torch.from_numpy(valid)}))
+                pending.append(scan_train_step(batch))
             else:                       # a remainder runs step by step
                 pending += [train_step({
-                    "idx": torch.from_numpy(i).to(device),
-                    "valid": torch.from_numpy(v).to(device)})
-                    for i, v in zip(idx, valid)]
+                    k: v[j].to(device, non_blocking=True)
+                    for k, v in batch.items()}) for j in range(g)]
             step += g
             step_count += g
             if step % check_interval == 0 or step == steps_per_epoch:

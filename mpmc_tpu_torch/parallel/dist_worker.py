@@ -16,7 +16,8 @@ CPU, NCCL on CUDA) and prints ONE json line: ``{"rank", "world",
 "result", "launches", "collectives"}``.  The default target, :func:`run`,
 is the data-parallel step on a fixed GLOBAL batch: the tiny 2C multimodal
 model (BatchNorm heads) trains ``steps`` steps on this rank's rows of
-every global batch, whose last one holds fewer valid rows than rows, and
+every global batch, fed from the host (``device_resident=False``, as the
+JAX worker's config), whose last one holds fewer valid rows than rows, and
 reports the losses and grad norms; one process runs the same steps on the
 whole batch, and a world of N must match it.  Any other ``--target``
 (``"mpmc_tpu_torch.cli.main:main"`` with ``{"argv": [...]}`` runs the
@@ -63,7 +64,8 @@ def run(steps: int = 3, device: str = "cuda") -> Dict:
     dev = distributed.device_for(device)
     mcfg = ModelConfig.tiny_2c()
     B, n = 8, 20                         # the last batch: 4 valid of 8
-    cfg = TrainConfig(model=mcfg, data=DataConfig(batch_size=B),
+    cfg = TrainConfig(model=mcfg,
+                      data=DataConfig(batch_size=B, device_resident=False),
                       learning_rate=1e-3, bf16=dev.type == "cuda")
     rng = np.random.default_rng(0)
     size = mcfg.image.image_size
@@ -73,22 +75,22 @@ def run(steps: int = 3, device: str = "cuda") -> Dict:
             "caption_mask": np.ones((n, mcfg.max_caption_len), np.int64),
             "image": rng.integers(0, 256, (n, size, size, 3), np.uint8),
             "label": rng.integers(0, 2, n)}
-    store = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     model = build_model(mcfg, dev, seed=0)
     layout = make_layout(cfg.mesh, dev)
     sync = None
     if layout is not None:
         set_data_shard(model, layout.data_group)
         sync = GradSync(layout, [k for k, _ in model.named_parameters()])
-    step = build_train_step(model, cfg, steps, store,
+    step = build_train_step(model, cfg, steps, {},
                             torch.Generator(dev).manual_seed(1), sync=sync)
     losses, norms = [], []
     for i in range(steps):
         idx = np.resize(np.arange(i * B, i * B + B) % n, B)
         valid = (np.arange(i * B, i * B + B) < n).astype(np.float32)
         rows = host_local_batch_slice(B)
-        m = step({"idx": torch.from_numpy(idx[rows]).to(dev),
-                  "valid": torch.from_numpy(valid[rows]).to(dev)})
+        batch = {k: v[idx[rows]] for k, v in data.items()}
+        batch["valid"] = valid[rows]
+        m = step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return {"losses": losses, "grad_norms": norms,

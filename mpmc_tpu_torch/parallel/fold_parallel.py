@@ -43,11 +43,15 @@ factored RMS takes its means across the split per fold, and the state is
 gathered whole (``state_dict``, ``fold_state``: the plain model's, which
 ``predict`` reads).
 
-Batches are device-resident, as the JAX package's gather steps: a train
+Batches are device-resident, as the JAX package's gather steps (a train
 batch carries ``idx [F, B]`` rows of the resident store and ``valid [F,
 B]``; an eval batch ``idx [F, B]`` rows of the eval store, each fold its
-own.  With ``scan_steps`` K > 1 the fold-parallel step is captured K at a
-time (``train.graphs.make_scan_train_step``).
+own), or host-fed, as its ``make_fold_parallel_train_step`` and
+``make_fold_parallel_eval_step`` take them (``DataConfig.device_resident``
+False: the steps' stores are empty, and a batch carries the rows
+themselves, ``[F, B, ...]``).  With ``scan_steps`` K > 1 the
+fold-parallel step is captured K at a time
+(``train.graphs.make_scan_train_step``).
 """
 
 from __future__ import annotations
@@ -103,12 +107,19 @@ def unstack_state(stacked: Dict, fold: int) -> Dict:
             for k, v in stacked.items()}
 
 
-def _gather(store: Dict[str, torch.Tensor], idx: torch.Tensor
+def _gather(store: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
             ) -> Dict[str, torch.Tensor]:
-    """Rows ``idx [F, B]`` of every array of the store, ``[F, B, ...]``."""
+    """The batch with its rows ``idx [F, B]`` replaced by those rows of
+    every array of the store, ``[F, B, ...]``; a host-fed batch (no
+    ``idx``) as it is."""
+    b = dict(batch)
+    if "idx" not in b:
+        return b
+    idx = b.pop("idx")
     flat = idx.reshape(-1).long()
-    return {k: v.index_select(0, flat).view(*idx.shape, *v.shape[1:])
-            for k, v in store.items()}
+    b.update({k: v.index_select(0, flat).view(*idx.shape, *v.shape[1:])
+              for k, v in store.items()})
+    return b
 
 
 def _image_flat(fn: Callable, images: torch.Tensor) -> torch.Tensor:
@@ -167,9 +178,11 @@ class _Stacked:
 class FoldParallelTrainStep:
     """One optimizer step of every fold per call: ``step({"idx": [F, B],
     "valid": [F, B]}) -> {"loss": [F], "grad_norm": [F]}`` over the
-    resident ``store`` (the pre-clip norms).  The bf16 policy is the
-    single-fold step's: f32 masters, bf16 compute copies refreshed after
-    each update, gradients widened to f32 exactly."""
+    resident ``store`` (the pre-clip norms), or host-fed, with an empty
+    store, ``step({<array>: [F, B, ...], ..., "valid": [F, B]})``.  The
+    bf16 policy is the single-fold step's: f32 masters, bf16 compute
+    copies refreshed after each update, gradients widened to f32
+    exactly."""
 
     def __init__(self, models: Sequence[nn.Module], cfg: TrainConfig,
                  total_steps: int, store: Dict[str, torch.Tensor],
@@ -224,8 +237,7 @@ class FoldParallelTrainStep:
 
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
-        b = _gather(self.store, batch["idx"])
-        b["valid"] = batch["valid"]
+        b = _gather(self.store, batch)
         sync = self.sync
         if "image" in self.model.inputs:
             augment = lambda x: self.augment(x, self.generator)  # noqa: E731
@@ -309,7 +321,8 @@ class FoldParallelTrainStep:
 class FoldParallelEvalStep:
     """``step({"idx": [F, B], ...}) -> (probs [F, B], loss [F, B])``: each
     fold's model on its own rows of the resident eval ``store`` (the
-    JAX package's ``per_fold_idx``), on compute-dtype copies of the
+    JAX package's ``per_fold_idx``), or host-fed with an empty store on
+    the rows themselves (``[F, B, ...]``), on compute-dtype copies of the
     train step's weights."""
 
     def __init__(self, train: FoldParallelTrainStep,
@@ -321,7 +334,7 @@ class FoldParallelEvalStep:
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         model, cfg = self.train.model, self.train.cfg
         dtype = self.train.dtype
-        b = _gather(self.store, batch["idx"])
+        b = _gather(self.store, batch)
         if "image" in model.inputs:
             b["image"] = _image_flat(lambda x: eval_preprocess(
                 x, grayscale=self.grayscale), b["image"]).to(dtype)

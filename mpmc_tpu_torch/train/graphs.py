@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from mpmc_tpu_torch.ops import build
+from mpmc_tpu_torch.train.step import gather_batch
 
 Batch = Dict[str, torch.Tensor]
 
@@ -92,7 +93,11 @@ class CapturedGraph:
 class GroupedSteps:
     """``run(group) -> {name: [K, ...]}`` for a group of K batches stacked
     on a leading axis (host or device tensors): ``step`` K times, each on
-    the next slice, as one CUDA graph replay on a CUDA ``device``.
+    the next slice, as one CUDA graph replay on a CUDA ``device``.  Graphs
+    are keyed by the group's names, shapes and dtypes, so resident
+    ``idx [K, B]`` groups and host-fed groups of rows (pixels ``[K, B, H,
+    W, C]`` included) each get their own.  :meth:`with_store` gives the
+    same step over a device-resident store.
 
     ``step(batch) -> {name: tensor}`` must keep every piece of state it
     updates at a fixed address (in place) and read nothing back from the
@@ -116,9 +121,25 @@ class GroupedSteps:
         self.pool = pool
         self.graphs: Dict[tuple, CapturedGraph] = {}
         self._tables: Dict[tuple, object] = {}
+        self._stores: Dict[tuple, "GroupedSteps"] = {}
         self.replays = 0
         self.captures = 0
         self._stream = None
+
+    def with_store(self, store: Batch) -> "GroupedSteps":
+        """The K steps of ``step(batch, store)`` (a step that gathers its
+        batch's ``idx`` rows from the device-resident ``store``): a
+        :class:`GroupedSteps` made once per store (by its arrays'
+        addresses), with this one's generators, counter and memory pool
+        and graphs of its own."""
+        key = tuple((n, v.data_ptr()) for n, v in sorted(store.items()))
+        bound = self._stores.get(key)
+        if bound is None:
+            step = self.step
+            bound = self._stores[key] = GroupedSteps(
+                lambda batch: step(batch, store), self.k, self.device,
+                self.generators, self.counter, self.pool)
+        return bound
 
     def _eager(self, group: Batch) -> Batch:
         outs: List[Batch] = []
@@ -241,8 +262,8 @@ def make_scan_train_step(train_step, k: int, pool=None) -> GroupedSteps:
     dispatch: its dropout and augmentation generator registered with the
     graph, its optimizer's count restored after capture and advanced at
     replay.  The batch is any of the step's layouts: row indices and
-    ``valid`` into the resident store, packed rows and ``img_idx``, or
-    host-fed packed rows."""
+    ``valid`` into the resident store, packed rows and ``img_idx``,
+    host-fed packed rows with their pixels, or host-fed rows."""
     return GroupedSteps(train_step, k, train_step.optimizer.device,
                         generators=[train_step.generator],
                         counter=train_step.optimizer, pool=pool)
@@ -250,10 +271,13 @@ def make_scan_train_step(train_step, k: int, pool=None) -> GroupedSteps:
 
 def make_scan_eval_step(eval_step, k: int, device: torch.device,
                         pool=None) -> GroupedSteps:
-    """K eval batches a dispatch: ``{"probs", "loss"}`` ``[K, B]``."""
+    """K eval batches a dispatch: ``{"probs", "loss"}`` ``[K, B]``; its
+    ``with_store(arrays)`` (a device-resident split's) takes batches of
+    ``idx`` rows and gathers them there (``train.step.gather_batch``)."""
 
-    def step(batch: Batch) -> Batch:
-        probs, loss = eval_step(batch)
+    def step(batch: Batch, store: Optional[Batch] = None) -> Batch:
+        probs, loss = eval_step(batch if store is None
+                                else gather_batch(batch, store))
         return {"probs": probs, "loss": loss}
 
     return GroupedSteps(step, k, device, pool=pool)

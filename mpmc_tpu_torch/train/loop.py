@@ -1,10 +1,12 @@
-"""Training and batched evaluation over host arrays (port of
-``batch_iter``, ``prefetch_batches``, ``_scan_group_plan``,
-``_scan_groups``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``),
+"""Training and batched evaluation (port of ``batch_iter``,
+``prefetch_batches``, ``_scan_group_plan``, ``_scan_groups``,
+``DeviceData``, ``run_eval`` and ``fit`` in ``mpmc_tpu/train/loop.py``),
 with exact-state resume from a
 :class:`~mpmc_tpu_torch.train.checkpoint.Checkpointer` and, with
 ``scan_steps`` K > 1, full groups of K steps (or eval batches) as one
-dispatch (``train/graphs.py``)."""
+dispatch (``train/graphs.py``).  Batches are row indices into arrays
+already on the device (``DataConfig.device_resident``, the default) or
+the rows themselves, copied from the host; both give the same batches."""
 
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from mpmc_tpu_torch.config import TrainConfig
 from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
 from mpmc_tpu_torch.io.scorer import accuracy_score, macro_f1
 from mpmc_tpu_torch.train.metrics import optimal_threshold_youden
-from mpmc_tpu_torch.train.step import EvalStep, TrainStep
+from mpmc_tpu_torch.train.step import EvalStep, TrainStep, gather_batch
 
 log = logging.getLogger(__name__)
 
@@ -152,6 +154,16 @@ def _scan_groups(it: Iterator[Tuple[Dict[str, np.ndarray], int]],
 
 
 @dataclasses.dataclass
+class DeviceData:
+    """A split of a device-resident store: ``data``, the arrays on the
+    device (the whole train manifest's, or the test split's), and
+    ``abs_idx``, the split's rows of them.  Its eval batches ship only
+    ``idx`` and are gathered on the device."""
+    data: Dict[str, torch.Tensor]
+    abs_idx: np.ndarray
+
+
+@dataclasses.dataclass
 class EvalResult:
     loss: float
     accuracy: float
@@ -162,17 +174,30 @@ class EvalResult:
 
 def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
              batch_size: int, device: torch.device,
-             scan_eval_step=None) -> EvalResult:
+             scan_eval_step=None, dev: Optional[DeviceData] = None
+             ) -> EvalResult:
     """Full pass, sigmoid probs, ROC/Youden threshold, accuracy and
     macro-F1 (the metrics are NaN and the threshold 0.5 without labels).
     Results stay on the device until the pass ends, so the host never
     waits on the device between batches.  With ``scan_eval_step`` (a
-    ``train.graphs.GroupedSteps`` of K eval batches) and at least K
+    ``train.graphs.make_scan_eval_step`` of K eval batches) and at least K
     batches, each full group of K batches is one dispatch and the
-    remainder runs batch by batch."""
+    remainder runs batch by batch.
+
+    With ``dev`` the split is device-resident: a batch ships its rows
+    ``idx`` of ``dev.data`` and is gathered there
+    (``train.step.gather_batch``); ``data`` gives the labels.  Otherwise
+    the batches are ``data``'s rows, copied from the host."""
     n = len(next(iter(data.values())))
     n_batches = (n + batch_size - 1) // batch_size
-    it = batch_iter(data, batch_size)
+    if dev is not None:
+        if len(dev.abs_idx) != n:
+            raise ValueError(f"the resident split has {len(dev.abs_idx)} "
+                             f"rows, the host split {n}")
+        it = batch_iter({"idx": np.asarray(dev.abs_idx, np.int64)},
+                        batch_size)
+    else:
+        it = batch_iter(data, batch_size)
     k = scan_eval_step.k if scan_eval_step is not None else 1
     if k > 1 and n_batches >= k:
         plan = [k] * (n_batches // k) + ([n_batches % k]
@@ -183,12 +208,14 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
         host = {key: torch.from_numpy(np.ascontiguousarray(v))
                 for key, v in batch.items()}
         if isinstance(n_valid, list):
-            out = scan_eval_step(host)
+            out = (scan_eval_step(host) if dev is None
+                   else scan_eval_step.with_store(dev.data)(host))
             parts += [(out["probs"][j, :nv], out["loss"][j, :nv])
                       for j, nv in enumerate(n_valid)]
             continue
-        probs, loss = eval_step({key: v.to(device)
-                                 for key, v in host.items()})
+        batch = {key: v.to(device) for key, v in host.items()}
+        probs, loss = eval_step(batch if dev is None
+                                else gather_batch(batch, dev.data))
         parts.append((probs[:n_valid], loss[:n_valid]))
     probs = torch.cat([p for p, _ in parts]).cpu().numpy()
     losses = torch.cat([l for _, l in parts]).cpu().numpy()
@@ -224,7 +251,11 @@ def _host_tensors(batch: Dict[str, np.ndarray], pin: bool
     """The batch as CPU tensors, in page-locked memory under ``pin``, so
     that the consumer's copy to the card is asynchronous.  Runs on the
     prefetch thread; the copy itself is issued by the consumer on the
-    current stream, ordered with the steps."""
+    current stream, ordered with the steps.  The page-locked blocks come
+    from PyTorch's caching host allocator: a block goes back to its cache
+    once the copies that read it have run, and the next batch of the same
+    size reuses it, so steady-state batches allocate no new pinned
+    memory."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -244,7 +275,8 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
         train_rows: Optional[np.ndarray] = None,
         on_best: Optional[Callable[[int], None]] = None,
         checkpointer=None, scan_train_step=None,
-        scan_eval_step=None) -> FitResult:
+        scan_eval_step=None, dev_test: Optional[DeviceData] = None,
+        dev_val: Optional[DeviceData] = None) -> FitResult:
     """The epoch loop with the reference's cadence, on one device: eval of
     the test (and val) split ``cfg.eval_per_epoch`` times per epoch and at
     its end, and on a new best test macro-F1 the label and probability
@@ -257,11 +289,16 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     (``<prefix>_val_fold_<k>.tsv``, ids ``val_ids``) follows the same
     rule.
 
-    Batches are the packed plan's (``packed_plan``) or, unpacked, the
-    shuffled ``train_rows`` of the device-resident store as ``idx``; the
-    order comes from ``np.random.default_rng(cfg.seed + fold)`` as in the
-    JAX package.  A background thread (:func:`prefetch_batches`) builds
-    each batch and pins it ahead of the step.  Losses and grad norms are
+    Batches are the packed plan's (``packed_plan``) or, unpacked, under
+    ``cfg.data.device_resident`` the shuffled ``train_rows`` of the
+    train step's resident store as ``idx``, else the same rows of
+    ``train_data`` copied from the host; the order comes from
+    ``np.random.default_rng(cfg.seed + fold)`` as in the JAX package, the
+    same in both modes.  The evals gather their batches on the device
+    from ``dev_test`` and ``dev_val`` (:class:`DeviceData`) when given,
+    else copy them from the host.  A background thread
+    (:func:`prefetch_batches`) builds each batch and pins it ahead of the
+    step.  Losses and grad norms are
     read back at each log or eval point; a non-finite loss writes the
     offending batch (row indices resolved to the fold's rows) and its grad
     norm to ``nonfinite_fold<k>_epoch<e>_batch<b>.npz`` in the working
@@ -296,12 +333,13 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     sync = getattr(train_step, "sync", None)
     writer = is_writer()
     n_train = len(train_data["label"])
+    resident = packed_plan is None and cfg.data.device_resident
     if packed_plan is not None:
         steps_per_epoch = packed_plan.steps_per_epoch
     else:
         steps_per_epoch = (n_train + bs - 1) // bs
-        if train_rows is None:
-            train_rows = np.arange(n_train)
+    if resident and train_rows is None:
+        train_rows = np.arange(n_train)
     check_interval = max(steps_per_epoch // max(cfg.eval_per_epoch, 1), 1)
     data_rng = np.random.default_rng(cfg.seed + fold)
     # Tag the run id when distillation really applies, that is when the
@@ -338,10 +376,10 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             log.info("restored best test F1 %.4f (threshold %.4f): TSVs "
                      "rewrite only on improvement", best_f1, best_thr)
 
-    # Row index -> row of ``train_data``, for the failure dump of an
-    # unpacked batch, which carries only the resident store's row indices.
+    # Row index -> row of ``train_data``, for the failure dump of a
+    # resident batch, which carries only the store's row indices.
     local_of = None
-    if packed_plan is None and len(train_rows):
+    if resident and len(train_rows):
         local_of = np.zeros(int(np.max(train_rows)) + 1, np.int64)
         local_of[train_rows] = np.arange(len(train_rows))
 
@@ -396,7 +434,10 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             if packed_plan is not None:
                 it = packed_plan.epoch_iter(data_rng)
             else:
-                it = batch_iter({"idx": train_rows.astype(np.int64)}, bs,
+                # The same shuffle either way: resident batches carry the
+                # rows' indices, host-fed ones the rows.
+                it = batch_iter({"idx": train_rows.astype(np.int64)}
+                                if resident else train_data, bs,
                                 shuffle=True, rng=data_rng, with_valid=True)
                 if sync is not None:
                     it = (({k: v[sync.rows(bs)] for k, v in b.items()}, n)
@@ -444,7 +485,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                     continue
                 flush()
                 t_res = run_eval(eval_step, test_data, bs, device,
-                                 scan_eval_step)
+                                 scan_eval_step, dev_test)
                 history.append({"epoch": epoch, "batch": bi,
                                 "step": step_count,
                                 "test_f1": t_res.macro_f1,
@@ -456,7 +497,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                 v_res = None
                 if val_data is not None:
                     v_res = run_eval(eval_step, val_data, bs, device,
-                                     scan_eval_step)
+                                     scan_eval_step, dev_val)
                     log.info("  VAL | Epoch [%d] | F1: %.4f", epoch,
                              v_res.macro_f1)
                 if t_res.macro_f1 > best_f1:

@@ -25,7 +25,9 @@ class Trainer:
     """Trains ``model`` (one of the port's classifiers, f32 weights) on the
     numpy ``train_data`` (its input keys and ``label``) on ``device`` (CUDA
     unless given), evaluating on ``eval_data``.  The train arrays stay on
-    the device and batches carry row indices; dropout and augmentation
+    the device and batches carry row indices (under
+    ``cfg.data.device_resident=False`` the batches come from the host);
+    dropout and augmentation
     draw from a generator seeded with ``cfg.seed``.  With
     ``cfg.checkpoint_dir`` every new best is checkpointed, and with
     ``cfg.resume`` the newest checkpoint there is restored first."""
@@ -45,8 +47,9 @@ class Trainer:
         n = len(train_data["label"])
         bs = cfg.data.batch_size
         total_steps = ((n + bs - 1) // bs) * cfg.epochs
-        store = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                 for k, v in train_data.items()}
+        store = ({k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                      self.device) for k, v in train_data.items()}
+                 if cfg.data.device_resident else {})
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._train_step = build_train_step(self.model, cfg, total_steps,
                                             store, generator)
