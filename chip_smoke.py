@@ -273,6 +273,14 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def on_device(torch, e) -> bool:
+    """A device operation among a profile's ``key_averages()``.  The port's
+    ``mpmc.*`` spans are listed on the device too (the GPU annotations of
+    their ranges, timed over the kernels they enclose): left out."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("mpmc."))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -652,7 +660,7 @@ def profile_pass(torch, step, data, top: int):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"  profiled pass: {wall_us / 1e3:.3f} ms wall, kernels "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} % of wall; "
@@ -1150,7 +1158,7 @@ def warm_steps(torch, run, batches, per_step: int, bwd_kernels: int = 1):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_us = sum(e.self_device_time_total for e in events)
     ours_us = sum(e.self_device_time_total for e in events
                   if "attention_" in e.key or "image_normalize" in e.key)
@@ -1270,7 +1278,7 @@ def scan_turns(torch, run, batches):
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.key_averages()
         cuda = [e for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if on_device(torch, e)]
         ours = [e for e in cuda
                 if "attention_" in e.key or "image_normalize" in e.key]
         busy = sum(e.self_device_time_total for e in cuda)
@@ -1553,7 +1561,7 @@ def profiled_share(torch, seen, what: str):
     """The profiled steps of a ``watch_stage`` run: their wall ms, kernel
     ms, and the kernels of this port in them (name -> count)."""
     events = [e for e in seen["prof"].key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     ours = {e.key: e.count for e in events
             if "attention_" in e.key or "image_normalize" in e.key}
@@ -2877,7 +2885,7 @@ def phase_caption_generate(torch, work: str):
         gen_fn(images[:CAPTION_BATCH])
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  scratch captioner over {len(paths)} images at 224 (ViT 2 x "
           f"128, 4 heads; decoder 2 x 128, 6 heads of 21; 24 tokens; vocab "
@@ -3560,7 +3568,7 @@ def phase_extract_features(torch, work: str, ckpts):
         EF.encode_texts(enc, tok_ids, mask, 32, dev)
         pass_ms = (time.perf_counter() - t1) * 1e3
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     del net, enc
     torch.cuda.empty_cache()
@@ -4970,7 +4978,7 @@ def profiled_call(torch, fn, what: str):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall_ms = synced(torch, fn)
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
     print(f"  {what}: {wall_ms:.3f} ms wall, kernels {busy_ms:.3f} ms "
@@ -5571,7 +5579,7 @@ def _tp_fold_bf16(torch, cfg, data, layout, dev):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     ours = {re.search(r"attention_[a-z0-9_]*kernel", e.key).group(0):
             e.count for e in events if "attention_" in e.key}
@@ -5808,7 +5816,7 @@ def group_timing(torch, seen, k: int) -> dict:
     and that replay's busy share."""
     averages = seen["prof"].key_averages()
     events = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if on_device(torch, e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     wall_ms = seen["group_ms"][1]
     return dict(warm_step_ms=wall_ms / k, profiled_wall_ms=wall_ms, profiled_kernel_ms=busy_ms,

@@ -45,6 +45,7 @@ from mpmc_tpu_torch.parallel.distributed import (is_writer, on_rank0,
                                                  rank0_first)
 from mpmc_tpu_torch.text.normalize import preprocess_arabic_tweet
 from mpmc_tpu_torch.text.wordpiece import WordPieceTokenizer
+from mpmc_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -330,7 +331,8 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
     this rank's part of each batch, BatchNorm and dropout work on the
     global batch (``models.norm.set_data_shard``), the steps combine the
     ranks (``train.step.GradSync``), and the model is split as the layout
-    says (:func:`shard_model`)."""
+    says (:func:`shard_model`).  The build is the ``utils.profiling``
+    span ``mpmc.fold.build``."""
     from mpmc_tpu_torch.models.classifier import build_model
     from mpmc_tpu_torch.models.pretrained import apply_pretrained
     from mpmc_tpu_torch.train.packed import (PackedMultimodalPlan,
@@ -338,68 +340,71 @@ def build_fold(cfg: TrainConfig, train_d: Dict[str, np.ndarray],
     from mpmc_tpu_torch.train.step import (TrainStep, build_train_step,
                                            make_eval_step)
 
-    bs = cfg.data.batch_size
-    packing = cfg.data.pack_rows > 0
-    shard = (0, 1) if layout is None else (layout.data_rank,
-                                           layout.data_size)
-    plan = None
-    if packing and kind == "text":
-        plan = PackedTrainPlan(train_d, pack_len=train_d["text_ids"].shape[1],
-                               rows_per_batch=cfg.data.pack_rows,
-                               shard=shard)
-    elif packing:
-        resident = cfg.data.device_resident
-        plan = PackedMultimodalPlan(train_d, batch_size=bs,
-                                    abs_idx=tr_idx if resident else None,
-                                    resident_images=resident, shard=shard)
-    steps_per_epoch = (plan.steps_per_epoch if plan is not None
-                       else (len(tr_idx) + bs - 1) // bs)
-    model = apply_pretrained(build_model(cfg.model, device, seed=cfg.seed,
-                                         kind=kind, packed=packing,
-                                         binary_head=binary_head),
-                             kind, pretrained)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + fold)
-    embed_support = None
-    if cfg.embedding_optimizer == "sparse" and plan is None:
-        # The exact bound of an unpacked run: a step touches at most
-        # batch_size x bucketed length rows of each table.  Packed rows
-        # vary by epoch, so packed runs keep the config's bound.
-        lens = [train_d[k].shape[-1] for k in ("text_ids", "caption_ids")
-                if k in train_d]
-        if lens:
-            embed_support = bs * max(lens)
-    sync = None
-    if layout is not None:
-        from mpmc_tpu_torch.models.norm import set_data_shard
-        from mpmc_tpu_torch.train.step import GradSync
-        model = shard_model(model, cfg, layout)
-        set_data_shard(model, layout.data_group)
-        sync = GradSync(layout, [n for n, _ in model.named_parameters()],
-                        getattr(model, "sharded_params", ()))
-    step_cls = TrainStep
-    if layout is not None and layout.inner == cfg.mesh.stage_axis:
-        from mpmc_tpu_torch.parallel.pp import PipelineTrainStep as step_cls
-    elif layout is not None and layout.inner == cfg.mesh.model_axis:
-        from mpmc_tpu_torch.parallel.tp import (
-            TensorParallelTrainStep as step_cls)
-    train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
-                                  store, generator, augment, embed_support,
-                                  sync, step_cls=step_cls)
-    eval_step = make_eval_step(model, cfg, grayscale=grayscale,
-                               cast_in_place=False)
-    if sync is not None:
-        eval_step = sync.eval_step(eval_step)
-    run = FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
-    if cfg.scan_steps > 1:
-        from mpmc_tpu_torch.train.graphs import (graph_pool,
-                                                 make_scan_eval_step,
-                                                 make_scan_train_step)
-        pool = graph_pool(device)
-        run.scan_train_step = make_scan_train_step(train_step,
-                                                   cfg.scan_steps, pool)
-        run.scan_eval_step = make_scan_eval_step(eval_step, cfg.scan_steps,
-                                                 device, pool)
-    return run
+    with span("mpmc.fold.build", fold=fold):
+        bs = cfg.data.batch_size
+        packing = cfg.data.pack_rows > 0
+        shard = (0, 1) if layout is None else (layout.data_rank,
+                                               layout.data_size)
+        plan = None
+        if packing and kind == "text":
+            plan = PackedTrainPlan(train_d,
+                                   pack_len=train_d["text_ids"].shape[1],
+                                   rows_per_batch=cfg.data.pack_rows,
+                                   shard=shard)
+        elif packing:
+            resident = cfg.data.device_resident
+            plan = PackedMultimodalPlan(train_d, batch_size=bs,
+                                        abs_idx=tr_idx if resident else None,
+                                        resident_images=resident, shard=shard)
+        steps_per_epoch = (plan.steps_per_epoch if plan is not None
+                           else (len(tr_idx) + bs - 1) // bs)
+        model = apply_pretrained(build_model(cfg.model, device, seed=cfg.seed,
+                                             kind=kind, packed=packing,
+                                             binary_head=binary_head),
+                                 kind, pretrained)
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + fold)
+        embed_support = None
+        if cfg.embedding_optimizer == "sparse" and plan is None:
+            # The exact bound of an unpacked run: a step touches at most
+            # batch_size x bucketed length rows of each table.  Packed rows
+            # vary by epoch, so packed runs keep the config's bound.
+            lens = [train_d[k].shape[-1] for k in ("text_ids", "caption_ids")
+                    if k in train_d]
+            if lens:
+                embed_support = bs * max(lens)
+        sync = None
+        if layout is not None:
+            from mpmc_tpu_torch.models.norm import set_data_shard
+            from mpmc_tpu_torch.train.step import GradSync
+            model = shard_model(model, cfg, layout)
+            set_data_shard(model, layout.data_group)
+            sync = GradSync(layout, [n for n, _ in model.named_parameters()],
+                            getattr(model, "sharded_params", ()))
+        step_cls = TrainStep
+        if layout is not None and layout.inner == cfg.mesh.stage_axis:
+            from mpmc_tpu_torch.parallel.pp import (
+                PipelineTrainStep as step_cls)
+        elif layout is not None and layout.inner == cfg.mesh.model_axis:
+            from mpmc_tpu_torch.parallel.tp import (
+                TensorParallelTrainStep as step_cls)
+        train_step = build_train_step(model, cfg, steps_per_epoch * cfg.epochs,
+                                      store, generator, augment, embed_support,
+                                      sync, step_cls=step_cls)
+        eval_step = make_eval_step(model, cfg, grayscale=grayscale,
+                                   cast_in_place=False)
+        if sync is not None:
+            eval_step = sync.eval_step(eval_step)
+        run = FoldRun(model, plan, train_step, eval_step, steps_per_epoch)
+        if cfg.scan_steps > 1:
+            from mpmc_tpu_torch.train.graphs import (graph_pool,
+                                                     make_scan_eval_step,
+                                                     make_scan_train_step)
+            pool = graph_pool(device)
+            run.scan_train_step = make_scan_train_step(train_step,
+                                                       cfg.scan_steps, pool)
+            run.scan_eval_step = make_scan_eval_step(eval_step, cfg.scan_steps,
+                                                     device, pool)
+        return run
 
 
 def resident_store(cfg: TrainConfig, full_data: Dict[str, np.ndarray],

@@ -24,6 +24,11 @@ through :class:`CapturedGraph`; they differ only in when they capture.
 
 A capture that fails raises; nothing falls back to eager steps.  On the
 CPU there are no graphs: a group is K eager calls of the same step.
+
+Each boundary is a ``utils.profiling`` span, named by the group's role
+(``train`` or ``eval``): ``mpmc.<role>.warm`` (the eager first group),
+``mpmc.graph.capture``, ``mpmc.<role>.replay``, ``mpmc.<role>.eager`` (a
+group on the CPU) and ``mpmc.h2d`` (the copies of a group's inputs).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch import nn
 
 from mpmc_tpu_torch.ops import build
 from mpmc_tpu_torch.train.step import gather_batch
+from mpmc_tpu_torch.utils.profiling import h2d, span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -61,29 +67,34 @@ class CapturedGraph:
     inside it counted into ``tally``.  Capture does no work.
     :meth:`replay` copies new values into the static inputs, replays, adds
     ``tally`` to the launch counts and returns a copy of the outputs (the
-    next replay overwrites them).  A capture that fails raises."""
+    next replay overwrites them).  A capture that fails raises.  The
+    capture, instantiation included, is the span ``mpmc.graph.capture``
+    with its ``role``."""
 
     def __init__(self, fn: Callable[[Batch], Batch], inputs: Batch,
                  stream: torch.cuda.Stream, pool=None,
-                 generators: Sequence[torch.Generator] = ()):
-        self.inputs = {n: torch.empty(v.shape, dtype=v.dtype,
-                                      device=stream.device)
-                       for n, v in inputs.items()}
-        for n, buf in self.inputs.items():
-            buf.copy_(inputs[n], non_blocking=True)
-        torch.cuda.synchronize(stream.device)
-        self.graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            self.graph.register_generator_state(gen)
-        with build.capturing() as tally, torch.cuda.graph(
-                self.graph, pool=pool, stream=stream):
-            self.outputs = fn(self.inputs)
+                 generators: Sequence[torch.Generator] = (), *, role: str):
+        with span("mpmc.graph.capture", role=role):
+            self.inputs = {n: torch.empty(v.shape, dtype=v.dtype,
+                                          device=stream.device)
+                           for n, v in inputs.items()}
+            with h2d(inputs.values()):
+                for n, buf in self.inputs.items():
+                    buf.copy_(inputs[n], non_blocking=True)
+            torch.cuda.synchronize(stream.device)
+            self.graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                self.graph.register_generator_state(gen)
+            with build.capturing() as tally, torch.cuda.graph(
+                    self.graph, pool=pool, stream=stream):
+                self.outputs = fn(self.inputs)
         self.tally = dict(tally)
         self.replays = 0
 
     def replay(self, values: Batch) -> Batch:
-        for n, buf in self.inputs.items():
-            buf.copy_(values[n], non_blocking=True)
+        with h2d(values.values()):
+            for n, buf in self.inputs.items():
+                buf.copy_(values[n], non_blocking=True)
         self.graph.replay()
         build.add_launches(self.tally)
         self.replays += 1
@@ -93,11 +104,11 @@ class CapturedGraph:
 class GroupedSteps:
     """``run(group) -> {name: [K, ...]}`` for a group of K batches stacked
     on a leading axis (host or device tensors): ``step`` K times, each on
-    the next slice, as one CUDA graph replay on a CUDA ``device``.  Graphs
-    are keyed by the group's names, shapes and dtypes, so resident
-    ``idx [K, B]`` groups and host-fed groups of rows (pixels ``[K, B, H,
-    W, C]`` included) each get their own.  :meth:`with_store` gives the
-    same step over a device-resident store.
+    the next slice, as one CUDA graph replay on a CUDA ``device``
+    (``graphed``).  Graphs are keyed by the group's names, shapes and
+    dtypes, so resident ``idx [K, B]`` groups and host-fed groups of rows
+    (pixels ``[K, B, H, W, C]`` included) each get their own.
+    :meth:`with_store` gives the same step over a device-resident store.
 
     ``step(batch) -> {name: tensor}`` must keep every piece of state it
     updates at a fixed address (in place) and read nothing back from the
@@ -107,15 +118,20 @@ class GroupedSteps:
     advanced by K at each replay, and its ``ensure_steps`` makes its
     per-step tables cover the group before the capture and each replay.
     ``pool`` is the run's shared graph memory pool (a
-    ``torch.cuda.graph_pool_handle``)."""
+    ``torch.cuda.graph_pool_handle``).  ``role`` (``train`` or ``eval``)
+    names the group's spans."""
 
     def __init__(self, step: Callable[[Batch], Batch], k: int,
                  device: torch.device,
                  generators: Sequence[torch.Generator] = (),
-                 counter=None, pool=None):
+                 counter=None, pool=None, role: str = "train"):
         if k < 2:
             raise ValueError(f"a group needs K >= 2 steps, got {k}")
         self.step, self.k, self.device = step, k, torch.device(device)
+        self.graphed = self.device.type == "cuda"
+        self.role = role
+        self.warm_span, self.replay_span, self.eager_span = (
+            f"mpmc.{role}.{w}" for w in ("warm", "replay", "eager"))
         self.generators = list(generators)
         self.counter = counter
         self.pool = pool
@@ -138,14 +154,16 @@ class GroupedSteps:
             step = self.step
             bound = self._stores[key] = GroupedSteps(
                 lambda batch: step(batch, store), self.k, self.device,
-                self.generators, self.counter, self.pool)
+                self.generators, self.counter, self.pool, self.role)
         return bound
 
     def _eager(self, group: Batch) -> Batch:
         outs: List[Batch] = []
         for j in range(self.k):
-            outs.append(self.step({n: v[j].to(self.device, non_blocking=True)
-                                   for n, v in group.items()}))
+            with h2d(v[j] for v in group.values()):
+                batch = {n: v[j].to(self.device, non_blocking=True)
+                         for n, v in group.items()}
+            outs.append(self.step(batch))
         return {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
 
     def _steps(self, inputs: Batch) -> Batch:
@@ -159,19 +177,21 @@ class GroupedSteps:
         if lead != {self.k}:
             raise ValueError(f"a group of {self.k} steps, got leading dims "
                              f"{sorted(lead)}")
-        if self.device.type != "cuda":
-            return self._eager(group)
+        if not self.graphed:
+            with span(self.eager_span, k=self.k):
+                return self._eager(group)
         key = tuple((n, tuple(v.shape), v.dtype)
                     for n, v in sorted(group.items()))
         entry = self.graphs.get(key)
         if entry is None:
             return self._warm_and_capture(key, group)
-        if self.counter is not None:
-            self.counter.ensure_steps(self.counter.count + self.k)
-            if self.counter.tables is not self._tables[key]:
-                raise RuntimeError("the optimizer's per-step tables grew "
-                                   "after the graph was captured")
-        out = entry.replay(group)
+        with span(self.replay_span, k=self.k):
+            if self.counter is not None:
+                self.counter.ensure_steps(self.counter.count + self.k)
+                if self.counter.tables is not self._tables[key]:
+                    raise RuntimeError("the optimizer's per-step tables "
+                                       "grew after the graph was captured")
+            out = entry.replay(group)
         self.replays += 1
         if self.counter is not None:
             self.counter.count += self.k
@@ -182,13 +202,15 @@ class GroupedSteps:
         graph of K steps over static inputs of this shape."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        result = warm(self._stream, self._eager, group)
+        with span(self.warm_span, k=self.k):
+            result = warm(self._stream, self._eager, group)
         count = None
         if self.counter is not None:
             self.counter.ensure_steps(self.counter.count + self.k)
             count = self.counter.count
         self.graphs[key] = CapturedGraph(self._steps, group, self._stream,
-                                         self.pool, self.generators)
+                                         self.pool, self.generators,
+                                         role=self.role)
         if self.counter is not None:
             self.counter.count = count
             self._tables[key] = self.counter.tables
@@ -245,8 +267,8 @@ class GraphedCall:
                 return warm(self._stream, call, values)["out"]
             entry = self.graphs.get(key)
             if entry is None:
-                entry = self.graphs[key] = CapturedGraph(call, values,
-                                                         self._stream)
+                entry = self.graphs[key] = CapturedGraph(
+                    call, values, self._stream, role="decode")
                 self._addresses_at[key] = self._addresses()
                 self.captures += 1
             if self._addresses() != self._addresses_at[key]:
@@ -266,7 +288,8 @@ def make_scan_train_step(train_step, k: int, pool=None) -> GroupedSteps:
     host-fed packed rows with their pixels, or host-fed rows."""
     return GroupedSteps(train_step, k, train_step.optimizer.device,
                         generators=[train_step.generator],
-                        counter=train_step.optimizer, pool=pool)
+                        counter=train_step.optimizer, pool=pool,
+                        role="train")
 
 
 def make_scan_eval_step(eval_step, k: int, device: torch.device,
@@ -280,7 +303,7 @@ def make_scan_eval_step(eval_step, k: int, device: torch.device,
                                 else gather_batch(batch, store))
         return {"probs": probs, "loss": loss}
 
-    return GroupedSteps(step, k, device, pool=pool)
+    return GroupedSteps(step, k, device, pool=pool, role="eval")
 
 
 def graph_pool(device: torch.device) -> Optional[object]:

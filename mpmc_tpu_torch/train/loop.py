@@ -24,6 +24,7 @@ from mpmc_tpu_torch.io.tsv import write_label_tsv, write_prob_tsv
 from mpmc_tpu_torch.io.scorer import accuracy_score, macro_f1
 from mpmc_tpu_torch.train.metrics import optimal_threshold_youden
 from mpmc_tpu_torch.train.step import EvalStep, TrainStep, gather_batch
+from mpmc_tpu_torch.utils.profiling import h2d, span
 
 log = logging.getLogger(__name__)
 
@@ -68,8 +69,8 @@ def prefetch_batches(it: Iterator[Tuple[Dict[str, np.ndarray], int]],
 
     ``stats`` (updated in place) counts ``gets`` (batches consumed),
     ``empty_gets`` (the queue was empty when the consumer asked: the
-    producer fell behind), ``wait_s`` (consumer time blocked on the queue)
-    and ``put_s`` (producer time inside ``put``)."""
+    producer fell behind) and ``wait_s`` (consumer time blocked on the
+    queue)."""
     import queue
     import threading
 
@@ -80,14 +81,7 @@ def prefetch_batches(it: Iterator[Tuple[Dict[str, np.ndarray], int]],
     def producer():
         try:
             for batch, n_valid in it:
-                if stats is not None:
-                    p0 = time.perf_counter()
-                    dev = put(batch)
-                    stats["put_s"] = (stats.get("put_s", 0.0)
-                                      + time.perf_counter() - p0)
-                    q.put((dev, batch, n_valid))
-                else:
-                    q.put((put(batch), batch, n_valid))
+                q.put((put(batch), batch, n_valid))
         except BaseException as e:  # surface on the consumer thread
             errs.append(e)
         q.put(STOP)
@@ -187,46 +181,56 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
     With ``dev`` the split is device-resident: a batch ships its rows
     ``idx`` of ``dev.data`` and is gathered there
     (``train.step.gather_batch``); ``data`` gives the labels.  Otherwise
-    the batches are ``data``'s rows, copied from the host."""
+    the batches are ``data``'s rows, copied from the host.
+
+    The pass is the ``utils.profiling`` span ``mpmc.eval.run``
+    (``rows``); its batch-by-batch remainder ``mpmc.eval.eager``, each
+    copy ``mpmc.h2d``, and the read of the results ``mpmc.sync``."""
     n = len(next(iter(data.values())))
-    n_batches = (n + batch_size - 1) // batch_size
-    if dev is not None:
-        if len(dev.abs_idx) != n:
-            raise ValueError(f"the resident split has {len(dev.abs_idx)} "
-                             f"rows, the host split {n}")
-        it = batch_iter({"idx": np.asarray(dev.abs_idx, np.int64)},
-                        batch_size)
-    else:
-        it = batch_iter(data, batch_size)
-    k = scan_eval_step.k if scan_eval_step is not None else 1
-    if k > 1 and n_batches >= k:
-        plan = [k] * (n_batches // k) + ([n_batches % k]
-                                         if n_batches % k else [])
-        it = _scan_groups(it, plan, k)
-    parts = []
-    for batch, n_valid in it:
-        host = {key: torch.from_numpy(np.ascontiguousarray(v))
-                for key, v in batch.items()}
-        if isinstance(n_valid, list):
-            out = (scan_eval_step(host) if dev is None
-                   else scan_eval_step.with_store(dev.data)(host))
-            parts += [(out["probs"][j, :nv], out["loss"][j, :nv])
-                      for j, nv in enumerate(n_valid)]
-            continue
-        batch = {key: v.to(device) for key, v in host.items()}
-        probs, loss = eval_step(batch if dev is None
-                                else gather_batch(batch, dev.data))
-        parts.append((probs[:n_valid], loss[:n_valid]))
-    probs = torch.cat([p for p, _ in parts]).cpu().numpy()
-    losses = torch.cat([l for _, l in parts]).cpu().numpy()
-    labels = data.get("label")
-    if labels is None:
-        return EvalResult(float("nan"), float("nan"), float("nan"), 0.5, probs)
-    labels = np.asarray(labels)
-    thr = optimal_threshold_youden(labels, probs)
-    pred = (probs > thr).astype(int)
-    return EvalResult(float(losses.mean()), accuracy_score(labels, pred),
-                      macro_f1(labels, pred), thr, probs)
+    with span("mpmc.eval.run", rows=n):
+        n_batches = (n + batch_size - 1) // batch_size
+        if dev is not None:
+            if len(dev.abs_idx) != n:
+                raise ValueError(f"the resident split has "
+                                 f"{len(dev.abs_idx)} rows, the host "
+                                 f"split {n}")
+            it = batch_iter({"idx": np.asarray(dev.abs_idx, np.int64)},
+                            batch_size)
+        else:
+            it = batch_iter(data, batch_size)
+        k = scan_eval_step.k if scan_eval_step is not None else 1
+        if k > 1 and n_batches >= k:
+            plan = [k] * (n_batches // k) + ([n_batches % k]
+                                             if n_batches % k else [])
+            it = _scan_groups(it, plan, k)
+        parts = []
+        for batch, n_valid in it:
+            host = {key: torch.from_numpy(np.ascontiguousarray(v))
+                    for key, v in batch.items()}
+            if isinstance(n_valid, list):
+                out = (scan_eval_step(host) if dev is None
+                       else scan_eval_step.with_store(dev.data)(host))
+                parts += [(out["probs"][j, :nv], out["loss"][j, :nv])
+                          for j, nv in enumerate(n_valid)]
+                continue
+            with span("mpmc.eval.eager"):
+                with h2d(host.values()):
+                    batch = {key: v.to(device) for key, v in host.items()}
+                probs, loss = eval_step(batch if dev is None
+                                        else gather_batch(batch, dev.data))
+            parts.append((probs[:n_valid], loss[:n_valid]))
+        with span("mpmc.sync", where="eval"):
+            probs = torch.cat([p for p, _ in parts]).cpu().numpy()
+            losses = torch.cat([l for _, l in parts]).cpu().numpy()
+        labels = data.get("label")
+        if labels is None:
+            return EvalResult(float("nan"), float("nan"), float("nan"), 0.5,
+                              probs)
+        labels = np.asarray(labels)
+        thr = optimal_threshold_youden(labels, probs)
+        pred = (probs > thr).astype(int)
+        return EvalResult(float(losses.mean()), accuracy_score(labels, pred),
+                          macro_f1(labels, pred), thr, probs)
 
 
 @dataclasses.dataclass
@@ -236,7 +240,7 @@ class FitResult:
     history: List[Dict]            # one entry per eval
     steps: List[Dict[str, float]]  # per step: loss, grad_norm
     # prefetch_batches' stall counters over the run: gets, empty_gets,
-    # wait_s, put_s.
+    # wait_s.
     input_pipeline: Dict[str, float] = dataclasses.field(
         default_factory=dict)
 
@@ -305,7 +309,10 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     directory, then raises ``FloatingPointError``.  With
     ``cfg.profile_dir`` dispatches 3 to 5 of epoch 0 run under the
     profiler, whose trace goes there.  Each epoch ends with a log of its
-    items/s, p50 ms a step and the input wait.
+    items/s (the rows it trained over its seconds, evals included) and
+    the input wait.  The loop's layer boundaries are ``utils.profiling``
+    spans: the single steps (``mpmc.train.eager``), their copies
+    (``mpmc.h2d``) and the reads of the losses (``mpmc.sync``).
 
     With ``scan_train_step`` (``train.graphs.make_scan_train_step`` over
     ``train_step``, K = ``cfg.scan_steps`` > 1) the epoch runs by the
@@ -398,9 +405,10 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     def flush():
         if not pending:
             return
-        vals = torch.cat([torch.stack([m["loss"].reshape(-1),
-                                       m["grad_norm"].reshape(-1)], 1)
-                          for _, _, m, _ in pending]).cpu().numpy()
+        with span("mpmc.sync", where="flush"):
+            vals = torch.cat([torch.stack([m["loss"].reshape(-1),
+                                           m["grad_norm"].reshape(-1)], 1)
+                              for _, _, m, _ in pending]).cpu().numpy()
         row = 0
         for ep, bi_, m, host_batch in pending:
             size = m["loss"].numel()
@@ -420,8 +428,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
             row += size
         pending.clear()
 
-    from mpmc_tpu_torch.utils.profiling import StepTimer, trace
-    timer = StepTimer()
+    from mpmc_tpu_torch.utils.profiling import trace
     pf_stats: Dict[str, float] = {}
     pin = device.type == "cuda"
     dispatch_no = 0
@@ -430,6 +437,7 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
             first = len(steps)
+            rows = 0
             pf_at_start = dict(pf_stats)
             if packed_plan is not None:
                 it = packed_plan.epoch_iter(data_rng)
@@ -467,11 +475,14 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                 if group > 1:
                     metrics = scan_train_step(host)
                 else:
-                    metrics = train_step({k: v.to(device, non_blocking=True)
-                                          for k, v in host.items()})
+                    with span("mpmc.train.eager"):
+                        with h2d(host.values()):
+                            batch = {k: v.to(device, non_blocking=True)
+                                     for k, v in host.items()}
+                        metrics = train_step(batch)
                 prev_bi, bi = bi, bi + group
                 step_count += group
-                timer.tick(group)
+                rows += sum(n_valid) if group > 1 else n_valid
                 pending.append((epoch, bi, metrics, host_batch))
                 if bi // LOG_EVERY > prev_bi // LOG_EVERY:
                     flush()
@@ -530,18 +541,17 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                 profiler.close()
                 log.info("profiler trace written to %s", cfg.profile_dir)
             losses = [m["loss"] for m in steps[first:]]
-            stats = timer.stats(batch_size=bs)
+            seconds = time.time() - t0
             gets = int(pf_stats.get("gets", 0) - pf_at_start.get("gets", 0))
             wait_s = (pf_stats.get("wait_s", 0.0)
                       - pf_at_start.get("wait_s", 0.0))
             empty = int(pf_stats.get("empty_gets", 0)
                         - pf_at_start.get("empty_gets", 0))
             log.info("TRAIN | Epoch [%d] done in %.1fs | loss %.4f | "
-                     "%.1f items/s (p50 %.0f ms/step) | input-wait %.2f ms/"
-                     "dispatch (%d/%d empty gets)", epoch, time.time() - t0,
+                     "%.1f items/s | input-wait %.2f ms/dispatch (%d/%d "
+                     "empty gets)", epoch, seconds,
                      float(np.mean(losses)) if losses else float("nan"),
-                     stats.get("items_per_sec", 0.0),
-                     stats.get("step_ms_p50", 0.0),
+                     rows / seconds if seconds > 0 else 0.0,
                      1e3 * wait_s / max(gets, 1), empty, gets)
     return FitResult(best_f1, best_thr, history, steps,
                      input_pipeline=dict(pf_stats))

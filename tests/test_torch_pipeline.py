@@ -133,8 +133,9 @@ def test_prefetch_yields_every_batch_once_in_order(depth):
     assert [n for _, _, n in got] == [8, 8, 8, 8, 5]
     for s in (stats, j_stats):
         assert s["gets"] == 5 and 0 <= s["empty_gets"] <= 5
-        assert s["wait_s"] >= 0 and s["put_s"] >= 0
-    assert set(stats) == set(j_stats)
+        assert s["wait_s"] >= 0
+    # The JAX loop also times its producer (put_s), which nothing reads.
+    assert set(stats) == set(j_stats) - {"put_s"}
 
 
 def test_prefetch_surfaces_a_producer_exception_after_earlier_batches():
