@@ -22,25 +22,33 @@ replay can overwrite them.  All graphs of a run share one memory pool.
 Both classes warm up with :func:`warm` and capture, count and replay
 through :class:`CapturedGraph`; they differ only in when they capture.
 
+A step or eval batch outside a full group (the rest of an eval interval,
+or of an eval pass, after its groups of K) goes through
+:meth:`GroupedSteps.single`: a CUDA graph of one step, captured per input
+shape in the same way after an eager first call, and replayed after.
+
 A capture that fails raises; nothing falls back to eager steps.  On the
-CPU there are no graphs: a group is K eager calls of the same step.
+CPU there are no graphs: a group is K eager calls of the same step, and a
+single step the step itself.
 
 Each boundary is a ``utils.profiling`` span, named by the group's role
-(``train`` or ``eval``): ``mpmc.<role>.warm`` (the eager first group),
-``mpmc.graph.capture``, ``mpmc.<role>.replay``, ``mpmc.<role>.eager`` (a
-group on the CPU) and ``mpmc.h2d`` (the copies of a group's inputs).
+(``train`` or ``eval``) and with the steps it runs as ``k`` (1 for a
+single step): ``mpmc.<role>.warm`` (the eager first call of a shape),
+``mpmc.graph.capture``, ``mpmc.<role>.replay``, ``mpmc.<role>.eager`` (on
+the CPU) and ``mpmc.h2d`` (the copies of the inputs).  The counter
+``graph.<role>.single`` counts the single-step replays.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from mpmc_tpu_torch.ops import build
 from mpmc_tpu_torch.train.step import gather_batch
-from mpmc_tpu_torch.utils.profiling import h2d, span
+from mpmc_tpu_torch.utils.profiling import count, h2d, span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -105,21 +113,25 @@ class GroupedSteps:
     """``run(group) -> {name: [K, ...]}`` for a group of K batches stacked
     on a leading axis (host or device tensors): ``step`` K times, each on
     the next slice, as one CUDA graph replay on a CUDA ``device``
-    (``graphed``).  Graphs are keyed by the group's names, shapes and
-    dtypes, so resident ``idx [K, B]`` groups and host-fed groups of rows
-    (pixels ``[K, B, H, W, C]`` included) each get their own.
-    :meth:`with_store` gives the same step over a device-resident store.
+    (``graphed``).  :meth:`single` runs one batch the same way, as the
+    replay of a graph of one step.  Graphs are keyed by the number of
+    steps and the inputs' names, shapes and dtypes, so resident ``idx [K,
+    B]`` groups and host-fed groups of rows (pixels ``[K, B, H, W, C]``
+    included) each get their own.  :meth:`with_store` gives the same step
+    over a device-resident store.
 
     ``step(batch) -> {name: tensor}`` must keep every piece of state it
     updates at a fixed address (in place) and read nothing back from the
     device.  ``generators`` are the step's random generators.  ``counter``
     (the optimizer) has a host mirror ``count`` of a step count that the
-    step advances on the device: it is restored after the capture and
-    advanced by K at each replay, and its ``ensure_steps`` makes its
-    per-step tables cover the group before the capture and each replay.
-    ``pool`` is the run's shared graph memory pool (a
+    step advances on the device: it is restored after a capture and
+    advanced by the graph's steps at each replay, and its ``ensure_steps``
+    makes its per-step tables cover them before the capture and each
+    replay.  ``pool`` is the run's shared graph memory pool (a
     ``torch.cuda.graph_pool_handle``).  ``role`` (``train`` or ``eval``)
-    names the group's spans."""
+    names the spans.  ``replays`` counts the replays of whole groups,
+    ``single_replays`` those of single steps, ``captures`` both kinds'
+    captures."""
 
     def __init__(self, step: Callable[[Batch], Batch], k: int,
                  device: torch.device,
@@ -139,6 +151,7 @@ class GroupedSteps:
         self._tables: Dict[tuple, object] = {}
         self._stores: Dict[tuple, "GroupedSteps"] = {}
         self.replays = 0
+        self.single_replays = 0
         self.captures = 0
         self._stream = None
 
@@ -157,13 +170,16 @@ class GroupedSteps:
                 self.generators, self.counter, self.pool, self.role)
         return bound
 
+    def _one(self, batch: Batch) -> Batch:
+        """One step, its batch copied to the device first."""
+        with h2d(batch.values()):
+            batch = {n: v.to(self.device, non_blocking=True)
+                     for n, v in batch.items()}
+        return self.step(batch)
+
     def _eager(self, group: Batch) -> Batch:
-        outs: List[Batch] = []
-        for j in range(self.k):
-            with h2d(v[j] for v in group.values()):
-                batch = {n: v[j].to(self.device, non_blocking=True)
-                         for n, v in group.items()}
-            outs.append(self.step(batch))
+        outs = [self._one({n: v[j] for n, v in group.items()})
+                for j in range(self.k)]
         return {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
 
     def _steps(self, inputs: Batch) -> Batch:
@@ -180,39 +196,63 @@ class GroupedSteps:
         if not self.graphed:
             with span(self.eager_span, k=self.k):
                 return self._eager(group)
-        key = tuple((n, tuple(v.shape), v.dtype)
-                    for n, v in sorted(group.items()))
+        return self._run(self.k, group, self._eager, self._steps)
+
+    def single(self, batch: Batch) -> Batch:
+        """``step(batch)`` for one batch (no leading K axis, host or device
+        tensors), as the replay of a graph of one step on a CUDA device;
+        its outputs as ``step`` gives them."""
+        if not self.graphed:
+            with span(self.eager_span, k=1):
+                return self._one(batch)
+        return self._run(1, batch, self._one, self.step)
+
+    def _run(self, steps: int, inputs: Batch,
+             eager: Callable[[Batch], Batch],
+             captured: Callable[[Batch], Batch]) -> Batch:
+        """Replay the graph of ``steps`` steps (``captured`` over static
+        inputs) for ``inputs``' key; the key's first call runs ``eager``
+        and captures it."""
+        key = (steps,) + tuple((n, tuple(v.shape), v.dtype)
+                               for n, v in sorted(inputs.items()))
         entry = self.graphs.get(key)
         if entry is None:
-            return self._warm_and_capture(key, group)
-        with span(self.replay_span, k=self.k):
+            return self._warm_and_capture(key, steps, inputs, eager,
+                                          captured)
+        with span(self.replay_span, k=steps):
             if self.counter is not None:
-                self.counter.ensure_steps(self.counter.count + self.k)
+                self.counter.ensure_steps(self.counter.count + steps)
                 if self.counter.tables is not self._tables[key]:
                     raise RuntimeError("the optimizer's per-step tables "
                                        "grew after the graph was captured")
-            out = entry.replay(group)
-        self.replays += 1
+            out = entry.replay(inputs)
+        if steps == self.k:
+            self.replays += 1
+        else:
+            self.single_replays += 1
+            count(f"graph.{self.role}.single", 1)
         if self.counter is not None:
-            self.counter.count += self.k
+            self.counter.count += steps
         return out
 
-    def _warm_and_capture(self, key: tuple, group: Batch) -> Batch:
-        """The group's K steps eagerly on the capture stream, then the
-        graph of K steps over static inputs of this shape."""
+    def _warm_and_capture(self, key: tuple, steps: int, inputs: Batch,
+                          eager: Callable[[Batch], Batch],
+                          captured: Callable[[Batch], Batch]) -> Batch:
+        """``eager(inputs)`` on the capture stream (real work), then the
+        graph of ``captured`` over static inputs of this key."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        with span(self.warm_span, k=self.k):
-            result = warm(self._stream, self._eager, group)
-        count = None
+        with span(self.warm_span, k=steps):
+            result = warm(self._stream, eager, inputs)
+        mirror = None
         if self.counter is not None:
-            self.counter.ensure_steps(self.counter.count + self.k)
-            count = self.counter.count
-        self.graphs[key] = CapturedGraph(self._steps, group, self._stream,
+            self.counter.ensure_steps(self.counter.count + steps)
+            mirror = self.counter.count
+        self.graphs[key] = CapturedGraph(captured, inputs, self._stream,
                                          self.pool, self.generators,
                                          role=self.role)
         if self.counter is not None:
-            self.counter.count = count
+            self.counter.count = mirror
             self._tables[key] = self.counter.tables
         self.captures += 1
         return result

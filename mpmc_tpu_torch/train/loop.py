@@ -174,9 +174,11 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
     macro-F1 (the metrics are NaN and the threshold 0.5 without labels).
     Results stay on the device until the pass ends, so the host never
     waits on the device between batches.  With ``scan_eval_step`` (a
-    ``train.graphs.make_scan_eval_step`` of K eval batches) and at least K
-    batches, each full group of K batches is one dispatch and the
-    remainder runs batch by batch.
+    ``train.graphs.make_scan_eval_step`` of K eval batches) each full
+    group of K batches is one dispatch and every other batch goes through
+    its :meth:`~mpmc_tpu_torch.train.graphs.GroupedSteps.single` (a graph
+    of one batch on a CUDA device); without it the batches run one by
+    one.
 
     With ``dev`` the split is device-resident: a batch ships its rows
     ``idx`` of ``dev.data`` and is gathered there
@@ -184,8 +186,9 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
     the batches are ``data``'s rows, copied from the host.
 
     The pass is the ``utils.profiling`` span ``mpmc.eval.run``
-    (``rows``); its batch-by-batch remainder ``mpmc.eval.eager``, each
-    copy ``mpmc.h2d``, and the read of the results ``mpmc.sync``."""
+    (``rows``); each batch run on its own without ``scan_eval_step``
+    ``mpmc.eval.eager``, each copy ``mpmc.h2d``, and the read of the
+    results ``mpmc.sync``."""
     n = len(next(iter(data.values())))
     with span("mpmc.eval.run", rows=n):
         n_batches = (n + batch_size - 1) // batch_size
@@ -198,8 +201,11 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
                             batch_size)
         else:
             it = batch_iter(data, batch_size)
-        k = scan_eval_step.k if scan_eval_step is not None else 1
-        if k > 1 and n_batches >= k:
+        scan = None
+        if scan_eval_step is not None:
+            k = scan_eval_step.k
+            scan = (scan_eval_step if dev is None
+                    else scan_eval_step.with_store(dev.data))
             plan = [k] * (n_batches // k) + ([n_batches % k]
                                              if n_batches % k else [])
             it = _scan_groups(it, plan, k)
@@ -208,10 +214,13 @@ def run_eval(eval_step: EvalStep, data: Dict[str, np.ndarray],
             host = {key: torch.from_numpy(np.ascontiguousarray(v))
                     for key, v in batch.items()}
             if isinstance(n_valid, list):
-                out = (scan_eval_step(host) if dev is None
-                       else scan_eval_step.with_store(dev.data)(host))
+                out = scan(host)
                 parts += [(out["probs"][j, :nv], out["loss"][j, :nv])
                           for j, nv in enumerate(n_valid)]
+                continue
+            if scan is not None:
+                out = scan.single(host)
+                parts.append((out["probs"][:n_valid], out["loss"][:n_valid]))
                 continue
             with span("mpmc.eval.eager"):
                 with h2d(host.values()):
@@ -311,13 +320,14 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
     profiler, whose trace goes there.  Each epoch ends with a log of its
     items/s (the rows it trained over its seconds, evals included) and
     the input wait.  The loop's layer boundaries are ``utils.profiling``
-    spans: the single steps (``mpmc.train.eager``), their copies
+    spans: the eager steps (``mpmc.train.eager``), their copies
     (``mpmc.h2d``) and the reads of the losses (``mpmc.sync``).
 
     With ``scan_train_step`` (``train.graphs.make_scan_train_step`` over
     ``train_step``, K = ``cfg.scan_steps`` > 1) the epoch runs by the
     group plan (``_scan_group_plan``): each full group of K steps is one
-    dispatch of the stacked ``[K, ...]`` batch, the rest single steps; a
+    dispatch of the stacked ``[K, ...]`` batch, the rest single steps
+    through its ``single`` (a graph of one step on a CUDA device); a
     non-finite loss inside a group dumps and names its own step.  With
     ``scan_eval_step`` the evals group K batches a dispatch likewise.
 
@@ -474,6 +484,8 @@ def fit(train_step: TrainStep, eval_step: EvalStep, cfg: TrainConfig,
                                  cfg.profile_dir)
                 if group > 1:
                     metrics = scan_train_step(host)
+                elif scan_train_step is not None:
+                    metrics = scan_train_step.single(host)
                 else:
                     with span("mpmc.train.eager"):
                         with h2d(host.values()):

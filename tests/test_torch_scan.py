@@ -42,9 +42,11 @@ from mpmc_tpu_torch.image.augment import augment_with_draws
 from mpmc_tpu_torch.models.classifier import build_model
 from mpmc_tpu_torch.models.convert import from_jax_variables
 from mpmc_tpu_torch.train.checkpoint import Checkpointer
+from mpmc_tpu_torch.train import graphs
 from mpmc_tpu_torch.train.graphs import (GroupedSteps, make_scan_eval_step,
                                          make_scan_train_step)
-from mpmc_tpu_torch.train.loop import _scan_group_plan, fit, run_eval
+from mpmc_tpu_torch.train.loop import (DeviceData, _scan_group_plan, fit,
+                                       run_eval)
 from mpmc_tpu_torch.train.step import (Optimizer, _factored_dims,
                                        build_train_step, make_eval_step)
 
@@ -519,6 +521,121 @@ def test_grouped_steps_take_only_whole_groups():
         g({"x": torch.zeros(2, 5)})
     out = g({"x": torch.arange(6.0).view(3, 2)})
     assert torch.equal(out["y"], torch.arange(6.0).view(3, 2) * 2)
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["host", "resident"])
+@pytest.mark.parametrize("n,k,groups,singles", [
+    (37, 2, 2, 1), (37, 4, 1, 1), (20, 4, 0, 3)])
+def test_run_eval_sends_the_rest_through_single(monkeypatch, resident, n,
+                                                k, groups, singles):
+    """At batch 8 the batches outside a full group of K, a split of fewer
+    than K batches included, go through ``single`` (the resident split's
+    through its store's ``with_store``); the probabilities and metrics
+    equal the per-batch pass."""
+    data = _data(n, seed=4)
+    calls = []
+    real_call, real_single = GroupedSteps.__call__, GroupedSteps.single
+
+    def grouped(self, group):
+        calls.append(("group", self))
+        return real_call(self, group)
+
+    def single(self, batch):
+        calls.append(("single", self))
+        assert all(v.shape[0] == 8 for v in batch.values())
+        return real_single(self, batch)
+
+    monkeypatch.setattr(GroupedSteps, "__call__", grouped)
+    monkeypatch.setattr(GroupedSteps, "single", single)
+    scan = make_scan_eval_step(_eval_step, k, CPU)
+    dev = None
+    if resident:
+        store = {key: torch.from_numpy(v) for key, v in data.items()}
+        dev = DeviceData(store, np.arange(n))
+    per = run_eval(_eval_step, data, 8, CPU)
+    got = run_eval(_eval_step, data, 8, CPU, scan_eval_step=scan, dev=dev)
+    np.testing.assert_array_equal(got.probs, per.probs)
+    assert (got.loss, got.macro_f1, got.threshold) == (
+        per.loss, per.macro_f1, per.threshold)
+    assert [c for c, _ in calls] == ["group"] * groups + ["single"] * singles
+    want = scan.with_store(dev.data) if resident else scan
+    assert all(g is want for _, g in calls)
+
+
+class _Graph:
+    """``CapturedGraph`` on the CPU: replays run the captured function."""
+
+    def __init__(self, fn, inputs, stream, pool=None, generators=(), *,
+                 role):
+        self.fn = fn
+
+    def replay(self, values):
+        return self.fn(values)
+
+
+def test_replays_count_whole_groups_only(monkeypatch):
+    """With graphs standing in on the CPU: the first group and the first
+    single step of a shape warm and capture; ``replays`` counts the
+    replays of whole groups, ``single_replays`` the others, and the
+    counter advances by each replay's steps.  A single step after the
+    optimizer's tables grew raises."""
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(graphs, "warm", lambda stream, fn, *a: fn(*a))
+    monkeypatch.setattr(graphs, "CapturedGraph", _Graph)
+    counter = types.SimpleNamespace(count=0, tables=object(),
+                                    ensure_steps=lambda n: None)
+    g = GroupedSteps(lambda b: {"y": b["x"].sum()}, 3, CPU, counter=counter)
+    g.graphed = True
+    group, one = {"x": torch.ones(3, 4)}, {"x": torch.ones(4)}
+    for _ in range(3):
+        assert g(group)["y"].shape == (3,)
+    for _ in range(4):
+        assert g.single(one)["y"].shape == ()
+    assert g.single({"x": torch.ones(5)})["y"] == 5
+    assert (g.replays, g.single_replays, g.captures) == (2, 3, 3)
+    assert counter.count == 2 * 3 + 3
+    counter.tables = object()
+    with pytest.raises(RuntimeError, match="tables grew"):
+        g.single(one)
+
+
+def test_single_equals_the_step_bit_for_bit_on_the_cpu():
+    """tiny 2C with dropout: three resident train steps through a group's
+    ``single`` and three through the step itself, from the same weights
+    and generator state, give the same losses, grad norms, weights,
+    optimizer count and generator state; an eval batch likewise."""
+    mcfg = ModelConfig.tiny_2c()
+    cfg = TrainConfig(model=mcfg, data=DataConfig(batch_size=4), bf16=False,
+                      scan_steps=4)
+    data = _mm_data(6, 12, mcfg)
+    store = {key: torch.from_numpy(v) for key, v in data.items()}
+    torch.manual_seed(0)
+    models = [build_model(mcfg, CPU)]
+    models.append(build_model(mcfg, CPU))
+    models[1].load_state_dict(models[0].state_dict())
+    steps = [build_train_step(m, cfg, 3, store,
+                              torch.Generator().manual_seed(9))
+             for m in models]
+    scan = make_scan_train_step(steps[0], 4)
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        batch = {"idx": torch.from_numpy(rng.choice(12, 4, replace=False)),
+                 "valid": torch.ones(4)}
+        a = scan.single(batch)
+        b = steps[1]({key: v.to(CPU) for key, v in batch.items()})
+        assert a.keys() == b.keys()
+        for key in a:
+            assert a[key].shape == () and torch.equal(a[key], b[key]), key
+    for key, v in models[0].state_dict().items():
+        assert torch.equal(v, models[1].state_dict()[key]), key
+    assert steps[0].optimizer.count == steps[1].optimizer.count == 3
+    assert torch.equal(steps[0].generator.get_state(),
+                       steps[1].generator.get_state())
+    evals = make_eval_step(models[0], cfg, cast_in_place=False)
+    batch = {key: torch.from_numpy(v[:4]) for key, v in data.items()}
+    one = make_scan_eval_step(evals, 4, CPU).single(batch)
+    probs, loss = evals(batch)
+    assert torch.equal(one["probs"], probs) and torch.equal(one["loss"], loss)
 
 
 # ---------------------------------------------------------------------------

@@ -115,8 +115,9 @@ class _Graph:
 def test_fit_with_grouped_steps_records_warm_replay_eager_and_evals(
         monkeypatch):
     """Two epochs of 5 steps at K = 2 (groups 2, 2 and a single step): the
-    first group warms, the other three replay, the two single steps run
-    eagerly; an eval of 20 rows (3 eager batches) ends each epoch."""
+    first group warms, the other three replay; the first single step warms
+    its one-step graph and the second replays it; an eval of 20 rows (3
+    eager batches) ends each epoch."""
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
     monkeypatch.setattr(graphs, "warm", lambda stream, fn, *a: fn(*a))
     monkeypatch.setattr(graphs, "CapturedGraph", _Graph)
@@ -129,25 +130,28 @@ def test_fit_with_grouped_steps_records_warm_replay_eager_and_evals(
         res = fit(step, _eval_step, cfg, _data(40), CPU,
                   test_data=_data(20, 1), scan_train_step=grouped)
     assert len(res.steps) == 10 and len(res.history) == 2
+    assert (grouped.replays, grouped.single_replays, grouped.captures) == (
+        3, 1, 2)
     spans, counts = recorded()
     names = _names(spans)
-    assert names["mpmc.train.warm"] == 1
-    assert names["mpmc.train.replay"] == 3
-    assert names["mpmc.train.eager"] == 2
+    assert names["mpmc.train.warm"] == 2
+    assert names["mpmc.train.replay"] == 4
+    assert "mpmc.train.eager" not in names
     assert names["mpmc.eval.run"] == 2 and names["mpmc.eval.eager"] == 6
     assert names["mpmc.sync"] >= 2
-    # Copies: the warm group's two steps, the two single steps and the
-    # six eval batches (the stand-in replays copy nothing).
-    assert names["mpmc.h2d"] == 10
+    # Copies: the warm group's two steps, the warm single step and the six
+    # eval batches (the stand-in replays copy nothing).
+    assert names["mpmc.h2d"] == 9
     parent = {s.sid: s.name for s in spans}
     assert sorted(parent[s.parent] for s in spans
                   if s.name == "mpmc.h2d") == (
-        ["mpmc.eval.eager"] * 6 + ["mpmc.train.eager"] * 2
-        + ["mpmc.train.warm"] * 2)
+        ["mpmc.eval.eager"] * 6 + ["mpmc.train.warm"] * 3)
     assert {s.attrs["rows"] for s in spans if s.name == "mpmc.eval.run"} == {
         20}
-    assert {s.attrs["k"] for s in spans
-            if s.name in ("mpmc.train.warm", "mpmc.train.replay")} == {2}
+    ks = sorted(s.attrs["k"] for s in spans
+                if s.name in ("mpmc.train.warm", "mpmc.train.replay"))
+    assert ks == [1, 1, 2, 2, 2, 2]
+    assert counts["graph.train.single"] == 1
     assert counts["h2d.pinned_bytes"] == 0 and counts["h2d.pageable_bytes"]
 
 
