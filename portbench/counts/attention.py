@@ -30,20 +30,12 @@ def bound_seconds(ops: float, nbytes: float, peaks: dict) -> float:
                nbytes / peaks["hbm_bytes_per_s"])
 
 
-def model_need(cfg: dict, n: int, text_tokens=None, caption_tokens=None,
-               train: bool = False):
-    """Total (operations, bytes) of every attention layer of ``n`` memes
-    with these token counts (``[n]``; an image model's tokens are its
-    patches and class token) in one forward, plus the backward when
-    ``train``."""
-    parts = []
-    if cfg["kind"] == "image":
-        c = cfg["image_encoder"]
-        parts.append((np.full(n, (c["image_size"] // c["patch_size"]) ** 2
-                              + 1), c))
-    else:
-        parts += [(text_tokens, cfg["text_encoder"]),
-                  (caption_tokens, cfg["caption_encoder"])]
+def model_need(parts, train: bool = False):
+    """Total (operations, bytes) of every attention layer in one forward,
+    plus the backward when ``train``, of the stacks ``parts``: each
+    ``(tokens [n], encoder configuration)``, as a model kind's
+    ``attention_parts`` gives them (an image model's tokens are its patches
+    and class token)."""
     ops = nbytes = 0.0
     for tokens, c in parts:
         fns = (forward, backward) if train else (forward,)

@@ -2,7 +2,8 @@
 image size: matrix products and convolutions at 2 FLOPs a multiply-add,
 attention's two products over the meme's own tokens; no padding, no
 recomputation, nothing elementwise.  A training meme costs three forwards
-(forward, and a backward of twice its products)."""
+(forward, and a backward of twice its products).  Each model kind
+(``portbench/kinds/``) adds up its blocks from the pieces here."""
 
 from __future__ import annotations
 
@@ -55,27 +56,3 @@ def vit(c: dict) -> float:
 
 def linears(pairs) -> float:
     return float(sum(2.0 * a * b for a, b in pairs))
-
-
-def forward(cfg: dict, n: int, text_tokens=None, caption_tokens=None
-            ) -> float:
-    """Forward FLOPs of ``n`` memes with these ``[n]`` token counts (an
-    image model takes none)."""
-    img, head = cfg["image_encoder"], cfg["head"]
-    if cfg["kind"] == "image":
-        return n * (vit(img) + linears([(img["hidden_size"],
-                                         head["num_classes"])]))
-    t, c = cfg["text_encoder"], cfg["caption_encoder"]
-    proj, fdim = head["proj_dim"], img["finetune_dim"]
-    width = 2 * proj + fdim
-    fixed = resnet18(img["image_size"]) + linears([
-        (t["hidden_size"], proj), (c["hidden_size"], proj),
-        (img["feature_dim"], fdim), (fdim, fdim), (width, width),
-        (width, proj), (proj, head["num_classes"])])
-    return float(np.sum(encoder(text_tokens, t["hidden_size"],
-                                t["intermediate_size"],
-                                t["num_hidden_layers"]))
-                 + np.sum(encoder(caption_tokens, c["hidden_size"],
-                                  c["intermediate_size"],
-                                  c["num_hidden_layers"]))
-                 + n * fixed)

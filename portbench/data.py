@@ -1,9 +1,10 @@
 """Synthetic memes from the seed: the one generator that every traffic mix
 parameterises (``portbench/traffic/*.json``).
 
-A meme is a text of ``words`` tokens between a leading and a trailing
-special token, a caption of ``caption_tokens`` tokens with the same two,
-an image of uint8 pixels at the configuration's size, and a label.  Token
+A meme is a label and what the configuration's model takes of it
+(its kind's ``memes``): a text of ``words`` tokens between a leading and a
+trailing special token, a caption of ``caption_tokens`` tokens with the
+same two, an image of uint8 pixels at the configuration's size.  Token
 ids are uniform over each vocabulary above its special ids.
 
 Every seed gets the same multiset of lengths and labels: word counts are
@@ -11,7 +12,10 @@ the quantiles ``(i + 0.5) / n`` of a log-normal law clipped to
 ``[words_min, words_max]``, caption lengths evenly spaced over their range,
 ``round(propaganda_share * n)`` positive labels.  The seed decides only
 which meme gets which, the token ids and the pixels; so two seeds do the
-same amount of work.
+same amount of work.  A traffic mix with a ``work_seed`` takes the order of
+lengths and labels from it instead, the same for every seed: then the
+folds hold the same lengths in every run, and only the token ids and the
+pixels come from the seed.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from portbench import spec
 from portbench.weights import sub_seed
 
 DATA_STREAM = 2
@@ -62,28 +67,28 @@ def token_rows(lengths: np.ndarray, width: int, enc: dict,
     return ids.cpu().numpy(), mask.to(torch.int32).cpu().numpy()
 
 
+def images(cfg: dict, n: int, g: torch.Generator, device: torch.device
+           ) -> np.ndarray:
+    """``n`` images of uniform uint8 pixels ``[n, S, S, 3]`` at the
+    configuration's size."""
+    size = cfg["image_encoder"]["image_size"]
+    return torch.randint(0, 256, (n, size, size, 3), generator=g,
+                         device=device, dtype=torch.uint8).cpu().numpy()
+
+
 def make_memes(cfg: dict, traffic: dict, n: int, seed: int, split: int,
                device: torch.device) -> Dict[str, np.ndarray]:
-    """``n`` memes of split number ``split`` as host arrays: ``image`` uint8
-    ``[n, S, S, 3]``, ``label`` int32, and for a model with text branches
-    ``text_ids``/``text_mask`` ``[n, max_text_len]`` and
-    ``caption_ids``/``caption_mask`` ``[n, max_caption_len]``."""
-    rng = np.random.default_rng(sub_seed(seed, DATA_STREAM * 100 + split))
+    """``n`` memes of split number ``split`` as host arrays: ``label``
+    int32, then the model's inputs as its kind makes them
+    (``portbench/kinds/``): ``text_ids``/``text_mask`` ``[n,
+    max_text_len]``, ``caption_ids``/``caption_mask`` ``[n,
+    max_caption_len]``, ``image`` uint8 ``[n, S, S, 3]``, those it has."""
+    rng = np.random.default_rng(sub_seed(traffic.get("work_seed", seed),
+                                         DATA_STREAM * 100 + split))
     g = torch.Generator(device=device).manual_seed(
         sub_seed(seed, DATA_STREAM * 100 + 50 + split))
-    size = cfg["image_encoder"]["image_size"]
     pos = int(round(traffic["propaganda_share"] * n))
     out = {"label": rng.permutation(np.r_[np.ones(pos, np.int32),
                                           np.zeros(n - pos, np.int32)])}
-    if cfg["kind"] == "multimodal":
-        head = cfg["head"]
-        words = rng.permutation(word_counts(n, traffic))
-        out["text_ids"], out["text_mask"] = token_rows(
-            words + 2, head["max_text_len"], cfg["text_encoder"], g, device)
-        caps = rng.permutation(caption_lengths(n, traffic))
-        out["caption_ids"], out["caption_mask"] = token_rows(
-            caps, head["max_caption_len"], cfg["caption_encoder"], g, device)
-    out["image"] = torch.randint(0, 256, (n, size, size, 3), generator=g,
-                                 device=device, dtype=torch.uint8
-                                 ).cpu().numpy()
+    out.update(spec.kind(cfg["kind"]).memes(cfg, traffic, n, rng, g, device))
     return out

@@ -1,6 +1,7 @@
 """What both drivers share: a configuration file as the system's
 ``TrainConfig``, the data of a cell through the system's sequence-length
-bucketing, and the model weights loaded into the system."""
+bucketing, each meme's token counts, and the model weights loaded into the
+system."""
 
 from __future__ import annotations
 
@@ -9,62 +10,43 @@ from typing import Dict
 import numpy as np
 import torch
 
+from portbench import spec
 
-def train_config(cfg: dict, seed: int, device: torch.device):
-    """The configuration file as the system's ``TrainConfig``; bf16 only on
-    the card, as the system's command line sets it."""
-    from mpmc_tpu_torch.config import (DataConfig, FusionMethod,
-                                       ImageEncoderConfig, LossType,
-                                       ModelConfig, PoolingType, Subtask,
-                                       TextEncoderConfig, TrainConfig)
 
+def text_encoder_config(c: dict):
+    """A configuration file's BERT or RoBERTa encoder as the system's
+    ``TextEncoderConfig``."""
+    from mpmc_tpu_torch.config import TextEncoderConfig
+    return TextEncoderConfig(
+        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+        num_layers=c["num_hidden_layers"],
+        num_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"],
+        max_position_embeddings=c["max_position_embeddings"],
+        type_vocab_size=c["type_vocab_size"],
+        layer_norm_eps=c["layer_norm_eps"],
+        hidden_dropout=c["hidden_dropout_prob"],
+        attention_dropout=c["attention_probs_dropout_prob"],
+        pad_token_id=c["pad_token_id"],
+        roberta_style_positions=c["position_offset"] == "roberta")
+
+
+def train_config(cfg: dict, seed: int, device: torch.device,
+                 device_resident: bool = True):
+    """The configuration file as the system's ``TrainConfig``, its model
+    as the configuration's kind builds it (``portbench/kinds/``); bf16
+    only on the card, as the system's command line sets it.  The data
+    mode, ``device_resident``, is the traffic's."""
+    from mpmc_tpu_torch.config import DataConfig, LossType, TrainConfig
     r, head = cfg["recipe"], cfg["head"]
-    img = cfg["image_encoder"]
-
-    def text(c: dict) -> TextEncoderConfig:
-        return TextEncoderConfig(
-            vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
-            num_layers=c["num_hidden_layers"],
-            num_heads=c["num_attention_heads"],
-            intermediate_size=c["intermediate_size"],
-            max_position_embeddings=c["max_position_embeddings"],
-            type_vocab_size=c["type_vocab_size"],
-            layer_norm_eps=c["layer_norm_eps"],
-            hidden_dropout=c["hidden_dropout_prob"],
-            attention_dropout=c["attention_probs_dropout_prob"],
-            pad_token_id=c["pad_token_id"],
-            roberta_style_positions=c["position_offset"] == "roberta")
-
-    if cfg["kind"] == "multimodal":
-        model = ModelConfig(
-            subtask=Subtask.C, text=text(cfg["text_encoder"]),
-            caption=text(cfg["caption_encoder"]),
-            image=ImageEncoderConfig(
-                arch=img["arch"], image_size=img["image_size"],
-                feature_dim=img["feature_dim"],
-                finetune_dim=img["finetune_dim"],
-                finetune_dropout=img["finetune_dropout"]),
-            pooling=PoolingType(head["pooling"]),
-            fusion=FusionMethod(head["fusion"]), proj_dim=head["proj_dim"],
-            dropout=head["dropout"], num_classes=head["num_classes"],
-            max_text_len=head["max_text_len"],
-            max_caption_len=head["max_caption_len"])
-    else:
-        model = ModelConfig(
-            subtask=Subtask.B, text=None, caption=None,
-            image=ImageEncoderConfig(arch=img["arch"],
-                                     image_size=img["image_size"],
-                                     feature_dim=img["feature_dim"],
-                                     patch_size=img["patch_size"]),
-            num_classes=head["num_classes"])
     data = DataConfig(batch_size=r["batch_size"],
                       eval_batch_size=r["batch_size"],
                       num_folds=r["num_folds"], fold_seed=r["fold_seed"],
                       seq_bucket_multiple=r["seq_bucket_multiple"],
                       pack_rows=r["pack_rows"],
-                      device_resident=r["device_resident"])
+                      device_resident=device_resident)
     return TrainConfig(
-        model=model, data=data,
+        model=spec.kind(cfg["kind"]).model_config(cfg), data=data,
         loss=LossType.FOCAL if head["loss"] == "focal"
         else LossType.CROSS_ENTROPY,
         focal_alpha=head.get("focal_alpha", 0.25),
@@ -77,7 +59,9 @@ def train_config(cfg: dict, seed: int, device: torch.device):
         bf16=r["bf16"] and device.type == "cuda",
         run_id="portbench", adam_mu_dtype=r["adam_mu_dtype"],
         embedding_optimizer=r["embedding_optimizer"],
-        scan_steps=r["scan_steps"])
+        scan_steps=r["scan_steps"],
+        emit_threshold=r.get("emit_threshold"),
+        emit_val_tsv=r.get("emit_val_tsv", False))
 
 
 def bucket(tc, splits) -> None:
@@ -95,12 +79,13 @@ def bucket(tc, splits) -> None:
             bucket_trim(d, ids, mask, length)
 
 
-def token_counts(data: Dict[str, np.ndarray], rows=None):
-    """Each meme's real text and caption tokens (None for an image model)."""
-    if "text_mask" not in data:
-        return None, None
+def token_counts(data: Dict[str, np.ndarray], rows=None
+                 ) -> Dict[str, np.ndarray]:
+    """Each meme's real tokens by branch (``text``, ``caption``), of the
+    branches the memes have."""
     sel = (lambda a: a) if rows is None else (lambda a: a[rows])
-    return (sel(data["text_mask"]).sum(1), sel(data["caption_mask"]).sum(1))
+    return {key[:-len("_mask")]: sel(v).sum(1) for key, v in data.items()
+            if key.endswith("_mask")}
 
 
 CALIBRATION_MEMES = 64
@@ -114,7 +99,7 @@ def model_weights(cfg: dict, traffic: dict, seed: int, tc,
     mode (with the running statistics at (0, 1) the eval-mode head would
     see almost none of its inputs' variation)."""
     from portbench.data import make_memes
-    from portbench.reference.nets import LOGITS, Precision, normalize
+    from portbench.reference.nets import Precision, normalize
     from portbench.weights import make_weights
 
     W = make_weights(cfg, seed, device)
@@ -123,10 +108,12 @@ def model_weights(cfg: dict, traffic: dict, seed: int, tc,
     cal = make_memes(cfg, traffic, CALIBRATION_MEMES, seed, 9, device)
     bucket(tc, [cal])
     batch = {k: torch.from_numpy(v).to(device) for k, v in cal.items()}
-    batch["image"] = normalize(batch["image"])
+    if "image" in batch:
+        batch["image"] = normalize(batch["image"])
     stats: dict = {}
     with torch.no_grad():
-        LOGITS[cfg["kind"]](W, cfg, batch, True, Precision(record=stats))
+        spec.kind(cfg["kind"]).logits(W, cfg, batch, True,
+                                      Precision(record=stats))
     for name, (mean, var) in stats.items():
         W[name + ".running_mean"].copy_(mean)
         W[name + ".running_var"].copy_(var)

@@ -21,12 +21,12 @@ import numpy as np
 import torch
 
 from portbench import check as checks
-from portbench.counts import attention, flops
+from portbench import spec
+from portbench.counts import attention
 from portbench.data import make_memes
 from portbench.drivers.common import (bucket, model_weights, token_counts,
                                       train_config)
-from portbench.reference.nets import (CONTROL, F32, LOGITS, Precision,
-                                      normalize)
+from portbench.reference.nets import CONTROL, F32, Precision, normalize
 from portbench.reference.train import probabilities
 
 DEV_SPLIT = 1
@@ -37,6 +37,7 @@ class Session:
     def __init__(self, cell: dict, seed: int, device: torch.device):
         self.seed, self.device = seed, device
         self.cfg, self.traffic = cell["config"], cell["traffic"]
+        self.kind = spec.kind(self.cfg["kind"])
 
     def setup(self) -> None:
         from mpmc_tpu_torch.models.classifier import build_model
@@ -50,7 +51,7 @@ class Session:
         bucket(tc, [split])
         self.split = split
         self.W = model_weights(cfg, t, self.seed, tc, dev)
-        model = build_model(tc.model, dev, kind=cfg["kind"])
+        model = build_model(tc.model, dev, kind=self.kind.PORT_KIND)
         model.load_state_dict(self.W)
         self.step = make_eval_step(model, tc)
         self.scan = make_scan_eval_step(self.step, t["scan_steps"], dev,
@@ -96,9 +97,10 @@ class Session:
     def _need(self) -> Dict[str, float]:
         """FLOPs and attention need of one request."""
         n = self.traffic["split_memes"]
-        tt, ct = token_counts(self.split)
-        ops, nbytes = attention.model_need(self.cfg, n, tt, ct, False)
-        return {"flops": flops.forward(self.cfg, n, tt, ct),
+        tokens = token_counts(self.split)
+        ops, nbytes = attention.model_need(
+            self.kind.attention_parts(self.cfg, n, tokens), False)
+        return {"flops": self.kind.forward_flops(self.cfg, n, tokens),
                 "attn_ops": ops, "attn_bytes": nbytes}
 
     def release(self) -> None:
@@ -110,14 +112,15 @@ class Session:
     # ------------------------------------------------------------- check
     def reference(self, P: Precision = F32) -> np.ndarray:
         """Probabilities of the split's memes, in order."""
-        logits_fn = LOGITS[self.cfg["kind"]]
+        logits_fn = self.kind.logits
         out, n = [], self.traffic["split_memes"]
         with torch.no_grad():
             for s in range(0, n, REF_BLOCK):
                 b = {k: torch.from_numpy(np.ascontiguousarray(
                          v[s:s + REF_BLOCK])).to(self.device)
                      for k, v in self.split.items()}
-                b["image"] = normalize(b["image"])
+                if "image" in b:
+                    b["image"] = normalize(b["image"])
                 out.append(probabilities(logits_fn(
                     self.W, self.cfg, b, False, P)).cpu().numpy())
         return np.concatenate(out)

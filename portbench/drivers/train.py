@@ -1,7 +1,9 @@
 """Fold training, as the system's fold driver runs it: ``build_fold`` then
 ``fit`` for each stratified fold over the train memes, the dev memes as the
-test split, evals of the test and val splits at the recipe's cadence,
-device-resident arrays, no checkpoints (TSVs go under ``TMPDIR``).
+test split (without them, as 2A folds over train and dev, the val split is
+the test split too), evals of the test and val splits at the recipe's
+cadence, the arrays device-resident or host-fed as the traffic says
+(``device_resident``), no checkpoints (TSVs go under ``TMPDIR``).
 
 Set-up builds the first fold (``seed % num_folds``), starts it from the
 benchmark's weights and runs its first ``checked_steps`` steps through the
@@ -14,13 +16,23 @@ pre-clip gradient norm, the first gradient of each leaf as the optimizer's
 state after one step holds it, and each leaf's change after the last
 checked step.  The augmentation draws, the dropout masks and the logits of
 those steps are recorded on the device (:class:`Recorder`), so that a
-replay records as an eager step does.  The window trains the first fold's
-rest and then the next folds in turn; the fold running when the window
-closes completes and counts.  A traced run traces the second fold whole."""
+replay records as an eager step does.  The reference takes each checked
+meme from the memes made: by the row indices a resident batch carries,
+else found by its own tokens (out of its packed row) or pixels.  The
+window trains the first fold's rest and then the next folds in turn; the
+fold running when the window closes completes and counts.  A traced run
+traces the second fold whole.
+
+A traffic mix with a ``work_seed`` fixes the amount of work whatever the
+seed: the memes' order of lengths and labels (``portbench/data.py``), the
+system's own seed (its shuffles, so its packed row budgets and the graph
+captures they cause) and the first fold come from it; the weights, token
+ids, pixels and so the numbers checked still come from the seed."""
 
 from __future__ import annotations
 
 import gc
+import hashlib
 import os
 import shutil
 import tempfile
@@ -31,6 +43,7 @@ import numpy as np
 import torch
 
 from portbench import check as checks
+from portbench import spec
 from portbench.counts import attention, flops
 from portbench.data import make_memes
 from portbench.drivers.common import (bucket, load_train_weights,
@@ -39,6 +52,26 @@ from portbench.drivers.common import (bucket, load_train_weights,
 from portbench.reference.augment import augment as ref_augment
 from portbench.reference.nets import CONTROL, F32, Precision
 from portbench.reference.train import train_steps
+
+
+PACKED_IDS = {"t_": "text_ids", "c_": "caption_ids"}
+
+
+def _contents(batch: Dict[str, np.ndarray]) -> List[bytes]:
+    """What tells each meme of ``batch`` from the others: its text tokens
+    (out of its packed row when the batch is packed), or without text its
+    pixels' digest."""
+    if "t_ids" in batch:
+        out = []
+        for row, slot in zip(batch["t_row_of"], batch["t_slot_of"]):
+            own = batch["t_segments"][row] == slot
+            out.append(batch["t_ids"][row][own].astype(np.int64).tobytes())
+        return out
+    if "text_ids" in batch:
+        return [ids[m > 0].astype(np.int64).tobytes()
+                for ids, m in zip(batch["text_ids"], batch["text_mask"])]
+    return [hashlib.sha256(np.ascontiguousarray(im).tobytes()).digest()
+            for im in batch["image"]]
 
 
 class Recorder:
@@ -167,27 +200,34 @@ class Session:
     def __init__(self, cell: dict, seed: int, device: torch.device):
         self.seed, self.device = seed, device
         self.cfg, self.traffic = cell["config"], cell["traffic"]
-        self.kind = self.cfg["kind"]
+        self.kind = spec.kind(self.cfg["kind"])
 
     # ------------------------------------------------------------ set-up
     def setup(self) -> None:
         from mpmc_tpu_torch.cli.experiments import resident_store
         from mpmc_tpu_torch.cv.kfold import stratified_kfold
         cfg, t, dev = self.cfg, self.traffic, self.device
-        self.tc = tc = train_config(cfg, self.seed, dev)
+        kind = self.kind.PORT_KIND
+        work_seed = t.get("work_seed", self.seed)
+        self.tc = tc = train_config(cfg, work_seed, dev,
+                                    device_resident=t["device_resident"])
         self.data = make_memes(cfg, t, t["train_memes"], self.seed, 0, dev)
-        self.test = make_memes(cfg, t, t["test_memes"], self.seed, 1, dev)
-        bucket(tc, [self.data, self.test])
+        self.test = (make_memes(cfg, t, t["test_memes"], self.seed, 1, dev)
+                     if t.get("test_memes") else None)
+        bucket(tc, [d for d in (self.data, self.test) if d is not None])
         self.W = model_weights(cfg, t, self.seed, tc, dev)
         self.splits = stratified_kfold(self.data["label"], tc.data.num_folds,
                                        tc.data.fold_seed)
-        self.store = resident_store(tc, self.data, dev, self.kind)
-        self.test_store = resident_store(tc, self.test, dev, self.kind)
+        self.store = resident_store(tc, self.data, dev, kind)
+        self.test_store = (resident_store(tc, self.test, dev, kind)
+                           if self.test is not None else {})
         self.ids = [f"train_{i:05d}" for i in range(t["train_memes"])]
-        self.test_ids = [f"dev_{i:05d}" for i in range(t["test_memes"])]
+        self.test_ids = [f"dev_{i:05d}" for i in range(t.get("test_memes",
+                                                              0))]
+        self.by_content = None
         self.tmp = tempfile.mkdtemp(prefix="portbench_")
         self.augment = RecordingAugment()
-        self.first_fold = self.seed % tc.data.num_folds
+        self.first_fold = work_seed % tc.data.num_folds
         self.run0 = self._build(self.first_fold)
         self._first_steps()
 
@@ -196,7 +236,7 @@ class Session:
         tr_idx, _ = self.splits[k]
         run = build_fold(self.tc, _select(self.data, tr_idx), tr_idx,
                          self.store, self.device, k, augment=self.augment,
-                         kind=self.kind)
+                         kind=self.kind.PORT_KIND)
         load_train_weights(run.train_step, self.W)
         return run
 
@@ -205,6 +245,7 @@ class Session:
         ``fit`` groups them, through the fold's grouped dispatch, keeping
         what the check needs; the first step's gradients are read from the
         optimizer's state right after that step."""
+        from mpmc_tpu_torch.cli.experiments import _select
         from mpmc_tpu_torch.train.loop import (_host_tensors,
                                                _scan_group_plan, _scan_groups,
                                                batch_iter)
@@ -216,8 +257,12 @@ class Session:
                              "replay among them")
         tr_idx, _ = self.splits[k]
         rng = np.random.default_rng(tc.seed + k)
+        # As ``fit`` draws them: resident batches carry the rows' indices,
+        # host-fed ones the rows.
         it = (run.plan.epoch_iter(rng) if run.plan is not None else
-              batch_iter({"idx": tr_idx.astype(np.int64)},
+              batch_iter({"idx": tr_idx.astype(np.int64)}
+                         if tc.data.device_resident
+                         else _select(self.data, tr_idx),
                          tc.data.batch_size, shuffle=True, rng=rng,
                          with_valid=True))
         spe = run.steps_per_epoch
@@ -266,34 +311,42 @@ class Session:
         from mpmc_tpu_torch.cli.experiments import _select
         from mpmc_tpu_torch.train.loop import DeviceData, fit
         tr_idx, va_idx = self.splits[k]
+        val = _select(self.data, va_idx)
+        val_ids = [self.ids[i] for i in va_idx]
+        dev_val = DeviceData(self.store, va_idx) if self.store else None
+        dev_test = (DeviceData(self.test_store, np.arange(len(self.test_ids)))
+                    if self.test_store else dev_val)
         return fit(run.train_step, run.eval_step, self.tc,
                    _select(self.data, tr_idx), self.device,
-                   test_data=self.test, val_data=_select(self.data, va_idx),
-                   test_ids=self.test_ids,
-                   val_ids=[self.ids[i] for i in va_idx], fold=k,
+                   test_data=self.test if self.test is not None else val,
+                   val_data=val,
+                   test_ids=self.test_ids if self.test is not None
+                   else val_ids, val_ids=val_ids, fold=k,
                    tsv_prefix=os.path.join(self.tmp, "portbench"),
                    packed_plan=run.plan, train_rows=tr_idx,
                    scan_train_step=run.scan_train_step,
                    scan_eval_step=run.scan_eval_step,
-                   dev_test=DeviceData(self.test_store,
-                                       np.arange(len(self.test_ids))),
-                   dev_val=DeviceData(self.store, va_idx))
+                   dev_test=dev_test, dev_val=dev_val)
 
     def _need(self, k: int, n_evals: int) -> Dict[str, float]:
         """FLOPs and attention need of fold ``k`` trained whole with
         ``n_evals`` evals of its val and the test split."""
-        cfg, epochs = self.cfg, self.tc.epochs
+        cfg, epochs, kind = self.cfg, self.tc.epochs, self.kind
         tr_idx, va_idx = self.splits[k]
-        tt, ct = token_counts(self.data, tr_idx)
-        train_f = epochs * flops.TRAIN_FACTOR * flops.forward(
-            cfg, len(tr_idx), tt, ct)
-        ops, nbytes = attention.model_need(cfg, len(tr_idx), tt, ct, True)
+        tokens = token_counts(self.data, tr_idx)
+        train_f = epochs * flops.TRAIN_FACTOR * kind.forward_flops(
+            cfg, len(tr_idx), tokens)
+        ops, nbytes = attention.model_need(
+            kind.attention_parts(cfg, len(tr_idx), tokens), True)
         ev_f, ev_o, ev_b = 0.0, 0.0, 0.0
-        for d, rows in ((self.data, va_idx), (self.test, None)):
+        test = ((self.test, None) if self.test is not None
+                else (self.data, va_idx))
+        for d, rows in ((self.data, va_idx), test):
             n = len(rows) if rows is not None else len(d["label"])
-            et, ec = token_counts(d, rows)
-            ev_f += flops.forward(cfg, n, et, ec)
-            o, b = attention.model_need(cfg, n, et, ec, False)
+            tokens = token_counts(d, rows)
+            ev_f += kind.forward_flops(cfg, n, tokens)
+            o, b = attention.model_need(kind.attention_parts(cfg, n, tokens),
+                                        False)
             ev_o, ev_b = ev_o + o, ev_b + b
         return {"flops": train_f + n_evals * ev_f,
                 "attn_ops": epochs * ops + n_evals * ev_o,
@@ -364,26 +417,48 @@ class Session:
         draws, the recorded dropout masks in the memes' own layout."""
         out = []
         for batch, rec in zip(self.batches, self.recorded):
-            rows = batch["img_idx"] if "img_idx" in batch else batch["idx"]
+            rows = self._rows(batch)
             b = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
                      self.device) for k, v in self.data.items()}
-            b["image"] = ref_augment(b["image"], *rec["draws"])
+            if "image" in b:
+                b["image"] = ref_augment(b["image"], *rec["draws"])
             b["valid"] = torch.from_numpy(batch["valid"]).to(self.device)
             b["drop"] = {name: self._unpacked(name, keep, batch, b)
                          for name, keep in rec["drop"].items()}
             out.append(b)
         return out
 
+    def _rows(self, batch: dict) -> np.ndarray:
+        """The memes (rows of the train memes) of a checked step's batch,
+        slot by slot: the row indices a resident batch carries, else each
+        slot found by its content among the memes made.  A slot that holds
+        none (a packed plan's empty slot, ``valid`` 0) takes the first
+        meme; a valid one that holds none fails the run."""
+        for key in ("idx", "img_idx"):
+            if key in batch:
+                return np.asarray(batch[key])
+        if self.by_content is None:
+            self.by_content = {c: i for i, c in
+                               enumerate(_contents(self.data))}
+        rows = np.array([self.by_content.get(c, -1)
+                         for c in _contents(batch)])
+        lost = (rows < 0) & (np.asarray(batch["valid"]) > 0)
+        if lost.any():
+            raise ValueError(f"{int(lost.sum())} valid memes of a checked "
+                             "step are none of the memes made")
+        return np.maximum(rows, 0)
+
     def _unpacked(self, name: str, keep: torch.Tensor, batch: dict,
                   b: dict) -> torch.Tensor:
         """An encoder's keep mask ``[R, P, H]`` over the packed rows as
         ``[B, S, H]`` over each meme's own tokens (a meme's tokens start at
-        its row's ``start_of``); any other mask as it is."""
-        pre = {"text_model.": "t_", "caption_text_model.": "c_"}
-        key = next((v for p, v in pre.items() if name.startswith(p)), None)
+        its row's ``start_of``; the kind's ``PACKED`` says which encoder's
+        rows are which); any other mask as it is."""
+        key = next((v for p, v in self.kind.PACKED.items()
+                    if name.startswith(p)), None)
         if keep.dim() != 3 or key is None or key + "row_of" not in batch:
             return keep
-        S = b["text_ids" if key == "t_" else "caption_ids"].shape[1]
+        S = b[PACKED_IDS[key]].shape[1]
         dev = keep.device
         row = torch.from_numpy(batch[key + "row_of"]).long().to(dev)
         start = torch.from_numpy(batch[key + "start_of"]).long().to(dev)

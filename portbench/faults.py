@@ -4,7 +4,8 @@ them.  Each is a context manager that breaks one part of the timed path:
 * ``frozen_state``: the optimizer step leaves every parameter and slot as
   it was (a step that returns its state unchanged);
 * ``half_batch``: the training loss weighs only the first half of the
-  batch's rows, the mean over the rest;
+  batch's valid rows (of a packed batch's filled slots), the mean over the
+  rest;
 * ``half_scored``: the eval step scores the first half of each batch and
   gives the other half their mean;
 * ``answer_altered``: the most confident probability of each scored
@@ -43,8 +44,8 @@ def half_batch():
     real = step_mod.loss_from_outputs
 
     def loss(outputs, labels, valid, cfg, soft=None, weight=None):
-        half = (torch.arange(valid.shape[0], device=valid.device)
-                < valid.shape[0] // 2).to(valid.dtype)
+        half = (torch.cumsum(valid, -1)
+                <= valid.sum(-1, keepdim=True) / 2).to(valid.dtype)
         return real(outputs, labels, valid * half, cfg, soft, weight)
 
     return _patched(step_mod, "loss_from_outputs", loss)

@@ -14,17 +14,15 @@ the system under test.  Nothing here imports the system.
 * BatchNorm as flax computes it: the batch statistics of a training step
   are ``E[x]`` and ``max(E[x^2] - E[x]^2, 0)`` over every axis but the
   features; eval mode uses the running statistics.
-* The 2C flagship head: each text branch's CLS through Linear, BatchNorm,
-  ReLU; the image features through Linear, ReLU, Linear; ConcatAttention3
-  (a Linear+BN+ReLU softmax gate over the concatenated features, then a
-  reducing Linear+BN+ReLU); a Linear+BN head with one logit.
-* The 2B head: one Linear to two logits.
 * Dropout where the system applies it (each encoder's embeddings, its
-  attention block's and its FFN's output before the residual; the image
-  fine-tune MLP's hidden layer; each text branch's CLS ahead of its
-  Linear), with the keep masks the system drew (``drop``: by the system's
-  module name, in this layout), each kept element scaled by ``1 / (1 -
-  rate)``.  Without a mask a dropout is the identity.
+  attention block's and its FFN's output before the residual; a model
+  kind's own, in its head), with the keep masks the system drew
+  (``drop``: by the system's module name, in this layout), each kept
+  element scaled by ``1 / (1 - rate)``.  Without a mask a dropout is the
+  identity.
+
+These are the blocks; each model kind (``portbench/kinds/``) composes its
+model's logits from them and its head.
 
 ``Precision`` says how the products and activations round: float32
 throughout for the reference; for the control, the precision below the
@@ -227,53 +225,6 @@ def vit(W: Weights, p: str, cfg: dict, x: torch.Tensor, P: Precision
         y = P.a(y + linear(W, lp + "mlp2",
                            P.a(F.gelu(linear(W, lp + "mlp1", h, P))), P))
     return layer_norm(W, p + "ln_final", y[:, 0], eps, P)
-
-
-def _modality_fc(W, name, x, training, P, drop, rate):
-    x = dropout(x, drop, name + ".dropout", rate)
-    return F.relu(batch_norm(W, name + ".bn", linear(W, name + ".fc", x, P),
-                             training, P))
-
-
-def multimodal_logits(W: Weights, cfg: dict, batch: Dict[str, torch.Tensor],
-                      training: bool, P: Precision = F32) -> torch.Tensor:
-    """The 2C flagship's one logit ``[B]`` for a batch of ``text_ids``,
-    ``text_mask``, ``caption_ids``, ``caption_mask`` and the normalized
-    NHWC ``image`` (and the dropout masks ``drop``, when training)."""
-    drop = batch.get("drop") if training else None
-    rate = cfg["head"]["dropout"]
-    text = text_encoder(W, "text_model.", cfg["text_encoder"],
-                        batch["text_ids"], batch["text_mask"], P, drop)[:, 0]
-    cap = text_encoder(W, "caption_text_model.", cfg["caption_encoder"],
-                       batch["caption_ids"], batch["caption_mask"], P,
-                       drop)[:, 0]
-    feats = resnet18(W, "image_model.backbone.", batch["image"], training, P)
-    h = dropout(F.relu(linear(W, "image_model.finetune_fc1", feats, P)), drop,
-                "image_model.dropout",
-                cfg["image_encoder"]["finetune_dropout"])
-    img = linear(W, "image_model.finetune_fc2", h, P)
-    concat = torch.cat([_modality_fc(W, "text_fc", text, training, P, drop,
-                                     rate), img,
-                        _modality_fc(W, "caption_text_fc", cap, training, P,
-                                     drop, rate)], dim=1)
-    g = batch_norm(W, "fusion.gated.gate_bn",
-                   linear(W, "fusion.gated.gate_fc", concat, P), training, P)
-    g = P.a(torch.softmax(F.relu(g), dim=1))
-    fused = F.relu(batch_norm(W, "fusion.gated.reduce_bn",
-                              linear(W, "fusion.gated.reduce_fc",
-                                     P.a(g * concat), P), training, P))
-    return batch_norm(W, "output_bn", linear(W, "output_fc", fused, P),
-                      training, P)[:, 0]
-
-
-def image_logits(W: Weights, cfg: dict, batch: Dict[str, torch.Tensor],
-                 training: bool, P: Precision = F32) -> torch.Tensor:
-    """The 2B model's two logits ``[B, 2]``: ViT features, one Linear."""
-    feats = vit(W, "backbone.", cfg["image_encoder"], batch["image"], P)
-    return linear(W, "output", feats, P)
-
-
-LOGITS = {"multimodal": multimodal_logits, "image": image_logits}
 
 
 def normalize(images_u8: torch.Tensor) -> torch.Tensor:

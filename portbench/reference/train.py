@@ -14,7 +14,10 @@ it):
   1e-30, factored over its two largest dimensions when the smaller is at
   least 128) at the encoder rate instead;
 * the learning rate linear from 0 over ``int(warmup_fraction * total)``
-  steps, then linear down to 0 at ``total``.
+  steps, then linear down to 0 at ``total``; or, with ``lr_schedule``
+  "constant", the rate at every step.
+
+The logits are the configuration's model kind's (``portbench/kinds/``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from portbench.reference.nets import F32, LOGITS, Precision
+from portbench import spec
+from portbench.reference.nets import F32, Precision
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 RMS_DECAY, RMS_EPS = 0.8, 1e-30
@@ -105,6 +109,8 @@ class Optimizer:
                    or self.factored(name))
         base = self.r["learning_rate"] * (self.r["encoder_lr_scale"]
                                           if encoder else 1.0)
+        if self.r["lr_schedule"] == "constant":
+            return base
         return learning_rate(base, self.t, self.total,
                              self.r["warmup_fraction"])
 
@@ -164,7 +170,7 @@ def train_steps(W0: Dict[str, torch.Tensor], cfg: dict,
               if not n.endswith(("running_mean", "running_var"))}
     buffers = {n: v for n, v in W0.items() if n not in params}
     opt = Optimizer(cfg, params, total_steps)
-    logits_fn = LOGITS[cfg["kind"]]
+    logits_fn = spec.kind(cfg["kind"]).logits
     losses, logits_all, norms, first_grad = [], [], [], None
     for batch in batches:
         leaves = {n: p.detach().requires_grad_() for n, p in params.items()}

@@ -1,10 +1,11 @@
 """Finds everything by name: a cell's entry in ``BENCHMARK.json`` (at the
 root of the checkout), its workload file (``workloads/<cell>.json``: its
 configuration, its traffic and the limits of its check), the configuration
-(``configs/<config>.json``), the traffic mix (``traffic/<traffic>.json``,
-which names its driver, ``drivers/<driver>.py``) and the per-layer metric
-readers (``metrics/<metric>.py``).  Adding a cell, a configuration or a
-metric is adding files."""
+(``configs/<config>.json``, which names its model kind,
+``kinds/<kind>.py``), the traffic mix (``traffic/<traffic>.json``, which
+names its driver, ``drivers/<driver>.py``) and the per-layer metric
+readers (``metrics/<metric>.py``).  Adding a cell, a configuration, a
+model kind or a metric is adding files."""
 
 from __future__ import annotations
 
@@ -70,6 +71,12 @@ def cell(name: str, root: str = ROOT, pkg: str = PKG) -> dict:
 
 def driver(name: str):
     return importlib.import_module(f"portbench.drivers.{name}")
+
+
+def kind(name: str):
+    """The model kind ``name`` (``kinds/<name>.py``; ``kinds/__init__.py``
+    says what it gives)."""
+    return importlib.import_module(f"portbench.kinds.{name}")
 
 
 def metric_reader(name: str, pkg: str = PKG):

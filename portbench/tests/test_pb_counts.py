@@ -44,11 +44,33 @@ def test_backbones_by_hand():
 
 def test_meme_counts_follow_their_own_tokens():
     cfg = spec.config("2c_flagship")
-    one = flops.forward(cfg, 1, np.array([14]), np.array([20]))
-    two = flops.forward(cfg, 2, np.array([14, 14]), np.array([20, 20]))
+    kind = spec.kind(cfg["kind"])
+
+    def tokens(text, caption):
+        return {"text": np.array(text), "caption": np.array(caption)}
+
+    one = kind.forward_flops(cfg, 1, tokens([14], [20]))
+    two = kind.forward_flops(cfg, 2, tokens([14, 14], [20, 20]))
     assert two == pytest.approx(2 * one)
-    longer = flops.forward(cfg, 1, np.array([15]), np.array([20]))
+    longer = kind.forward_flops(cfg, 1, tokens([15], [20]))
     assert longer > one
-    ops, _ = attention.model_need(cfg, 1, np.array([14]), np.array([20]),
-                                  train=True)
+    ops, _ = attention.model_need(
+        kind.attention_parts(cfg, 1, tokens([14], [20])), train=True)
     assert ops == 12 * 768 * (4 + 10) * (14 ** 2 + 20 ** 2)
+
+
+def test_text_model_counts_by_hand():
+    """2A: the encoder over each meme's own tokens, the pooling's score MLP
+    (768 x 512, then 512 x 1) and weighted sum over every token, the
+    output Linear to 2; attention over the text alone."""
+    cfg = spec.config("2a_arabert")
+    kind = spec.kind(cfg["kind"])
+    L = np.array([14, 40])
+    per_token = 2 * 768 * 512 + 2 * 512 + 2 * 768
+    want = (flops.encoder(L, 768, 3072, 12).sum() + L.sum() * per_token
+            + 2 * 2 * 768 * 2)
+    assert kind.forward_flops(cfg, 2, {"text": L}) == pytest.approx(want)
+    ops, nbytes = attention.model_need(kind.attention_parts(cfg, 2,
+                                                            {"text": L}))
+    assert ops == 12 * 4 * 768 * (14 ** 2 + 40 ** 2)
+    assert nbytes == 12 * 4 * 768 * 2 * (14 + 40)

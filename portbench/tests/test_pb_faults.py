@@ -47,3 +47,27 @@ def test_sound_run_passes(name):
     the check sees."""
     result = execute(tiny_cell(name), SEED, 1.5, False, CPU, time.time())
     assert result["correct"] is True, result["check"]
+
+
+def test_host_fed_unpacked_run_passes():
+    """A train traffic with ``device_resident`` false on an unpacked model:
+    set-up draws the rows as ``fit`` does host-fed, and the reference finds
+    each checked meme by its pixels."""
+    cell = tiny_cell("train_2b_vit384")
+    cell["traffic"] = dict(cell["traffic"], device_resident=False)
+    result = execute(cell, SEED, 1.5, False, CPU, time.time())
+    assert result["correct"] is True, result["check"]
+
+
+def test_a_checked_meme_that_no_meme_made_fails_the_run():
+    """A packed batch whose tokens were altered where they are produced
+    holds memes that none of the benchmark's memes match: no reference
+    runs, and the run fails."""
+    cell = tiny_cell("train_2a_packed")
+    session = spec.driver(cell["driver"]).Session(cell, SEED, CPU)
+    session.setup()
+    batch = session.batches[0]
+    session.batches[0] = dict(batch, t_ids=batch["t_ids"] + 1)
+    session.release()
+    with pytest.raises(ValueError, match="none of the memes made"):
+        session.ref_batches()

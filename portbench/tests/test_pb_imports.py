@@ -1,5 +1,6 @@
 """Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the PyTorch port."""
+reference (with the model kinds, which compose it) loads nothing of the
+PyTorch port."""
 
 import os
 import subprocess
@@ -45,7 +46,9 @@ def test_benchmark_modules_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_port():
-    imports = "\n".join(f"import {m}" for m in _modules("reference"))
+    """The reference, and the model kinds that hold its heads."""
+    imports = "\n".join(f"import {m}" for m in list(_modules("reference"))
+                        + list(_modules("kinds")))
     loaded = _loaded_after(imports)
     assert "mpmc_tpu_torch" not in loaded and not loaded & FORBIDDEN
     assert "portbench" in loaded

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from portbench import spec
 from portbench.data import make_memes
 from portbench.drivers.common import bucket, train_config
 from portbench.drivers.train import Recorder
@@ -19,7 +20,14 @@ from tiny import tiny_config
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("config", ["2c_flagship", "2b_vit_b16_384"])
+# The port's dropout modules with a rate, in a tiny model of each
+# configuration (two encoder layers): each encoder's embeddings and two a
+# layer; the 2C head's three; ViT has none.
+DROPOUTS = {"2c_flagship": 2 * (1 + 2 * 2) + 3, "2b_vit_b16_384": 0,
+            "2a_arabert": 1 + 2 * 2}
+
+
+@pytest.mark.parametrize("config", sorted(DROPOUTS))
 def test_forward_loss_gradients_match_the_port(config):
     from mpmc_tpu_torch.models.classifier import build_model
     from mpmc_tpu_torch.train.step import loss_from_outputs
@@ -32,30 +40,27 @@ def test_forward_loss_gradients_match_the_port(config):
     data = make_memes(cfg, traffic, 6, 7, 0, CPU)
     bucket(tc, [data])
     W = make_weights(cfg, 7, CPU)
-    model = build_model(tc.model, CPU, kind=cfg["kind"])
+    kind = spec.kind(cfg["kind"])
+    model = build_model(tc.model, CPU, kind=kind.PORT_KIND)
     model.load_state_dict(W)
     model.train()
     batch = {k: torch.from_numpy(v) for k, v in data.items()}
-    batch["image"] = nets.normalize(batch["image"])
+    if "image" in batch:
+        batch["image"] = nets.normalize(batch["image"])
     valid = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.float32)
 
     rec = Recorder(1)
     rec.attach(model)
     out = model(*[batch[k] for k in model.inputs])
     batch["drop"] = rec.steps()[0]["drop"]
-    if cfg["kind"] == "multimodal":
-        # Each encoder's embeddings and two a layer; three in the head.
-        layers = cfg["text_encoder"]["num_hidden_layers"]
-        assert len(batch["drop"]) == 2 * (1 + 2 * layers) + 3
-    else:
-        assert batch["drop"] == {}
+    assert len(batch["drop"]) == DROPOUTS[config]
     loss = loss_from_outputs(out, batch["label"], valid, tc)
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()],
                                 allow_unused=True)
 
     leaves = {n: W[n].clone().requires_grad_() for n in names}
-    ref_out = nets.LOGITS[cfg["kind"]]({**W, **leaves}, cfg, batch, True)
+    ref_out = kind.logits({**W, **leaves}, cfg, batch, True)
     ref_loss = torch.sum(ref_train.row_losses(ref_out, batch["label"], cfg)
                          * valid) / valid.sum()
     ref_grads = torch.autograd.grad(ref_loss, list(leaves.values()),
@@ -111,6 +116,36 @@ def test_optimizer_matches_the_port(mu_dtype, rtol):
                                    msg=lambda m, n=n: f"{n}: {m}")
 
 
+def test_constant_schedule_matches_the_port():
+    """2A's constant rate: Adam at the head's rate, factored RMS at the
+    encoder's, the same at every step (no warmup, no decay)."""
+    from mpmc_tpu_torch.train.step import Optimizer
+
+    cfg = copy.deepcopy(tiny_config("2a_arabert"))
+    cfg["recipe"].update(adam_mu_dtype=None, learning_rate=1e-2)
+    tc = train_config(cfg, 1, CPU)
+    shapes = {"encoder.word_embeddings.weight": (300, 128),
+              "encoder.layer_0.attention.query.weight": (16, 16),
+              "output.weight": (2, 16)}
+    g = torch.Generator().manual_seed(4)
+    start = {n: torch.randn(s, generator=g) * 1e-3 for n, s in shapes.items()}
+    port = {n: p.clone() for n, p in start.items()}
+    ref = {n: p.clone() for n, p in start.items()}
+    popt = Optimizer(tc, 10, port)
+    ropt = ref_train.Optimizer(cfg, ref, 10)
+    for _ in range(3):
+        grads = {n: torch.randn(s, generator=g) * 0.3
+                 for n, s in shapes.items()}
+        popt.step({n: v.clone() for n, v in grads.items()},
+                  Optimizer.global_norm(list(grads.values())))
+        ropt.step(ref_train.Optimizer.clip(grads, 1.0))
+    for n in shapes:
+        want = ref[n] - start[n]
+        torch.testing.assert_close(port[n] - start[n], want, rtol=1e-5,
+                                   atol=1e-4 * float(want.abs().max()),
+                                   msg=lambda m, n=n: f"{n}: {m}")
+
+
 def test_learning_rate_schedule():
     lr = [ref_train.learning_rate(1.0, s, 20, 0.1) for s in range(21)]
     assert lr[0] == 0.0 and lr[1] == 0.5 and lr[2] == 1.0
@@ -129,7 +164,7 @@ def test_recorder_keeps_each_checked_step_at_its_slot():
                "caption_tokens_max": 12}
     data = make_memes(cfg, traffic, 4, 5, 0, CPU)
     bucket(tc, [data])
-    model = build_model(tc.model, CPU, kind=cfg["kind"])
+    model = build_model(tc.model, CPU, kind=spec.kind(cfg["kind"]).PORT_KIND)
     model.load_state_dict(make_weights(cfg, 5, CPU))
     batch = {k: torch.from_numpy(v) for k, v in data.items()}
     batch["image"] = nets.normalize(batch["image"])

@@ -19,14 +19,20 @@ TRAFFIC = {"train_memes": 160, "test_memes": 12, "checked_steps": 8,
 
 def tiny_config(name: str) -> dict:
     cfg = copy.deepcopy(spec.config(name))
-    if cfg["kind"] == "multimodal":
-        for enc in ("text_encoder", "caption_encoder"):
+    for enc in ("text_encoder", "caption_encoder"):
+        if enc in cfg:
             cfg[enc].update(TEXT)
+    if "caption_encoder" in cfg:
         cfg["caption_encoder"]["max_position_embeddings"] = 162
-        cfg["image_encoder"].update(image_size=32, finetune_dim=16)
-        cfg["head"].update(proj_dim=16, max_text_len=32, max_caption_len=32)
-    else:
-        cfg["image_encoder"].update(image_size=32)
+    img = cfg.get("image_encoder")
+    if img is not None:
+        img.update(image_size=32)
+        if "finetune_dim" in img:
+            img.update(finetune_dim=16)
+    for key, size in (("proj_dim", 16), ("max_text_len", 32),
+                      ("max_caption_len", 32)):
+        if key in cfg["head"]:
+            cfg["head"][key] = size
     cfg["recipe"].update(batch_size=8, scan_steps=4, epochs=1,
                          seq_bucket_multiple=8)
     return cfg

@@ -1,6 +1,7 @@
 """Model weights from the seed, made on the device in a few large draws.
 
-``param_specs(cfg)`` names every parameter and buffer of a configuration's
+A model kind's ``param_specs(cfg)`` (``portbench/kinds/``, composed from
+the blocks here) names every parameter and buffer of a configuration's
 model, with its shape and how it is drawn; ``make_weights`` draws them.
 The same dict is loaded into the system under test and read by the plain
 reference (``portbench/reference``), so both start from the same numbers.
@@ -21,15 +22,17 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from portbench import spec
+
 Spec = Tuple[str, Tuple[int, ...], str]
 
 
-def _linear(name: str, n_in: int, n_out: int) -> List[Spec]:
+def linear_specs(name: str, n_in: int, n_out: int) -> List[Spec]:
     return [(name + ".weight", (n_out, n_in), "normal"),
             (name + ".bias", (n_out,), "zeros")]
 
 
-def _norm(name: str, n: int, batch: bool = False) -> List[Spec]:
+def norm_specs(name: str, n: int, batch: bool = False) -> List[Spec]:
     out = [(name + ".weight", (n,), "ones"), (name + ".bias", (n,), "zeros")]
     if batch:
         out += [(name + ".running_mean", (n,), "zeros"),
@@ -45,15 +48,16 @@ def text_encoder_specs(p: str, c: dict) -> List[Spec]:
     if c["type_vocab_size"] > 0:
         out.append((p + "token_type_embeddings.weight",
                     (c["type_vocab_size"], H), "normal"))
-    out += _norm(p + "embeddings_ln", H)
+    out += norm_specs(p + "embeddings_ln", H)
     for i in range(c["num_hidden_layers"]):
         lp = f"{p}layer_{i}."
         for part in ("query", "key", "value", "out"):
-            out += _linear(f"{lp}attention.{part}", H, H)
-        out += _norm(lp + "attention_ln", H)
-        out += _linear(lp + "intermediate", H, I) + _linear(lp + "output", I, H)
-        out += _norm(lp + "output_ln", H)
-    return out + _linear(p + "pooler", H, H)
+            out += linear_specs(f"{lp}attention.{part}", H, H)
+        out += norm_specs(lp + "attention_ln", H)
+        out += (linear_specs(lp + "intermediate", H, I)
+                + linear_specs(lp + "output", I, H))
+        out += norm_specs(lp + "output_ln", H)
+    return out + linear_specs(p + "pooler", H, H)
 
 
 def _conv(name: str, c_in: int, c_out: int, k: int) -> Spec:
@@ -61,19 +65,20 @@ def _conv(name: str, c_in: int, c_out: int, k: int) -> Spec:
 
 
 def resnet18_specs(p: str) -> List[Spec]:
-    out = [_conv(p + "stem_conv", 3, 64, 7)] + _norm(p + "stem_bn", 64, True)
+    out = [_conv(p + "stem_conv", 3, 64, 7)]
+    out += norm_specs(p + "stem_bn", 64, True)
     ch = 64
     for si, width in enumerate((64, 128, 256, 512)):
         for bi in range(2):
             stride = 2 if (bi == 0 and si > 0) else 1
             bp = f"{p}stage{si}_block{bi}."
             out += [_conv(bp + "conv1", ch, width, 3)]
-            out += _norm(bp + "bn1", width, True)
+            out += norm_specs(bp + "bn1", width, True)
             out += [_conv(bp + "conv2", width, width, 3)]
-            out += _norm(bp + "bn2", width, True)
+            out += norm_specs(bp + "bn2", width, True)
             if stride != 1 or ch != width:
                 out += [_conv(bp + "downsample_conv", ch, width, 1)]
-                out += _norm(bp + "downsample_bn", width, True)
+                out += norm_specs(bp + "downsample_bn", width, True)
             ch = width
     return out
 
@@ -87,41 +92,13 @@ def vit_specs(p: str, c: dict) -> List[Spec]:
            (p + "pos_embed", (1, tokens, H), "normal")]
     for i in range(c["num_hidden_layers"]):
         lp = f"{p}layer_{i}."
-        out += _norm(lp + "ln1", H)
+        out += norm_specs(lp + "ln1", H)
         for part in ("q", "k", "v", "out"):
-            out += _linear(lp + part, H, H)
-        out += _norm(lp + "ln2", H)
-        out += _linear(lp + "mlp1", H, I) + _linear(lp + "mlp2", I, H)
-    return out + _norm(p + "ln_final", H)
-
-
-def param_specs(cfg: dict) -> List[Spec]:
-    """Every parameter and buffer of the configuration's model, in the
-    system's naming."""
-    head = cfg["head"]
-    if cfg["kind"] == "image":
-        c = cfg["image_encoder"]
-        return vit_specs("backbone.", c) + _linear(
-            "output", c["hidden_size"], head["num_classes"])
-    img = cfg["image_encoder"]
-    proj, fdim = head["proj_dim"], img["finetune_dim"]
-    out = text_encoder_specs("text_model.", cfg["text_encoder"])
-    out += _linear("text_fc.fc", cfg["text_encoder"]["hidden_size"], proj)
-    out += _norm("text_fc.bn", proj, True)
-    out += resnet18_specs("image_model.backbone.")
-    out += _linear("image_model.finetune_fc1", img["feature_dim"], fdim)
-    out += _linear("image_model.finetune_fc2", fdim, fdim)
-    out += text_encoder_specs("caption_text_model.", cfg["caption_encoder"])
-    out += _linear("caption_text_fc.fc", cfg["caption_encoder"]["hidden_size"],
-                   proj)
-    out += _norm("caption_text_fc.bn", proj, True)
-    width = proj + fdim + proj
-    out += _linear("fusion.gated.gate_fc", width, width)
-    out += _norm("fusion.gated.gate_bn", width, True)
-    out += _linear("fusion.gated.reduce_fc", width, proj)
-    out += _norm("fusion.gated.reduce_bn", proj, True)
-    out += _linear("output_fc", proj, head["num_classes"])
-    return out + _norm("output_bn", head["num_classes"], True)
+            out += linear_specs(lp + part, H, H)
+        out += norm_specs(lp + "ln2", H)
+        out += (linear_specs(lp + "mlp1", H, I)
+                + linear_specs(lp + "mlp2", I, H))
+    return out + norm_specs(p + "ln_final", H)
 
 
 def sub_seed(seed: int, stream: int) -> int:
@@ -135,7 +112,7 @@ WEIGHT_STREAM = 1
 
 def make_weights(cfg: dict, seed: int, device: torch.device
                  ) -> Dict[str, torch.Tensor]:
-    specs = param_specs(cfg)
+    specs = spec.kind(cfg["kind"]).param_specs(cfg)
     g = torch.Generator(device=device).manual_seed(sub_seed(seed,
                                                            WEIGHT_STREAM))
     out: Dict[str, torch.Tensor] = {}
